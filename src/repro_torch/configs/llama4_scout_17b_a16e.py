@@ -1,0 +1,23 @@
+"""llama4-scout-17b-a16e — 16-expert top-1 MoE with shared expert.
+[hf:meta-llama/Llama-4-Scout-17B-16E; unverified]"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="llama4-scout-17b-a16e",
+    family="moe",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab=202048,
+    moe=MoEConfig(n_experts=16, top_k=1, d_ff_expert=8192,
+                  n_shared_experts=1),
+    norm="rmsnorm",
+    mlp_gated=True,
+    act="silu",
+    tie_embeddings=False,
+    rope_theta=500_000.0,
+    source="hf:meta-llama/Llama-4-Scout-17B-16E; unverified",
+)
