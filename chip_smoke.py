@@ -17,7 +17,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launch counter read around each run; then prefill logits (bf16) and
      greedy generate tokens (f32) of the kernel path are held against the
      plain path (``sparse_backend="ref"``) on the same card;
-  5. the kernel table (one JSON line) and the contract line.
+  5. paged kernel: the paged flash-decode kernel at smollm-360m's width
+     (5 kv heads of 64, g = 3, page 16) on a decode tick, a prefill tick
+     and a 4096-token decode, kv_splits 1 and 4, bf16 and f32 pools,
+     against its plain versions (the split partials and the gathered
+     softmax), timed beside the plain version, a library yardstick
+     (gather plus ``scaled_dot_product_attention``, which the port never
+     calls) and the least time the card could take; and a check that a
+     kernel-path ``attention.paged_attention`` never allocates the
+     gathered context;
+  6. engine: the serving CLI's ``--engine`` path serves 16 requests of
+     16-200 prompt tokens and 32 new tokens each through full-width
+     smollm-360m from BlockCSR, palette-8 and palette-4 weights, with the
+     launch counters read around each run (32 paged launches and 7 x 32
+     spmm launches per tick); then, in f32, the engine's greedy tokens
+     against ``generate``, the 'cuda' against the 'ref' attention backend,
+     and a prefix-cache run (shared prefix, copy-on-write boundary page)
+     against the same requests without the cache; and where a bf16 engine
+     run's time goes over a window of its ticks (torch.profiler);
+  7. the kernel table (one JSON line) and the contract line.
 
 It imports nothing of JAX or of the JAX package, and exits with an error
 when no CUDA device is visible.
@@ -26,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -42,8 +61,13 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bsr_spmm import ops, ref  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
+from repro_torch.kernels.paged_attention import ref as paged_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.model_zoo import build  # noqa: E402
+from repro_torch.serve import api  # noqa: E402
+from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.step import generate  # noqa: E402
 from repro_torch.sparse.compress import (CompressionPlan, _prune_blocks_2d,  # noqa: E402
                                          compress_params, iter_bcsr,
@@ -90,20 +114,53 @@ MATRICES = [("attn.wq", (960, 960)), ("attn.wk", (320, 960)),
 M_VALUES = (4, 512)                   # decode rows (batch 4), a prefill
 TABLE_SHAPE = ("mlp.wi", 4, torch.bfloat16)   # the row of the kernel table
 
+# Paged attention at smollm-360m's width. Kernel vs plain: the same f32
+# products summed in another order; atol 1e-4 on valid rows is the JAX
+# kernel tests' tolerance (outputs are O(1) averages of V).
+PAGED_ATOL = 1e-4
+PAGE = 16
+# (case, tick width C, absolute start of each of the 8 slots, valid tokens
+# per slot, page-table width P). Decode: contexts mixed up to 232 (the
+# engine mix's 200 + 32); prefill: chunks of 32 at mixed offsets, one
+# partial; long: a 4096-token decode.
+PAGED_CASES = [
+    ("decode", 1, (231, 17, 100, 64, 0, 199, 150, 31), (1,) * 8, 15),
+    ("prefill", 32, (0, 32, 96, 160, 0, 64, 192, 128), (32,) * 7 + (9,), 15),
+    ("long", 1, (4095,) * 8, (1,) * 8, 256),
+]
+PAGED_TABLE_ROW = ("decode", torch.bfloat16, 1)   # the row of the kernel table
+PAGED_REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:108"
+# The engine mix: 16 requests, prompts of 16-200 tokens, 32 new tokens.
+MAX_BATCH, CHUNK = 8, 32
+ENGINE_FLAGS = ["--max-batch", str(MAX_BATCH), "--prefill-chunk", str(CHUNK),
+                "--page-size", str(PAGE)]
+ENGINE_PROMPTS = [int(n) for n in np.random.default_rng(5).permutation(
+    np.linspace(16, 200, 16).astype(int))]
+ENGINE_GEN = 32
+PREFIX_LEN = 64           # shared by the prefix-cache run's 8 requests
+# The engine profile's window: ticks 30-41 of the mix's 94, 7 prefill
+# ticks (width 32) and 5 decode ticks (width 1), near the run's 50 to 44.
+PROFILE_TICKS = (30, 42)
+# where the engine runs write their request file, metrics and traces
+OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
 
 def log(*a):
     print(*a, flush=True)
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    log(f"== {name}")
+    log(f"== {name} (at {time.perf_counter() - T0:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, arg_sets) -> float:
+def time_ms(fn, arg_sets, calls: int = TIMED_CALLS) -> float:
     """Mean device time in ms of one ``fn(*args)`` call.
 
     A warm-up pass over all input sets (their total exceeds the L2, and it
@@ -119,15 +176,15 @@ def time_ms(fn, arg_sets) -> float:
         fn(*args)
     torch.cuda.synchronize()
     host_s = (time.perf_counter() - t0) / len(arg_sets)
-    timed = [arg_sets[i % len(arg_sets)] for i in range(TIMED_CALLS)]
+    timed = [arg_sets[i % len(arg_sets)] for i in range(calls)]
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(int(3 * host_s * TIMED_CALLS * SLEEP_CYCLES_PER_S))
+    torch.cuda._sleep(int(3 * host_s * calls * SLEEP_CYCLES_PER_S))
     start.record()
     for args in timed:
         fn(*args)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / TIMED_CALLS
+    return start.elapsed_time(end) / calls
 
 
 def copies(make, nbytes: int) -> list:
@@ -270,28 +327,42 @@ def _top2_margin(logits: torch.Tensor) -> float:
     return float(top[..., 0] - top[..., 1])
 
 
-def _profile_generate(model, params, prompt) -> None:
-    """Where a bf16 generate's time goes: the device time of every kernel
+def _device_rows(prof) -> tuple:
+    """(device kernel seconds, [(device ms, calls, kernel name)] largest
+    first) of a finished ``torch.profiler`` run."""
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]   # step annotations
+    attr = ("self_device_time_total" if rows and hasattr(rows[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    rows = sorted(((getattr(e, attr) / 1e3, e.count, e.key) for e in rows),
+                  reverse=True)
+    return sum(r[0] for r in rows) / 1e3, rows
+
+
+def _log_profile(what: str, wall: float, dev_s: float, rows, top: int,
+                 n_tokens: int = 0) -> None:
+    rate = f" ({n_tokens / wall:.1f} tok/s)" if n_tokens else ""
+    log(f"bf16 {what}: wall {wall:.3f} s{rate}, device kernel time "
+        f"{dev_s:.4f} s, device busy share {dev_s / wall:.3f}")
+    for ms, calls, key in rows[:top]:
+        log(f"  {ms:9.3f} ms {calls:6d} calls  {key[:70]}")
+
+
+def _profile(what: str, n_tokens: int, run, top: int) -> None:
+    """Where ``run()``'s time goes: the device time of every kernel
     (torch.profiler) against the wall time of the same call unprofiled."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    generate(model, params, prompt, GEN)
+    run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        generate(model, params, prompt, GEN)
+        run()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    attr = ("self_device_time_total" if rows and hasattr(rows[0], "self_device_time_total")
-            else "self_cuda_time_total")
-    dev_s = sum(getattr(e, attr) for e in rows) / 1e6
-    log(f"bf16 generate {GEN} tokens x {BATCH}: wall {wall:.3f} s "
-        f"({BATCH * GEN / wall:.1f} tok/s), device kernel time {dev_s:.4f} s, "
-        f"device busy share {dev_s / wall:.3f}")
-    for e in sorted(rows, key=lambda e: -getattr(e, attr))[:6]:
-        log(f"  {getattr(e, attr) / 1e3:9.3f} ms {e.count:6d} calls  {e.key[:70]}")
+    dev_s, rows = _device_rows(prof)
+    _log_profile(what, wall, dev_s, rows, top, n_tokens)
 
 
 def model_phase(dev) -> dict:
@@ -327,7 +398,8 @@ def model_phase(dev) -> dict:
         f"{time.perf_counter() - t1:.1f} s")
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                            device=dev)
-    _profile_generate(kernel_bf16, cp, prompt)
+    _profile(f"generate {GEN} tokens x {BATCH}", BATCH * GEN,
+             lambda: generate(kernel_bf16, cp, prompt, GEN), top=6)
     plain_bf16 = build(cfg, device=dev, sparse_backend="ref")
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     kernel_f32 = build(f32, device=dev)
@@ -380,6 +452,369 @@ def model_phase(dev) -> dict:
             f"plain path; {BATCH * GEN / dt:.1f} tok/s (host clock, "
             f"synchronized), peak memory {peak / 2**30:.2f} GiB, "
             f"launches {counts}")
+    return main_counts, formats
+
+
+# ---------------------------------------------------------------------------
+# paged attention
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(dev, case, dtype):
+    _, c, starts, n_tok, p_log = case
+    cfg = get_config(ARCH)
+    kv, hd, h = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
+    b = len(starts)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_pages = 1 + b * p_log
+    q = torch.randn(b, c, h, hd, device=dev, generator=gen)
+    kp = torch.randn(n_pages, PAGE, kv, hd, device=dev, generator=gen).to(dtype)
+    vp = torch.randn(n_pages, PAGE, kv, hd, device=dev, generator=gen).to(dtype)
+    table = (1 + torch.randperm(b * p_log, generator=gen, device=dev)
+             ).reshape(b, p_log).to(torch.int32)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    positions = (start[:, None] + torch.arange(c, device=dev)).to(torch.int32)
+    valid = (torch.arange(c, device=dev)[None]
+             < torch.tensor(n_tok, device=dev)[:, None])
+    return q, kp, vp, table, positions, valid
+
+
+def _grouped(q, kv):
+    b, c, h, hd = q.shape
+    return q.reshape(b, c, kv, h // kv, hd).permute(0, 2, 1, 3, 4).contiguous()
+
+
+def _paged_bound(case, kv, g, hd, elt, splits):
+    """Least time for one kernel call: the K and V bytes of the pages that
+    run (all kv heads of each running (slot, page)), q, the partials and
+    the index tables, each moved once, against the f32 FMAs of the
+    scores and the probability-times-V products of those pages."""
+    _, c, starts, _, p_log = case
+    b = len(starts)
+    runs = sum(page * PAGE <= s0 + c - 1
+               for s0 in starts for page in range(p_log))
+    nbytes = (runs * PAGE * kv * hd * elt * 2 + b * kv * c * g * hd * 4
+              + b * kv * splits * c * g * (hd + 2) * 4
+              + b * p_log * 4 + b * c * 4)
+    flops = runs * kv * 4 * c * g * PAGE * hd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else
+            "operations", int(nbytes), int(flops), int(runs))
+
+
+def _gather_sdpa(q, kp, vp, table, positions):
+    """Library yardstick: gather the page table into the dense context,
+    repeat it over the GQA groups, then ``scaled_dot_product_attention``
+    with the causal-by-absolute-position mask. The port never calls it."""
+    b, c, h, hd = q.shape
+    p_log, kv = table.shape[1], kp.shape[2]
+    ctx = p_log * PAGE
+
+    def dense(pool):
+        x = pool[table.long()].reshape(b, ctx, kv, hd).transpose(1, 2)
+        return x.repeat_interleave(h // kv, dim=1)
+
+    k_pos = torch.arange(ctx, device=q.device)
+    mask = (k_pos[None, None, :] <= positions[:, :, None])[:, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2).to(kp.dtype), dense(kp), dense(vp), attn_mask=mask)
+
+
+def paged_kernel_phase(dev) -> dict:
+    phase("paged kernel")
+    cfg = get_config(ARCH)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    g = cfg.n_heads // kv
+    rows = {}
+    for case in PAGED_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, table, positions, valid = _paged_inputs(dev, case, dtype)
+            qg = _grouped(q, kv)
+            plain_out = paged_ref.paged_attention_ref(q, kp, vp, table,
+                                                      positions)
+            for splits in (1, 4):
+                got = paged_ops.paged_flash_fwd(qg, kp, vp, table, positions,
+                                                kv_splits=splits)
+                want = paged_ref.paged_flash_fwd_ref(
+                    qg, kp, vp, table, positions, positions[:, 0],
+                    kv_splits=splits)
+                out = paged_ops.paged_flash_attention(
+                    q, kp, vp, table, positions, kv_splits=splits)
+                torch.cuda.synchronize()
+                rows_ok = valid[:, None, None, :, None]
+                part_err = 0.0
+                for x, y in zip(got, want):
+                    mask = (rows_ok[..., None] if x.dim() == 6
+                            else rows_ok).expand_as(x)
+                    if not torch.allclose(x[mask], y[mask], atol=PAGED_ATOL,
+                                          rtol=PAGED_ATOL):
+                        raise SystemExit(f"paged {case[0]} {dtype} S={splits}:"
+                                         " kernel partials disagree with plain")
+                    part_err = max(part_err, float(
+                        ((x[mask] - y[mask]).abs()
+                         / (1 + y[mask].abs())).max()))
+                err = float((out[valid] - plain_out[valid]).abs().max())
+                if not (torch.isfinite(out).all() and err <= PAGED_ATOL):
+                    raise SystemExit(f"paged {case[0]} {dtype} S={splits}: "
+                                     f"kernel disagrees with plain, {err}")
+                lib = _gather_sdpa(q, kp, vp, table, positions)
+                lib_err = float((lib.transpose(1, 2).float()[valid]
+                                 - plain_out[valid]).abs().max())
+                call_b = tensor_bytes(qg, kp, vp)
+                sets = copies(lambda: (qg.clone(), kp.clone(), vp.clone(),
+                                       table, positions), call_b)
+                kern = functools.partial(paged_ops.paged_flash_fwd,
+                                         kv_splits=splits)
+                ms = time_ms(kern, sets)
+                wrapper_ms = time_ms(functools.partial(
+                    paged_ops.paged_flash_attention, kv_splits=splits),
+                    [(q, kp_, vp_, tb, ps_) for _, kp_, vp_, tb, ps_ in sets])
+                plain_ms = time_ms(lambda *a: paged_ref.paged_flash_fwd_ref(
+                    *a, a[-1][:, 0], kv_splits=splits), sets[:3], calls=3)
+                library_ms = time_ms(_gather_sdpa, [
+                    (q, kp_, vp_, tb, ps_) for _, kp_, vp_, tb, ps_ in sets],
+                    calls=20)
+                bound_ms, bound_by, nbytes, flops, runs = _paged_bound(
+                    case, kv, g, hd, kp.element_size(), splits)
+                row = {"kernel": "paged_flash_attention", "case": case[0],
+                       "B": len(case[2]), "C": case[1], "P": case[4],
+                       "pages_run": runs, "pool": str(dtype).split(".")[-1],
+                       "kv_splits": splits, "max_abs_err": err,
+                       "partials_max_rel_err": part_err, "atol": PAGED_ATOL,
+                       "ms": ms, "wrapper_ms": wrapper_ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "library": "gather + repeat_interleave + "
+                                  "scaled_dot_product_attention",
+                       "library_max_abs_err": lib_err,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bytes": nbytes, "flops": flops}
+                log(json.dumps(row))
+                rows[(case[0], dtype, splits)] = row
+
+    # the kernel path never forms the gathered (B, P*ps, KV, hd) context
+    _, c, starts, n_tok, p_log = PAGED_CASES[2]
+    b = len(starts)
+    pools = attention.init_paged_kv(cfg, 1 + b * p_log, PAGE, torch.bfloat16,
+                                    dev)
+    p = attention.init_attention(cfg, device=dev)
+    table = (1 + torch.arange(b * p_log, device=dev)
+             ).reshape(b, p_log).to(torch.int32)
+    positions = torch.tensor(starts, dtype=torch.int32, device=dev)[:, None]
+    x = torch.randn(b, 1, cfg.d_model, device=dev).to(torch.bfloat16)
+    n_tokens = torch.tensor(n_tok, dtype=torch.int32, device=dev)
+    gathered = b * p_log * PAGE * kv * hd * 2
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        attention.paged_attention(p, x, pools, table, positions, n_tokens, cfg,
+                                  backend="cuda", kv_splits=4)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+    log(f"kernel-path paged_attention at B={b}, P={p_log}: peak rise {rise} "
+        f"bytes vs {gathered} bytes of gathered context")
+    if rise >= gathered:
+        raise SystemExit("the kernel path allocated a gathered context")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# engine
+# ---------------------------------------------------------------------------
+
+def _engine_requests(vocab: int) -> list:
+    rng = np.random.default_rng(7)
+    return [api.Request(prompt=rng.integers(0, vocab, n),
+                        max_new_tokens=ENGINE_GEN) for n in ENGINE_PROMPTS]
+
+
+def _prefix_requests(vocab: int) -> list:
+    """8 requests sharing a 64-token prefix, then half a page more of
+    common tokens (so that a warm request's match ends mid-page and the
+    boundary page is copied on write), then a private tail."""
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, vocab, PREFIX_LEN + PAGE // 2)
+    return [api.Request(prompt=np.concatenate(
+                [shared, rng.integers(0, vocab, 8 + i)]),
+            max_new_tokens=ENGINE_GEN) for i in range(8)]
+
+
+def _engine_cli_run(tag: str, extra: list, req_file: Path) -> tuple:
+    """One run of ``launch/serve --engine`` on the card; the launch counters
+    are set to 0 just before it and read just after."""
+    argv = ["--arch", ARCH, "--sparse", "--engine", "--requests",
+            str(req_file), *ENGINE_FLAGS, "--block", *map(str, BLOCK),
+            "--sparsity", str(SPARSITY), "--metrics-out",
+            str(OUT_DIR / f"engine_{tag}.prom"), "--trace-out",
+            str(OUT_DIR / f"engine_{tag}.trace.json"), *extra]
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    paged_ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = serve.main(argv)
+    torch.cuda.synchronize()
+    counts = {**ops.launches, **paged_ops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"serve {' '.join(argv)}")
+    for line in buf.getvalue().splitlines()[-6:]:
+        log(f"  {line}")
+    s = out["stats"]
+    log(f"  launches {counts}, peak memory {peak / 2**30:.2f} GiB, run "
+        f"{time.perf_counter() - t0:.1f} s")
+    if s["n_requests"] != len(ENGINE_PROMPTS) or \
+            s["n_generated"] != len(ENGINE_PROMPTS) * ENGINE_GEN:
+        raise SystemExit(f"engine {tag}: served {s['n_requests']} requests, "
+                         f"{s['n_generated']} tokens")
+    return counts, s, peak
+
+
+def _divergence_ok(model, params, prompt, ref_tokens, got_tokens,
+                   what: str) -> int:
+    """Tokens matched before the first difference; raises unless the
+    reference's top-2 logit margin at that step is a near tie."""
+    ref_tokens = [int(t) for t in ref_tokens]
+    got_tokens = [int(t) for t in got_tokens]
+    if ref_tokens == got_tokens:
+        return len(ref_tokens)
+    t = next(i for i, (a, b) in enumerate(zip(ref_tokens, got_tokens))
+             if a != b)
+    seq = torch.tensor(list(prompt) + ref_tokens[:t], device=model.device)[None]
+    with torch.inference_mode():
+        logits = model.prefill(params, seq, model.init_cache(1, seq.shape[1]))[0]
+    margin = _top2_margin(logits)
+    log(f"{what}: first differs at step {t}, top-2 margin {margin:.3e}")
+    if margin >= F32_LOGITS_ATOL:
+        raise SystemExit(f"{what}: greedy tokens differ away from a near-tie")
+    return t
+
+
+def _engine(model, params, requests, **kw) -> ServeEngine:
+    max_seq = max(len(r.prompt) + r.max_new_tokens for r in requests)
+    return ServeEngine(model, params, EngineConfig(
+        max_batch=MAX_BATCH, prefill_chunk=CHUNK, page_size=PAGE,
+        max_seq_len=max_seq,
+        **kw))
+
+
+def _profile_engine_window(engine, requests) -> None:
+    """Where a bf16 engine run's time goes, over the ticks
+    ``PROFILE_TICKS``: the device time of every kernel (torch.profiler)
+    against the host-clock time of the same ticks in an unprofiled run of
+    the same requests (each tick ends in its device sync). A window keeps
+    the profiler's own parse of the trace short."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    first, last = PROFILE_TICKS
+
+    def drive(after_tick):
+        for r in requests:
+            engine.submit(r)
+        tick = 0
+        while engine.scheduler.has_work():
+            engine.step()
+            after_tick(tick)
+            tick += 1
+
+    ends = {}
+    drive(lambda i: ends.__setitem__(i, time.perf_counter()))
+    wall = ends[last - 1] - ends[first - 1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=first - 1, warmup=1,
+                                   active=last - first, repeat=1)) as prof:
+        drive(lambda i: prof.step())
+    dev_s, rows = _device_rows(prof)
+    _log_profile(f"engine, {len(requests)} requests, ticks {first}-{last - 1} "
+                 f"of {len(ends)}", wall, dev_s, rows, top=8)
+
+
+def engine_phase(dev, formats) -> dict:
+    phase("engine: serving CLI --engine (the main path)")
+    cfg = get_config(ARCH)
+    requests = _engine_requests(cfg.vocab)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    req_file = OUT_DIR / "engine_requests.json"
+    req_file.write_text(json.dumps(
+        [{"prompt": list(r.prompt), "gen": r.max_new_tokens}
+         for r in requests]))
+    main_counts = {}
+    for fmt, extra, wrapper in (("bcsr", [], "spmm"),
+                                ("pal8", ["--quantize-bits", "8"], "spmm_palette"),
+                                ("pal4", ["--quantize-bits", "4"], "spmm_palette")):
+        counts, s, peak = _engine_cli_run(fmt, extra, req_file)
+        ticks, layers = s["n_ticks"], cfg.n_layers
+        other = "spmm" if wrapper == "spmm_palette" else "spmm_palette"
+        if counts["paged_flash_fwd"] != layers * ticks or \
+                counts[wrapper] != 7 * layers * ticks or counts[other]:
+            raise SystemExit(f"engine {fmt}: launches {counts} over {ticks} "
+                             f"ticks, expected {layers * ticks} paged and "
+                             f"{7 * layers * ticks} {wrapper} only")
+        log(f"engine {fmt} bf16: {s['tok_s']:.1f} tok/s, ttft p50/p95 "
+            f"{s['ttft_p50_s'] * 1e3:.1f}/{s['ttft_p95_s'] * 1e3:.1f} ms, "
+            f"{ticks} ticks, {s['n_prefill_chunks']} prefill chunks, kv "
+            f"pool {s['kv_page_bytes']} bytes, peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        main_counts[fmt] = counts["paged_flash_fwd"]
+
+    phase("engine: bf16 profile")
+    _profile_engine_window(_engine(build(cfg, device=dev), formats["bcsr"],
+                                   requests), requests)
+
+    phase("engine: f32 tokens against generate, backends, prefix cache")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    kernel_f32 = build(f32, device=dev)
+    for fmt, params in formats.items():
+        engine = _engine(kernel_f32, params, requests, attn_backend="cuda")
+        ops.reset_launches()
+        paged_ops.reset_launches()
+        out = engine.run(requests)
+        ticks = out["stats"]["n_ticks"]
+        if paged_ops.launches["paged_flash_fwd"] != cfg.n_layers * ticks:
+            raise SystemExit(f"{fmt}: f32 engine paged launches "
+                             f"{paged_ops.launches} over {ticks} ticks")
+        matched = 0
+        for rid, r in enumerate(requests):
+            ref_toks = generate(kernel_f32, params, torch.tensor(
+                r.prompt_ids, device=dev)[None], ENGINE_GEN)[0]
+            matched += _divergence_ok(kernel_f32, params, r.prompt, ref_toks,
+                                      out["results"][rid],
+                                      f"{fmt} engine vs generate rid {rid}")
+        log(f"{fmt}: f32 engine {matched}/{len(requests) * ENGINE_GEN} tokens "
+            f"match generate on the kernel path ({ticks} ticks, "
+            f"{out['stats']['tok_s']:.1f} tok/s)")
+        if fmt == "bcsr":
+            cuda_out = out
+
+    params = formats["bcsr"]
+    out = _engine(kernel_f32, params, requests, attn_backend="ref").run(requests)
+    matched = sum(_divergence_ok(kernel_f32, params, r.prompt,
+                                 cuda_out["results"][rid], out["results"][rid],
+                                 f"bcsr engine cuda vs ref rid {rid}")
+                  for rid, r in enumerate(requests))
+    log(f"bcsr: f32 engine, attn backend ref vs cuda: {matched}/"
+        f"{len(requests) * ENGINE_GEN} tokens match")
+
+    prefix_reqs = _prefix_requests(cfg.vocab)
+    runs = {}
+    for cached in (False, True):
+        engine = _engine(kernel_f32, params, prefix_reqs, attn_backend="cuda",
+                         prefix_cache=cached)
+        results = {}
+        for wave in (prefix_reqs[:1], prefix_reqs[1:]):
+            results.update(engine.run(wave)["results"])
+        runs[cached] = (engine, results)
+    engine, with_cache = runs[True]
+    cow = int(engine.scheduler._m_cow.value())
+    hit = engine.prefix_cache.tokens_hit
+    if cow < 1 or hit < 7 * (PREFIX_LEN + PAGE // 2):
+        raise SystemExit(f"prefix cache: {cow} copy-on-write pages, {hit} "
+                         "tokens hit")
+    matched = sum(_divergence_ok(kernel_f32, params, r.prompt,
+                                 runs[False][1][rid], with_cache[rid],
+                                 f"prefix cache rid {rid}")
+                  for rid, r in enumerate(prefix_reqs))
+    log(f"bcsr: f32 engine with prefix cache ({hit} prompt tokens hit, {cow} "
+        f"copy-on-write pages): {matched}/{len(prefix_reqs) * ENGINE_GEN} "
+        "tokens match the run without it")
     return main_counts
 
 
@@ -391,7 +826,9 @@ def main() -> int:
     card = device_phase(dev)
     build_phase()
     rows = kernel_phase(dev)
-    launches = model_phase(dev)
+    launches, formats = model_phase(dev)
+    paged_rows = paged_kernel_phase(dev)
+    paged_launches = engine_phase(dev, formats)
 
     phase("kernel table")
     mat, m_rows, x_dtype = TABLE_SHAPE
@@ -409,6 +846,17 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": f"{mat} {r['shape']} M={m_rows} x={r['x']}",
             "card": card})
+    r = paged_rows[PAGED_TABLE_ROW]
+    table.append({
+        "name": "paged_flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        "replaces": PAGED_REPLACES, "launches": paged_launches["bcsr"],
+        "max_abs_err": max(v["max_abs_err"] for v in paged_rows.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": f"{r['case']} B={r['B']} C={r['C']} P={r['P']} "
+                 f"pool={r['pool']} kv_splits={r['kv_splits']}",
+        "card": card})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Serving launcher: batched generation, optionally from compressed weights.
+"""Serving launcher: batched generation or the continuous-batching
+engine, optionally from compressed weights.
 
-Port of the non-engine path of ``repro.launch.serve``:
+Port of ``repro.launch.serve``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --batch 4 --prompt-len 16 --gen 32 --sparse [--quantize-bits 8|4]
@@ -13,20 +14,33 @@ compressed projection runs the CUDA spmm kernels in prefill and decode.
 compressed checkpoint written by the JAX package's ``launch/train
 --sparse``. Either way the per-matrix size table and the dense / bcsr /
 palette byte line are printed. The model runs on ``--device`` (``cuda``).
+
+``--engine`` serves a ``--requests`` mix through the continuous-batching
+engine (``serve/engine.py``): paged KV pools, chunked prefill interleaved
+with decode, priority classes with preemption, an optional radix prefix
+cache, and the paged flash-decode CUDA kernel for attention
+(``--attn-backend``). ``--parity-check`` holds every request's greedy
+tokens against ``generate``; ``--metrics-out`` and ``--trace-out`` write
+the metrics registry and a Chrome trace of the run.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core.metrics import model_size_bytes
 from repro_torch.models.model_zoo import build
+from repro_torch.obs.trace import Tracer
+from repro_torch.serve import api
 from repro_torch.serve.api import SamplingParams
+from repro_torch.serve.engine import EngineConfig, ServeEngine
 from repro_torch.serve.step import generate
 from repro_torch.sparse.compress import (CompressionPlan, bcsr_equiv_size_bytes,
                                          compress_params, compressed_size_bytes,
@@ -34,13 +48,8 @@ from repro_torch.sparse.compress import (CompressionPlan, bcsr_equiv_size_bytes,
                                          iter_bcsr, prune_blocks_for_plan)
 from repro_torch.sparse.formats import PaletteBCSR
 
-_ENGINE = "the continuous-batching engine slice (ROADMAP Queue 1 item 7)"
 _NOT_PORTED = {
-    **{f: _ENGINE for f in (
-        "--engine", "--max-batch", "--prefill-chunk", "--page-size",
-        "--first-chunk", "--attn-backend", "--kv-splits", "--prefix-cache",
-        "--priority", "--requests", "--parity-check", "--metrics-out",
-        "--trace-out", "--profile")},
+    "--profile": "the kernel profiler (ROADMAP Queue 1 item 8)",
     "--replicas": "the router slice (ROADMAP Queue 1 item 11)",
     "--route": "the router slice (ROADMAP Queue 1 item 11)",
     "--mesh": "the multi-device slice (ROADMAP Queue 1 item 12)",
@@ -96,6 +105,56 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu runs the plain "
                          "PyTorch versions of the kernels)")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve through the continuous-batching engine "
+                         "(serve/engine.py): paged KV pools, chunked "
+                         "prefill, priority classes with preemption over a "
+                         "fixed-capacity slot batch")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="engine slot capacity (concurrent requests)")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="prompt tokens consumed per slot per engine tick; "
+                         "longer prompts prefill across ticks, interleaved "
+                         "with running decodes")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV page length (tokens) of the paged cache")
+    ap.add_argument("--first-chunk", type=int, default=0,
+                    help="jumbo width for the FIRST prefill chunk of a long "
+                         "prompt (> --prefill-chunk; 0 = off)")
+    ap.add_argument("--attn-backend", default="auto",
+                    choices=["auto", "cuda", "ref"],
+                    help="paged attention of the engine step: 'cuda' = the "
+                         "paged flash-decode kernel (its plain version on "
+                         "the CPU), 'ref' = gather then softmax, 'auto' = "
+                         "cuda on a card, ref on the CPU")
+    ap.add_argument("--kv-splits", type=int, default=1,
+                    help="flash-decode KV-split lanes per slot on the cuda "
+                         "backend")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="with --engine: radix-tree prefix caching; requests "
+                         "sharing a prompt prefix share physical KV pages "
+                         "(refcounted, copy-on-write on the first diverging "
+                         "page)")
+    ap.add_argument("--priority", default="standard",
+                    help="default scheduling class of --engine requests: "
+                         "interactive | standard | batch, or an int >= 0 "
+                         "(0 = most important)")
+    ap.add_argument("--requests", default="",
+                    help="JSON request mix for --engine: a list of "
+                         '{"prompt_len": N, "gen": M} (seeded random '
+                         'prompt) or {"prompt": [ids], "gen": M} entries, '
+                         'each with an optional "priority"; default: '
+                         "--batch copies of --prompt-len/--gen")
+    ap.add_argument("--parity-check", action="store_true",
+                    help="with --engine (greedy): also run every request "
+                         "through generate() and fail on any token mismatch")
+    ap.add_argument("--metrics-out", default="",
+                    help="with --engine: write the metrics registry after "
+                         "the run (Prometheus text, or JSON for a .json "
+                         "path)")
+    ap.add_argument("--trace-out", default="",
+                    help="with --engine: write a Chrome trace-event / "
+                         "Perfetto JSON of the run")
     return ap
 
 
@@ -142,6 +201,8 @@ def main(argv=None):
     else:
         params = model.init(gen)
 
+    if args.engine:
+        return _run_engine(model, params, args)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -157,6 +218,128 @@ def main(argv=None):
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s)")
     print("sample:", out[0, :16].tolist())
+    return out
+
+
+def _sampling(args) -> SamplingParams:
+    return SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                          top_p=args.top_p)
+
+
+def _load_requests(args, vocab: int) -> list:
+    """``api.Request`` list from --requests JSON (or the --batch /
+    --prompt-len / --gen defaults), validated against the typed schema.
+    Random prompts are seeded by request index, so a mix is reproducible
+    (the reference seeds them through ``jax.random``: the ids differ)."""
+    if args.requests:
+        with open(args.requests) as f:
+            try:
+                spec = json.load(f)
+            except json.JSONDecodeError as e:
+                raise SystemExit(f"--requests {args.requests}: not valid "
+                                 f"JSON ({e})")
+    else:
+        spec = [{"prompt_len": args.prompt_len, "gen": args.gen}
+                for _ in range(args.batch)]
+    try:
+        entries = api.parse_request_file(spec, default_gen=args.gen,
+                                         default_priority=args.priority)
+    except api.ApiValidationError as e:
+        raise SystemExit(f"--requests {args.requests or '(defaults)'}: {e}")
+    out = []
+    for i, e in enumerate(entries):
+        ids = e["prompt"]
+        if ids is None:
+            ids = np.random.default_rng([1234, i]).integers(
+                0, vocab, e["prompt_len"]).astype(np.int32)
+        out.append(api.Request(prompt=ids,
+                               max_new_tokens=e["max_new_tokens"],
+                               eos_id=e["eos_id"], priority=e["priority"],
+                               sampling=e["sampling"]))
+    return out
+
+
+def _engine_config(args, max_seq: int) -> EngineConfig:
+    return EngineConfig(max_batch=args.max_batch,
+                        prefill_chunk=args.prefill_chunk,
+                        page_size=args.page_size, max_seq_len=max_seq,
+                        first_chunk=args.first_chunk or None,
+                        attn_backend=args.attn_backend,
+                        kv_splits=args.kv_splits,
+                        prefix_cache=args.prefix_cache,
+                        sampling=_sampling(args))
+
+
+def _ms(x) -> str:
+    """Milliseconds for printing; percentiles over no records are None."""
+    return "-" if x is None else f"{x * 1e3:.0f}"
+
+
+def _check_parity(model, params, args, requests, results) -> None:
+    if args.temperature > 0:
+        raise SystemExit("--parity-check needs greedy decoding "
+                         "(--temperature 0)")
+    for rid, r in enumerate(requests):
+        prompt = torch.as_tensor(r.prompt_ids, device=model.device)[None]
+        ref = generate(model, params, prompt, r.max_new_tokens)[0]
+        ref = ref.cpu().numpy()
+        got = np.asarray(results[rid])
+        if r.eos_id is not None and r.eos_id in ref.tolist():
+            ref = ref[:ref.tolist().index(r.eos_id) + 1]
+        if not np.array_equal(ref, got):
+            raise SystemExit(
+                f"engine-vs-generate token mismatch for request {rid} "
+                f"(prompt_len={len(r.prompt)}): {got.tolist()} != "
+                f"{ref.tolist()}")
+    print(f"engine-vs-generate parity OK ({len(requests)} requests)")
+
+
+def _run_engine(model, params, args) -> dict:
+    """The --engine path: continuous batching over paged KV pools."""
+    requests = _load_requests(args, model.cfg.vocab)
+    max_seq = max(len(r.prompt) + r.max_new_tokens for r in requests)
+    tracer = Tracer() if args.trace_out else None
+    gen = (torch.Generator(device=model.device).manual_seed(1)
+           if args.temperature > 0 else None)
+    engine = ServeEngine(model, params, _engine_config(args, max_seq),
+                         generator=gen, tracer=tracer)
+    pb = engine.pool_bytes
+    print(f"engine pools: kv_pages={pb['kv_page_bytes'] / 2**20:.2f} MiB "
+          f"({engine.config.max_batch} slots)")
+    try:
+        out = engine.run(requests)
+    except api.ApiValidationError as e:
+        raise SystemExit(f"--engine: {e}")
+    s = out["stats"]
+    print(f"engine: {s['n_requests']} requests "
+          f"({s['n_prompt']} prompt + {s['n_generated']} new tokens) in "
+          f"{s['wall_s']:.2f}s = {s['tok_s']:.1f} tok/s | "
+          f"ttft p50/p95 {_ms(s['ttft_p50_s'])}/{_ms(s['ttft_p95_s'])}ms"
+          f" | latency p50/p95 {_ms(s['latency_p50_s'])}/"
+          f"{_ms(s['latency_p95_s'])}ms | {s['n_ticks']} ticks, "
+          f"{s['n_prefill_chunks']} prefill chunks | pools "
+          f"kv={s['kv_page_bytes']} bytes")
+    if len(s["by_class"]) > 1 or s["n_preemptions"]:
+        for c, cs in s["by_class"].items():
+            print(f"  class {c}: {cs['n_requests']} requests "
+                  f"({cs['n_preempted']} preempted) | ttft p50/p95 "
+                  f"{_ms(cs['ttft_p50_s'])}/{_ms(cs['ttft_p95_s'])}ms")
+        print(f"  {s['n_preemptions']} preemptions")
+    if args.prefix_cache:
+        print(f"  prefix cache: hit rate {s['prefix_hit_rate']:.1%} "
+              f"({s['n_cached_tokens']} prompt tokens served from cache)")
+    if args.metrics_out:
+        if args.metrics_out.endswith(".json"):
+            engine.metrics.save_json(args.metrics_out)
+        else:
+            engine.metrics.save_prometheus(args.metrics_out)
+        print(f"metrics -> {args.metrics_out}")
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"trace -> {args.trace_out} ({len(tracer.events)} events)")
+    print("sample:", [int(t) for t in out["results"][0][:16]])
+    if args.parity_check:
+        _check_parity(model, params, args, requests, out["results"])
     return out
 
 

@@ -1,14 +1,15 @@
-"""GQA attention with streaming softmax, QK-norm, sliding windows, RoPE
-and a ring-buffer KV cache for decode.
+"""GQA attention with streaming softmax, QK-norm, sliding windows, RoPE,
+a ring-buffer KV cache for decode and block-paged KV pools for the
+continuous-batching engine.
 
-Port of the non-paged half of ``repro.models.attention``. Scores and the
-probability-times-V product are accumulated in f32 from compute-dtype
-operands, as the reference's ``preferred_element_type=float32`` einsums do.
-The mask value is -1e30, not -inf.
+Port of ``repro.models.attention``. Scores and the probability-times-V
+product are accumulated in f32 from compute-dtype operands, as the
+reference's ``preferred_element_type=float32`` einsums do. The mask value
+is -1e30, not -inf.
 
-The decode and prefill paths write the new K/V into the cache tensors in
-place (the reference returns a new cache; updating in place saves a copy
-of the whole cache per step). They still return the cache dict.
+The decode, prefill and paged paths write the new K/V into the cache
+tensors in place (the reference returns a new cache; updating in place
+saves a copy of the whole cache per step). They still return the cache.
 
 The q/k/v/o projections take an optional ``sparse`` dict of BlockCSR /
 PaletteBCSR weights ({"wq"|"wk"|"wv"|"wo": ...} in (out, in) layout) that
@@ -21,6 +22,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention import ops as paged_kops
+from repro_torch.kernels.paged_attention import ref as paged_kref
 from repro_torch.models.layers import (apply_norm, apply_rope, init_norm,
                                        truncated_normal_init)
 from repro_torch.sparse import ops as sparse_ops
@@ -240,3 +243,95 @@ def prefill_attention(p: dict, x: Tensor, cache: dict, positions: Tensor,
     out = chunked_attention(q, k, v, causal=True, window=cfg.attn_window)
     y = _out_proj(p, out, x.dtype, sparse, backend)
     return y, _write_prefill_cache(cache, k, v, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Paged attention (continuous-batching engine, serve/paged_kv.py)
+# ---------------------------------------------------------------------------
+
+def init_paged_kv(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
+                  device=None) -> dict:
+    """Per-layer block-paged KV pool: K/V stored as (n_pages, page_size, kv,
+    hd) pages shared by every request slot. Page 0 is the engine's trash
+    page: never allocated to a request, so masked-out token writes land
+    there harmlessly. With ``kv_cache_dtype='int8'`` pages hold int8 K/V
+    plus one f32 scale per (page, offset, head)."""
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (n_pages, page_size, kv, hd)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros((n_pages, page_size, kv, 1),
+                                       device=device),
+                "v_scale": torch.zeros((n_pages, page_size, kv, 1),
+                                       device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_attention(p: dict, x: Tensor, cache: dict, page_table: Tensor,
+                    positions: Tensor, n_tokens: Tensor, cfg: ModelConfig,
+                    sparse: Optional[dict] = None, backend: str = "auto",
+                    kv_splits: int = 1, sparse_backend: str = "auto"
+                    ) -> tuple[Tensor, dict]:
+    """Mixed prefill/decode attention against a block-paged KV pool.
+
+    x: (B, C, d): B engine slots, up to C new tokens each; slot i carries
+    ``n_tokens[i]`` valid tokens at absolute positions ``positions[i, :]``
+    (decode slots 1, prefill slots a chunk, inactive slots 0). cache:
+    {"k", "v"} (n_pages, page_size, kv, hd) pools; page_table: (B, P)
+    physical page of each slot's logical page p (covering positions
+    [p*page_size, (p+1)*page_size)), 0 for unallocated entries.
+
+    The new K/V are written into each slot's pages first, in place
+    (invalid tokens go to the trash page 0), then every query attends over
+    its slot's pages under a causal-by-absolute-position mask, so one call
+    serves any mix of prefill chunks and single-token decodes. Invalid
+    queries read finite garbage that is discarded downstream. Returns
+    (y, cache).
+
+    ``backend`` picks the attention product: 'cuda' (the port's name for
+    the reference's 'pallas') runs the hand-written paged flash-decode
+    kernel (``kernels/paged_attention``; its plain version for CPU
+    tensors), which never forms the gathered ``(B, P*page_size, ...)``
+    context, with the page walk cut into ``kv_splits`` splits; 'ref'
+    gathers the whole page table and takes the softmax; 'auto' is 'cuda'
+    for a CUDA tensor and 'ref' for a CPU one. ``sparse_backend`` is the
+    projections' (``sparse.ops.sparse_matmul``)."""
+    b, c = x.shape[0], x.shape[1]
+    ps = cache["k"].shape[1]
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, sparse,
+                                   sparse_backend)
+
+    valid = (torch.arange(c, dtype=torch.int32, device=x.device)[None, :]
+             < n_tokens[:, None])
+    logical = (positions // ps).clamp(0, page_table.shape[1] - 1)
+    phys = torch.gather(page_table, 1, logical.long())
+    phys = torch.where(valid, phys, 0).reshape(-1).long()       # trash page
+    offs = (positions % ps).reshape(-1).long()
+    if cfg.kv_cache_dtype == "int8":
+        # quantize the new chunk per (slot, position, head) and write codes
+        # and scales; the attention product runs on a pool dequantized once
+        # per call, as in the reference
+        for name, new in (("k", k_new), ("v", v_new)):
+            qn, sc = _quantize_heads(new)
+            cache[name][phys, offs] = qn.reshape(b * c, *qn.shape[2:])
+            cache[name + "_scale"][phys, offs] = sc.reshape(b * c,
+                                                            *sc.shape[2:])
+        k_pool = _dequantized(cache, "k", x.dtype)
+        v_pool = _dequantized(cache, "v", x.dtype)
+    else:
+        for name, new in (("k", k_new), ("v", v_new)):
+            pool = cache[name]
+            pool[phys, offs] = new.reshape(b * c, *new.shape[2:]).to(pool.dtype)
+        k_pool, v_pool = cache["k"], cache["v"]
+
+    if sparse_ops.resolve_backend(backend, x) == "cuda":
+        out = paged_kops.paged_flash_attention(
+            q, k_pool, v_pool, page_table, positions,
+            window=cfg.attn_window, kv_splits=kv_splits)
+    else:
+        out = paged_kref.paged_attention_ref(q, k_pool, v_pool, page_table,
+                                             positions, window=cfg.attn_window)
+    y = _out_proj(p, out.to(x.dtype), x.dtype, sparse, sparse_backend)
+    return y, cache

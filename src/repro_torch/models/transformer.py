@@ -14,6 +14,8 @@ Entry points, each taking raw params or ``CompressedParams``:
     init_cache(batch, seq_len)             -> ring KV cache
     prefill(params, prompt, cache)         -> last-position logits, cache
     decode_step(params, tok, cache, pos)   -> logits, cache
+    paged_step(params, tokens, pools, page_table, start_pos, n_tokens)
+                                           -> last-valid-token logits, pools
 
 Compressed projections (attention q/k/v/o, MLP, head) run ``sparse_matmul``
 with the model's ``sparse_backend`` ('auto': the CUDA kernels for tensors
@@ -231,3 +233,36 @@ class Model:
                                                  self.sparse_backend)
             x = self._ffn(p, x + mix, sp)
         return self.head(params, x[:, -1:])[:, 0], cache
+
+    def paged_step(self, params, tokens: Tensor, pools: dict,
+                   page_table: Tensor, start_pos: Tensor, n_tokens: Tensor,
+                   backend: str = "auto",
+                   kv_splits: int = 1) -> tuple[Tensor, dict]:
+        """Continuous-batching mixed step over a fixed-capacity slot batch.
+
+        tokens: (B, C) ids, up to C new tokens per slot (decode slots carry
+        1, prefill slots a chunk, inactive slots 0, see ``n_tokens``);
+        pools: the paged KV tree of ``serve.paged_kv.init_paged_cache``,
+        updated in place; page_table: (B, P) int32; start_pos, n_tokens:
+        (B,) int32. Returns (f32 logits at each slot's LAST valid token
+        (B, vocab), pools): one call serves any prefill/decode mix of an
+        engine tick. ``backend`` and ``kv_splits`` pick the paged attention
+        ('cuda': the paged flash-decode kernel, 'ref': gather then softmax,
+        'auto': by the tensors' device; see ``attention.paged_attention``).
+        """
+        dense, sparse = _split_params(params)
+        cfg = self.cfg
+        x = self._embed(dense, tokens)
+        c = x.shape[1]
+        positions = (start_pos[:, None]
+                     + torch.arange(c, dtype=torch.int32, device=x.device))
+        for p, sp, cache in self._layers(dense, sparse, pools):
+            h = apply_norm(p["pre_norm"], x, cfg.norm)
+            mix, _ = attention.paged_attention(
+                p["attn"], h, cache["attn"], page_table, positions, n_tokens,
+                cfg, sp.get("attn"), backend=backend, kv_splits=kv_splits,
+                sparse_backend=self.sparse_backend)
+            x = self._ffn(p, x + mix, sp)
+        last = (n_tokens.long() - 1).clamp(0, c - 1)
+        xl = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
+        return self.head(params, xl)[:, 0], pools

@@ -29,11 +29,13 @@ from repro_torch.sparse.formats import PaletteBCSR
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
     """'auto' -> 'cuda' for a CUDA tensor, 'ref' for a CPU one; validates
-    explicit choices."""
+    explicit choices. The paged attention of the engine dispatches through
+    it too, as in the reference."""
     if backend == "auto":
         return "cuda" if x.is_cuda else "ref"
     if backend not in ("cuda", "ref"):
-        raise ValueError(f"unknown sparse backend {backend!r}")
+        raise ValueError(f"unknown backend {backend!r}: 'auto', 'cuda' or "
+                         "'ref'")
     return backend
 
 

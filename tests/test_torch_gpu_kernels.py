@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.bsr_spmm import ops, ref
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.sparse.compress import quantize_bcsr
 from repro_torch.sparse.formats import dense_to_bcsr
 
@@ -94,3 +96,88 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take():
         ops.spmm(torch.ones(4, 128, device=dev), w)        # W still on the CPU
     with pytest.raises(TypeError):
         ops.spmm(torch.ones(4, 128, device=dev, dtype=torch.float16), w.to(dev))
+
+
+# -- paged flash-decode attention (csrc/paged_attention.cu) -----------------
+
+def _paged_case(dev, *, g, ps, dtype, b=4, kv=2, hd=64, c=5, p_log=7,
+                starts=(0, 9, 30, 0), n_tok=(5, 1, 3, 0)):
+    """A mixed tick over pools of garbage (trash page included); slot 3 is
+    inactive, its page-table row all zeros."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    n_pages = 1 + b * p_log
+    q = torch.randn(b, c, kv * g, hd, device=dev, generator=gen)
+    kp = torch.randn(n_pages, ps, kv, hd, device=dev, generator=gen).to(dtype)
+    vp = torch.randn(n_pages, ps, kv, hd, device=dev, generator=gen).to(dtype)
+    table = (1 + torch.randperm(b * p_log, generator=gen, device=dev)
+             .reshape(b, p_log)).to(torch.int32)
+    table[3] = 0
+    starts = torch.tensor(starts, dtype=torch.int32, device=dev)
+    positions = (starts[:, None] + torch.arange(c, device=dev)).to(torch.int32)
+    valid = torch.arange(c, device=dev)[None] < torch.tensor(n_tok, device=dev)[:, None]
+    return q, kp, vp, table, positions, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("window", [None, 8])
+@pytest.mark.parametrize("splits", [1, 3, 7])
+@pytest.mark.parametrize("ps,dtype", [(16, torch.bfloat16), (16, torch.float32),
+                                      (12, torch.bfloat16), (48, torch.float32)])
+def test_cuda_paged_attention_matches_plain(g, window, splits, ps, dtype):
+    dev = _cuda()
+    q, kp, vp, table, positions, valid = _paged_case(dev, g=g, ps=ps,
+                                                     dtype=dtype)
+    kv = kp.shape[2]
+    b, c, h, hd = q.shape
+    qg = q.reshape(b, c, kv, g, hd).permute(0, 2, 1, 3, 4).contiguous()
+    before = paged_ops.launches["paged_flash_fwd"]
+    got = paged_ops.paged_flash_fwd(qg, kp, vp, table, positions,
+                                    window=window, kv_splits=splits)
+    assert paged_ops.launches["paged_flash_fwd"] == before + 1
+    torch.cuda.synchronize()
+    want = paged_ref.paged_flash_fwd_ref(qg, kp, vp, table, positions,
+                                         positions[:, 0], window=window,
+                                         kv_splits=splits)
+    rows = valid[:, None, None, :, None]           # (B, 1, 1, C, 1)
+    for name, x, y in zip(("acc", "m", "l"), got, want):
+        assert torch.isfinite(x).all(), name
+        mask = (rows[..., None] if x.dim() == 6 else rows).expand_as(x)
+        torch.testing.assert_close(x[mask], y[mask], atol=1e-4, rtol=1e-4,
+                                   msg=name)
+    out = paged_ops.paged_flash_attention(q, kp, vp, table, positions,
+                                          window=window, kv_splits=splits)
+    plain = paged_ref.paged_attention_ref(q, kp, vp, table, positions,
+                                          window=window)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out[valid], plain[valid], atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_paged_attention_never_gathers_the_context():
+    """The torch-side form of the reference's jaxpr check: a kernel-path
+    ``attention.paged_attention`` call allocates less than the gathered
+    (B, P*ps, KV, hd) context it avoids."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    dev = _cuda()
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=1)
+    b, ps, p_log = 8, 16, 256
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    pools = attention.init_paged_kv(cfg, 1 + b * p_log, ps, torch.bfloat16,
+                                    dev)
+    p = attention.init_attention(cfg, device=dev)
+    table = (1 + torch.arange(b * p_log, device=dev).reshape(b, p_log)).to(torch.int32)
+    positions = torch.full((b, 1), p_log * ps - 1, dtype=torch.int32, device=dev)
+    x = torch.randn(b, 1, cfg.d_model, device=dev).to(torch.bfloat16)
+    n_tok = torch.ones(b, dtype=torch.int32, device=dev)
+    gathered = b * p_log * ps * kv * hd * 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    attention.paged_attention(p, x, pools, table, positions, n_tok, cfg,
+                              backend="cuda", kv_splits=4)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < gathered

@@ -39,7 +39,8 @@ def test_no_jax_or_repro_imports(path):
 
 
 def test_serve_path_loads_without_jax():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.checkpoint.bridge;"
+    code = ("import sys, repro_torch.launch.serve, repro_torch.checkpoint.bridge,"
+            " repro_torch.serve.engine, repro_torch.kernels.paged_attention.ops;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")

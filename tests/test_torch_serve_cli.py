@@ -1,7 +1,10 @@
 """A compressed checkpoint written by the JAX Checkpointer is served by
 repro_torch with the same greedy tokens; the port's serve CLI runs its
-prune, quantize and checkpoint paths on the CPU."""
+prune, quantize and checkpoint paths on the CPU, and its continuous-
+batching engine path with the parity check and telemetry, whose counters
+equal the JAX CLI's for the same request mix."""
 import dataclasses
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,11 +12,14 @@ import pytest
 import torch
 
 from repro.checkpoint.checkpointer import Checkpointer as JaxCheckpointer
+from repro.launch import serve as jax_serve
 from repro.models.model_zoo import build as jax_build
 from repro.serve import step as jstep
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.launch import serve
 from repro_torch.models.model_zoo import build
+from repro_torch.obs.metrics import parse_prometheus
+from repro_torch.obs.trace import validate_chrome_trace
 from repro_torch.serve import step
 from repro_torch.sparse.compress import iter_bcsr
 from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
@@ -79,10 +85,12 @@ def test_cli_serves_jax_checkpoint(tmp_path, capsys):
 
 
 def test_cli_rejects_what_is_not_ported(tmp_path):
-    with pytest.raises(SystemExit, match="Queue 1 item 7"):
-        serve.main(BASE + ["--engine"])
+    with pytest.raises(SystemExit, match="Queue 1 item 8"):
+        serve.main(BASE + ["--engine", "--profile"])
     with pytest.raises(SystemExit, match="Queue 1 item 11"):
-        serve.main(BASE + ["--replicas=2"])
+        serve.main(BASE + ["--engine", "--replicas=2"])
+    with pytest.raises(SystemExit, match="Queue 1 item 12"):
+        serve.main(BASE + ["--mesh", "2,2"])
     with pytest.raises(SystemExit, match="prune path only"):
         serve.main(BASE + ["--quantize-bits", "8"])
     with pytest.raises(SystemExit, match="no checkpoints"):
@@ -90,3 +98,62 @@ def test_cli_rejects_what_is_not_ported(tmp_path):
     _save(tmp_path, "bcsr", (8, 64))
     with pytest.raises(SystemExit, match="trained with arch"):
         serve.main(BASE + ["--ckpt-dir", str(tmp_path), "--arch", "qwen3-0.6b"])
+
+
+ENGINE = ["--engine", "--device", "cpu", "--reduced", "--sparse",
+          "--max-batch", "3", "--prefill-chunk", "8", "--page-size", "4"]
+
+
+def _request_file(tmp_path) -> str:
+    """Explicit prompts (the two packages seed random prompts differently)
+    with mixed lengths, generation budgets and priorities."""
+    rng = np.random.default_rng(3)
+    spec = [{"prompt": rng.integers(0, 128, n).tolist(), "gen": g,
+             "priority": pri}
+            for n, g, pri in ((5, 4, "standard"), (13, 3, "batch"),
+                              (2, 6, "interactive"), (9, 2, "standard"),
+                              (17, 4, "standard"))]
+    path = tmp_path / "requests.json"
+    path.write_text(json.dumps(spec))
+    return str(path)
+
+
+@pytest.mark.parametrize("extra", [[], ["--quantize-bits", "8"]])
+def test_cli_engine_parity_and_telemetry(tmp_path, extra, capsys):
+    m_out, t_out = tmp_path / "m.json", tmp_path / "t.json"
+    out = serve.main(ENGINE + extra + [
+        "--requests", _request_file(tmp_path), "--parity-check",
+        "--metrics-out", str(m_out), "--trace-out", str(t_out)])
+    printed = capsys.readouterr().out
+    assert "engine-vs-generate parity OK (5 requests)" in printed
+    assert ("pal8" in printed) == bool(extra)
+    s = out["stats"]
+    assert s["n_requests"] == 5 and s["n_generated"] == 4 + 3 + 6 + 2 + 4
+    metrics = json.loads(m_out.read_text())
+    ticks = metrics["repro_engine_ticks_total"]["series"]
+    assert sum(x["value"] for x in ticks) == s["n_ticks"]
+    events = validate_chrome_trace(json.loads(t_out.read_text()))
+    assert sum(e["name"] == "tick" for e in events) == s["n_ticks"]
+    assert sum(e["name"] == "done" for e in events) == 5
+
+
+def test_cli_engine_counters_match_jax(tmp_path):
+    """The same request mix through both CLIs: every counter and gauge of
+    the Prometheus exposition is equal (the weights differ, but without
+    an EOS nothing the counters see depends on them)."""
+    reqs = _request_file(tmp_path)
+    parsed = []
+    for main, name in ((serve.main, "torch"), (jax_serve.main, "jax")):
+        path = tmp_path / f"{name}.prom"
+        args = ENGINE + ["--requests", reqs, "--metrics-out", str(path)]
+        if name == "jax":
+            args.remove("--device")
+            args.remove("cpu")
+        main(args)
+        text = path.read_text()
+        kinds = {line.split()[2]: line.split()[3] for line in text.splitlines()
+                 if line.startswith("# TYPE")}
+        parsed.append({k: v for k, v in parse_prometheus(text).items()
+                       if kinds.get(k[0]) in ("counter", "gauge")})
+    got, want = parsed
+    assert len(got) > 10 and got == want
