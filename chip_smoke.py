@@ -35,13 +35,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and a prefix-cache run (shared prefix, copy-on-write boundary page)
      against the same requests without the cache; and where a bf16 engine
      run's time goes over a window of its ticks (torch.profiler);
-  7. the kernel table (one JSON line) and the contract line.
+  7. train kernels: the training kernels at smollm-360m's seven
+     projection shapes (M = 512 rows, (8, 128) blocks at 0.9 block
+     sparsity, a bf16 block store, f32 and bf16 activations): ``spmm_t``
+     (dx) and the SDDMM (dw) against their plain versions, timed beside
+     them, a library yardstick (dense ``dY @ W`` and ``dY' X``) and the
+     least time the card could take; ``prox_adam`` at every leaf size of
+     the debias tree, against its plain version and its bytes bound;
+  8. train (the training main path): ``launch/train --sparse`` trains
+     full-width smollm-360m in bf16 on the card: SpC steps from a planted
+     step-1 checkpoint whose (8, 128) blocks have a spread of norms,
+     compression, and debias steps on the compressed params, with the
+     launch counters of spmm, spmm_t, SDDMM and prox_adam read around the
+     run; then ``launch/serve --sparse --ckpt-dir`` serves the trained
+     checkpoint;
+  9. train, kernel path vs plain path: in f32, the trained compressed
+     params go through debias steps with ``sparse_backend`` 'auto' (the
+     spmm, spmm_t and SDDMM kernels) and 'ref' (their plain versions):
+     losses, the first step's dx and dw per layer and the final block
+     stores agree; a profile of one bf16 debias step gives the device busy
+     share and the top kernels;
+ 10. the kernel table (one JSON line) and the contract line.
 
 It imports nothing of JAX or of the JAX package, and exits with an error
 when no CUDA device is visible.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -58,31 +79,46 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import masks  # noqa: E402
+from repro_torch.core import optimizers  # noqa: E402
+from repro_torch.core import prox as prox_lib  # noqa: E402
+from repro_torch.data.synthetic import TokenStreamConfig, token_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.bsr_sddmm import ops as sddmm_ops  # noqa: E402
 from repro_torch.kernels.bsr_spmm import ops, ref  # noqa: E402
+from repro_torch.kernels.prox_adam import ops as adam_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as paged_ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.model_zoo import build  # noqa: E402
 from repro_torch.serve import api  # noqa: E402
 from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.step import generate  # noqa: E402
+from repro_torch.sparse import ops as sparse_ops  # noqa: E402
 from repro_torch.sparse.compress import (CompressionPlan, _prune_blocks_2d,  # noqa: E402
                                          compress_params, iter_bcsr,
                                          prune_blocks_for_plan,
-                                         quantize_bcsr, quantize_compressed)
+                                         quantize_bcsr, quantize_compressed,
+                                         split_trainable)
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train.state import TrainState  # noqa: E402
+from repro_torch.train.step import make_loss_fn, make_train_step  # noqa: E402
 from repro_torch.sparse.formats import bcsr_to_dense, dense_to_bcsr  # noqa: E402
 
 ARCH = "smollm-360m"
 BLOCK = (8, 128)
 SPARSITY = 0.9
 BATCH, PROMPT, GEN = 4, 16, 32
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, and f32 FMA outside the
-# tensor cores, which is what these kernels use
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 FMA outside the tensor
+# cores, and the dense bf16 tensor-core rate (f32 accumulation). A product
+# of two bf16 operands is held to the bf16 rate, whatever unit the kernel
+# uses; one with an f32 operand to the f32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 L2_BYTES = 50 * 2**20
 TIMED_CALLS = 100
 SLEEP_CYCLES_PER_S = 2.0e9            # above the H100's 1.98 GHz boost clock
@@ -141,6 +177,51 @@ PREFIX_LEN = 64           # shared by the prefix-cache run's 8 requests
 # The engine profile's window: ticks 30-41 of the mix's 94, 7 prefill
 # ticks (width 32) and 5 decode ticks (width 1), near the run's 50 to 44.
 PROFILE_TICKS = (30, 42)
+# Training at smollm-360m's width: M = 512 rows (batch 8 x seq 64).
+TRAIN_BATCH, TRAIN_SEQ = 8, 64
+TRAIN_M = TRAIN_BATCH * TRAIN_SEQ
+TRAIN_MATRICES = [("attn.wq", (960, 960)), ("attn.wk", (320, 960)),
+                  ("attn.wv", (320, 960)), ("attn.wo", (960, 960)),
+                  ("mlp.wi", (2560, 960)), ("mlp.wg", (2560, 960)),
+                  ("mlp.wo", (960, 2560))]
+TRAIN_TABLE_SHAPE = ("mlp.wi", torch.bfloat16)   # rows 1b and 4 of the table
+# SDDMM kernel vs plain: 512-term f32 sums of unit-normal products (|dw|
+# about 20), summed in another order.
+SDDMM_ATOL, SDDMM_RTOL = 1e-3, 1e-4
+# prox_adam kernel vs plain: the same f32 operations in the same order, each
+# rounded to nearest (no FMA contraction in the kernel), so the results are
+# expected bit-equal; 1e-6 is the stated bound.
+ADAM_ATOL = 1e-6
+# the soft threshold lr * lam at which the prox is checked: about |w|
+PROX_TAU = 0.5
+# The SpC-Retrain run. A random init gives every (8, 128) block of a
+# matrix the same norm to within 2% (1,024 i.i.d. entries), so group-l1
+# zeroes all of a matrix's blocks or none. The run therefore resumes from a
+# planted step-1 checkpoint whose block norms are spread log-uniformly over
+# [SPREAD_LO, SPREAD_HI], as trained weights' are; LAM is chosen for 0.8-0.95
+# block sparsity after the SpC steps (calibrated at a reduced width on the
+# CPU, where the same per-block dynamics hold). At lr 1e-3 the debias
+# phase diverged at full width (loss 6.0 -> 12.8 in one step: a fresh Adam
+# moves every surviving weight, and all 47M of the tied embedding, by lr);
+# at 1e-4 it descends. The telemetry's host-side block-norm probe takes
+# about 10 s per logged SpC step at this width, so steps are logged every
+# LOG_EVERY and the others give the step time.
+SPC_STEPS, DEBIAS_STEPS, TRAIN_LR, LAM = 9, 5, 1e-4, 800.0
+LOG_EVERY = 4
+SPREAD_LO, SPREAD_HI = 0.01, 1.0
+SPARSITY_BAND = (0.8, 0.95)
+TRAIN_GEN = 8
+# kernel path vs plain path in f32 over COMPARE_STEPS debias steps
+COMPARE_STEPS, COMPARE_LR = 3, 1e-4
+# f32 gradients through 32 layers of backward, summed in another order:
+# dx and dw per layer agree to 1e-3 of their largest |value|
+GRAD_RTOL = 1e-3
+LOSS_RTOL = 1e-5
+# The block stores after COMPARE_STEPS Adam steps: m / sqrt(v) is about +-1
+# whatever |g|, so where g is near 0 a gradient difference of 1e-6 can flip
+# an element's step (up to lr). The two updates (final - initial) are held
+# to 1% of the update's norm instead.
+UPDATE_RTOL = 1e-2
 # where the engine runs write their request file, metrics and traces
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
@@ -818,6 +899,457 @@ def engine_phase(dev, formats) -> dict:
     return main_counts
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _ops_bound(nbytes, flops, *dtypes):
+    """(bound ms, what bounds it, bytes, flops): ``flops`` at the bf16
+    rate when every operand dtype is bf16, else at the f32 rate."""
+    rate = (BF16_FLOPS_PER_S if dtypes and all(d == torch.bfloat16
+                                               for d in dtypes)
+            else F32_FLOPS_PER_S)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else
+            "operations", int(nbytes), int(flops))
+
+
+def _used_width(occupied, block: int, width: int) -> int:
+    """Columns of a (., width) operand in the block-rows (or -cols) that
+    ``occupied`` marks: the only ones the product needs."""
+    idx = torch.nonzero(occupied.cpu()).flatten().tolist()
+    return sum(min(block, width - i * block) for i in idx)
+
+
+def _spmm_t_bound(w, dy):
+    """The dY columns of block-rows that hold a resident block read once,
+    the resident blocks and their transposed gather entries once, dX
+    written once; 2 flops per resident block entry and row."""
+    br, bc = w.block
+    n_res = int(w.gather_t_nnz.sum())
+    dy_cols = _used_width(w.gather_nnz > 0, br, w.shape[0])
+    nbytes = (dy.shape[0] * dy_cols * dy.element_size()
+              + n_res * br * bc * w.data.element_size()
+              + n_res * 8 + w.gather_t_nnz.numel() * 4
+              + dy.shape[0] * w.shape[1] * 4)
+    return _ops_bound(nbytes, 2 * dy.shape[0] * n_res * br * bc,
+                      dy.dtype, w.data.dtype)
+
+
+def _sddmm_bound(w, x, dy):
+    """The columns of x and dY that some valid slot needs read once, the
+    slot coordinates once, the (n_slots, br, bc) f32 output written once;
+    2 flops per output entry and row, at the valid slots of this weight."""
+    br, bc = w.block
+    r_grid, c_grid = w.block_grid
+    rows, cols, valid = sddmm_ops.slot_coordinates(w)
+    n_valid = int(valid.sum())
+    used = lambda idx, n: torch.zeros(n, dtype=torch.bool).index_fill_(  # noqa: E731
+        0, idx[valid].long().cpu(), True)
+    x_cols = _used_width(used(cols, c_grid), bc, w.shape[1])
+    dy_cols = _used_width(used(rows, r_grid), br, w.shape[0])
+    n_slots = w.data.shape[0]
+    nbytes = (x.shape[0] * (x_cols * x.element_size()
+                            + dy_cols * dy.element_size())
+              + 3 * n_slots * 4 + n_slots * br * bc * 4)
+    return _ops_bound(nbytes, 2 * x.shape[0] * n_valid * br * bc,
+                      x.dtype, dy.dtype)
+
+
+def _check(name, got, want, atol, rtol):
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
+        raise SystemExit(f"{name}: kernel disagrees with plain, max err {err}")
+    return err
+
+
+def train_kernel_phase(dev) -> dict:
+    phase("train kernels")
+    rng = np.random.default_rng(1)
+    rows = {}
+    leaf_sizes = {}
+    for mat_name, (n, k) in TRAIN_MATRICES:
+        w32 = _weight(rng, n, k, dev)
+        w = dataclasses.replace(w32, data=w32.data.to(torch.bfloat16))
+        leaf_sizes[f"bcsr_data {mat_name}"] = 32 * w.data.numel()
+        for dt in (torch.float32, torch.bfloat16):
+            dy = torch.randn(TRAIN_M, n, device=dev).to(dt)
+            x = torch.randn(TRAIN_M, k, device=dev).to(dt)
+            wd = bcsr_to_dense(w)[:n, :k].to(dt).contiguous()
+            lib = str(dt).split(".")[-1]
+            # spmm_t: dX = dY @ W
+            err = _check(f"spmm_t {mat_name} {dt}", ops.spmm_t(dy, w),
+                         ref.spmm_bwd_ref(dy, w), KERNEL_ATOL, KERNEL_RTOL)
+            sets = copies(lambda: (dy.clone(), w.map(torch.clone)),
+                          tensor_bytes(dy, w.data))
+            row = {"kernel": "bsr_spmm_t", "matrix": mat_name, "shape": [n, k],
+                   "M": TRAIN_M, "dy": str(dt).split(".")[-1],
+                   "store": "bfloat16",
+                   "resident_blocks": int(w.gather_t_nnz.sum()),
+                   "max_abs_err": err, "atol": KERNEL_ATOL,
+                   "rtol": KERNEL_RTOL, "ms": time_ms(ops.spmm_t, sets),
+                   "plain_ms": time_ms(ref.spmm_bwd_ref, sets),
+                   "library_ms": time_ms(torch.matmul, copies(
+                       lambda: (dy.clone(), wd.clone()),
+                       tensor_bytes(dy, wd))),
+                   "library": f"torch.matmul(dY, densified W) {lib}"}
+            row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                           _spmm_t_bound(w, dy)))
+            log(json.dumps(row))
+            rows[("bsr_spmm_t", mat_name, dt)] = row
+            # SDDMM: dW at the resident slots
+            err = _check(f"bsr_sddmm {mat_name} {dt}",
+                         sddmm_ops.bsr_weight_grad(x, dy, w),
+                         sddmm_ops.bsr_weight_grad_ref(x, dy, w),
+                         SDDMM_ATOL, SDDMM_RTOL)
+            sets = copies(lambda: (x.clone(), dy.clone(), w),
+                          tensor_bytes(x, dy))
+            row = {"kernel": "bsr_sddmm", "matrix": mat_name, "shape": [n, k],
+                   "M": TRAIN_M, "x": str(dt).split(".")[-1],
+                   "slots": int(w.data.shape[0]), "max_abs_err": err,
+                   "atol": SDDMM_ATOL, "rtol": SDDMM_RTOL,
+                   "ms": time_ms(sddmm_ops.bsr_weight_grad, sets),
+                   "plain_ms": time_ms(sddmm_ops.bsr_weight_grad_ref, sets),
+                   "library_ms": time_ms(lambda a, b: torch.matmul(a.T, b),
+                                         copies(lambda: (dy.clone(), x.clone()),
+                                                tensor_bytes(x, dy))),
+                   "library": f"torch.matmul(dY', X) {lib} (dense dW)"}
+            row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                           _sddmm_bound(w, x, dy)))
+            log(json.dumps(row))
+            rows[("bsr_sddmm", mat_name, dt)] = row
+    # prox_adam at every leaf size of the debias tree: the seven block
+    # stores (32 layers each), the embedding, the stacked norms, the final
+    # norm and the stacked placeholders of the compressed projections
+    cfg = get_config(ARCH)
+    leaf_sizes.update({"embedding": cfg.vocab * cfg.d_model,
+                       "stacked norm": 32 * cfg.d_model,
+                       "final norm": cfg.d_model, "placeholder": 32})
+    # The SpC phase runs the kernel without the prox (the plan's group-l1
+    # prox follows it), debias with it. The prox is checked at a threshold
+    # tau = lr * lam of 0.5, comparable to |w|, so it zeroes and shrinks.
+    sc = adam_ops.make_scalars(TRAIN_LR, PROX_TAU / TRAIN_LR, 0.9, 0.999,
+                               1e-8, 3)
+    for leaf, numel in leaf_sizes.items():
+        def make():
+            return (torch.randn(numel, device=dev),
+                    torch.randn(numel, device=dev),
+                    torch.randn(numel, device=dev) * 0.1,
+                    torch.rand(numel, device=dev) * 0.01)
+        for apply_prox in (False, True):
+            def kernel(w, g, m, v, sc, apply_prox=apply_prox):
+                return adam_ops.fused_update_leaf(w, g, m, v, sc,
+                                                  apply_prox=apply_prox)
+
+            def plain(w, g, m, v, sc, apply_prox=apply_prox):
+                return adam_ops.fused_prox_update_ref(w, g, m, v, sc,
+                                                      apply_prox=apply_prox)
+            w, g, m, v = make()
+            want = plain(w, g, m, v, sc)
+            got = kernel(w.clone(), g, m.clone(), v.clone(), sc)
+            err = max(_check(f"prox_adam {leaf} prox={apply_prox}", a, b,
+                             ADAM_ATOL, ADAM_ATOL)
+                      for a, b in zip(got, want))
+            zeroed = float((got[0] == 0).float().mean())
+            sets = copies(lambda: make() + (sc,), 16 * numel)
+            nbytes = 28 * numel             # w, g, m, v read; w, m, v written
+            row = {"kernel": "prox_adam", "leaf": leaf, "numel": numel,
+                   "apply_prox": apply_prox, "tau": PROX_TAU,
+                   "zeroed_share": zeroed, "max_abs_err": err,
+                   "atol": ADAM_ATOL, "ms": time_ms(kernel, sets),
+                   "plain_ms": time_ms(plain, sets), "library_ms": None,
+                   "library": "none: no single PyTorch call is Adam with a "
+                              "soft threshold"}
+            row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                           _ops_bound(nbytes, 10 * numel)))
+            log(json.dumps(row))
+            rows[("prox_adam", leaf, apply_prox)] = row
+    return rows
+
+
+def _projections(params):
+    """(stored tensor, (in, out) view) of every compressible projection."""
+    for sub, names in (("attn", ("wq", "wk", "wv", "wo")),
+                       ("mlp", ("wi", "wg", "wo"))):
+        for name in names:
+            t = params["layers"]["b0_attn"][sub][name]
+            s = t.shape
+            if name in ("wq", "wk", "wv"):
+                yield t.view(s[0], s[1], s[2] * s[3])
+            elif name == "wo" and sub == "attn":
+                yield t.view(s[0], s[1] * s[2], s[3])
+            else:
+                yield t
+
+
+def _plant_checkpoint(dev, ckpt_dir: Path) -> None:
+    """A step-1 TrainState whose (8, 128) blocks (on the (out, in) serving
+    grid) have norms spread log-uniformly over [SPREAD_LO, SPREAD_HI]."""
+    model = build(get_config(ARCH), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    br, bc = BLOCK
+    with torch.no_grad():
+        for flat in _projections(params):
+            norms = prox_lib._block_reduce_l2(flat, (bc, br))
+            target = torch.exp(math.log(SPREAD_LO) + torch.rand(
+                norms.shape, generator=gen, device=dev)
+                * math.log(SPREAD_HI / SPREAD_LO))
+            scale = target / norms.clamp_min(1e-30)
+            full = scale.repeat_interleave(bc, -2).repeat_interleave(br, -1)
+            flat.mul_(full[..., :flat.shape[-2], :flat.shape[-1]])
+    opt = optimizers.prox_adam(TRAIN_LR, lam=LAM)
+    Checkpointer(str(ckpt_dir)).save(1, TrainState(
+        params=params, opt_state=opt.init(params), mask=None, step=1))
+
+
+class _TimedWatchdog(train_loop.StragglerWatchdog):
+    """Records every step's wall time, per phase (first instance: SpC)."""
+    phases: list = []
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        _TimedWatchdog.phases.append(self.times)
+
+
+def _block_sparsity(cp) -> tuple:
+    resident = total = 0
+    for _, m in iter_bcsr(cp):
+        resident += int(m.gather_nnz.sum())
+        total += int(np.prod(m.block_grid)) * m.gather_nnz.shape[0]
+    return 1.0 - resident / max(total, 1), resident, total
+
+
+def _all_launches() -> dict:
+    return {**ops.launches, **sddmm_ops.launches, **adam_ops.launches,
+            **paged_ops.launches}
+
+
+def _reset_all() -> None:
+    for mod in (ops, sddmm_ops, adam_ops, paged_ops):
+        mod.reset_launches()
+
+
+def train_phase(dev) -> tuple:
+    phase("train: launch/train --sparse (the main path)")
+    ckpt_dir = OUT_DIR / "train_ckpt"
+    if ckpt_dir.exists():
+        import shutil
+        shutil.rmtree(ckpt_dir)
+    t0 = time.perf_counter()
+    _plant_checkpoint(dev, ckpt_dir)
+    torch.cuda.empty_cache()
+    log(f"planted step-1 checkpoint in {time.perf_counter() - t0:.1f} s")
+    tele = OUT_DIR / "train_telemetry.jsonl"
+    argv = ["--arch", ARCH, "--sparse", "--steps", str(SPC_STEPS),
+            "--debias-steps", str(DEBIAS_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--compress",
+            f"group_l1:{LAM}", "--block", *map(str, BLOCK), "--log-every",
+            str(LOG_EVERY), "--ckpt-dir", str(ckpt_dir), "--telemetry-out",
+            str(tele)]
+    buf = io.StringIO()
+    _TimedWatchdog.phases = []
+    saved = train_loop.StragglerWatchdog
+    train_loop.StragglerWatchdog = _TimedWatchdog
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cp, hist_spc, hist_db, report = train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        train_loop.StragglerWatchdog = saved
+    counts = _all_launches()
+    wall = time.perf_counter() - t0
+    log(f"train {' '.join(argv)}")
+    for line in buf.getvalue().splitlines():
+        if line.startswith(("arch=", "loss:", "model size", "compressed ")):
+            log(f"  {line}")
+    log(f"  run {wall:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for rec in map(json.loads, tele.read_text().splitlines()):
+        if rec["phase"] in ("spc", "debias"):
+            extra = (f" live block sparsity {rec['block_sparsity']:.4f}"
+                     if "block_sparsity" in rec else "")
+            log(f"  {rec['phase']} step {rec['step']}: loss {rec['loss']:.4f}"
+                f" grad_norm {rec['grad_norm']:.4f}{extra}")
+    for name, times in zip(("spc", "debias"), _TimedWatchdog.phases):
+        log(f"  {name} step times (s, host clock; a logged step includes its "
+            f"telemetry and the loss read): {[round(t, 4) for t in times]}")
+    sparsity, resident, total = _block_sparsity(cp)
+    log(f"  block sparsity after SpC: {sparsity:.4f} ({resident} of {total} "
+        f"(8, 128) blocks resident, {len(list(iter_bcsr(cp)))} projections "
+        f"compressed), band {SPARSITY_BAND}")
+    if not SPARSITY_BAND[0] <= sparsity <= SPARSITY_BAND[1]:
+        raise SystemExit(f"block sparsity {sparsity:.4f} outside the band")
+    if len(list(iter_bcsr(cp))) != 7:
+        raise SystemExit("expected all 7 projections compressed")
+    per_step = {k: v / DEBIAS_STEPS for k, v in counts.items()}
+    log(f"  launches {counts}; per debias step spmm {per_step['spmm']:.1f}, "
+        f"spmm_t {per_step['spmm_t']:.1f}, bsr_sddmm "
+        f"{per_step['bsr_sddmm']:.1f}")
+    expect = 7 * 32 * DEBIAS_STEPS
+    if counts["spmm"] != expect or counts["spmm_t"] != expect \
+            or counts["bsr_sddmm"] != expect or counts["prox_adam"] <= 0:
+        raise SystemExit(f"train launches {counts}: expected {expect} spmm, "
+                         "spmm_t and bsr_sddmm and some prox_adam")
+    losses = [h["loss"] for h in hist_spc + hist_db]
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"non-finite training loss: {losses}")
+
+    phase("train: launch/serve --sparse --ckpt-dir (the trained checkpoint)")
+    buf = io.StringIO()
+    _reset_all()
+    argv = ["--arch", ARCH, "--sparse", "--ckpt-dir", str(ckpt_dir), "--batch",
+            str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(TRAIN_GEN)]
+    with contextlib.redirect_stdout(buf):
+        out = serve.main(argv)
+    torch.cuda.synchronize()
+    log(f"serve {' '.join(argv)}")
+    for line in buf.getvalue().splitlines()[-3:]:
+        log(f"  {line}")
+    if tuple(out.shape) != (BATCH, TRAIN_GEN) or \
+            ops.launches["spmm"] != 7 * 32 * TRAIN_GEN:
+        raise SystemExit(f"serving the trained checkpoint: tokens "
+                         f"{tuple(out.shape)}, launches {ops.launches}")
+    return counts, ckpt_dir / "compressed"
+
+
+class _Tap(torch.autograd.Function):
+    """Identity whose backward records the gradient that reaches it."""
+
+    @staticmethod
+    def forward(ctx, x, sink):
+        ctx.sink = sink
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.sink.append(g.detach().clone())
+        return g, None
+
+
+@contextlib.contextmanager
+def _dx_taps(sink: list):
+    """Record dx of every ``sparse_matmul``, in the order of the backward."""
+    orig = sparse_ops.sparse_matmul
+
+    def tapped(x, w, backend="auto"):
+        return orig(_Tap.apply(x, sink), w, backend)
+
+    sparse_ops.sparse_matmul = tapped
+    try:
+        yield
+    finally:
+        sparse_ops.sparse_matmul = orig
+
+
+def _first_grads(model, trainable, rebuild, batch):
+    """(loss, dx list, dw tree) of one debias forward and backward."""
+    leaves = {p: d.detach().requires_grad_(True)
+              for p, d in trainable["bcsr_data"].items()}
+
+    def grad_leaf(t):
+        if isinstance(t, dict):
+            return {k: grad_leaf(v) for k, v in t.items()}
+        return t.detach().requires_grad_(True)
+
+    dense = grad_leaf(trainable["dense"])
+    tr = {"dense": dense, "bcsr_data": leaves}
+    sink: list = []
+    with _dx_taps(sink), torch.enable_grad():
+        loss, _ = make_loss_fn(model, param_transform=rebuild)(tr, batch)
+        # the residue too, so that the first layer's dx is needed and runs
+        grads = torch.autograd.grad(
+            loss, list(leaves.values()) + [dense["embed"]["embedding"]])
+    return float(loss.detach()), sink, dict(zip(leaves, grads))
+
+
+def train_compare_phase(dev, cdir: Path) -> None:
+    phase("train: kernel path vs plain path (f32 debias)")
+    f32 = dataclasses.replace(get_config(ARCH), compute_dtype="float32")
+    data = TokenStreamConfig(vocab=f32.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH)
+    runs = {}
+    for backend in ("auto", "ref"):
+        model = build(f32, device=dev, sparse_backend=backend)
+        cp = Checkpointer(str(cdir)).restore_compressed(device=dev)
+        trainable, rebuild = split_trainable(cp)
+        init = {k: v.clone() for k, v in trainable["bcsr_data"].items()}
+        loss0, dxs, dws = _first_grads(model, trainable, rebuild,
+                                       token_batch(data, 0, device=dev))
+        opt = optimizers.prox_adam(COMPARE_LR, lam=0.0)
+        state = TrainState(params=trainable, opt_state=opt.init(trainable),
+                           mask=masks.zero_mask(trainable), step=0)
+        step = make_train_step(model, opt, param_transform=rebuild)
+        _reset_all()
+        losses = []
+        for i in range(COMPARE_STEPS):
+            state, met = step(state, token_batch(data, i, device=dev))
+            losses.append(float(met["loss"]))
+        log(f"{backend}: losses {losses}, launches {_all_launches()}")
+        runs[backend] = (loss0, dxs, dws, losses,
+                         {k: v - init[k] for k, v in
+                          state.params["bcsr_data"].items()})
+    k, p = runs["auto"], runs["ref"]
+    for a, b in zip(k[3], p[3]):
+        if abs(a - b) > LOSS_RTOL * abs(b):
+            raise SystemExit(f"debias losses differ: {k[3]} vs {p[3]}")
+    if len(k[1]) != 7 * 32 or len(p[1]) != 7 * 32:
+        raise SystemExit(f"dx taps: {len(k[1])} and {len(p[1])}")
+    dx_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                 for a, b in zip(k[1], p[1]))
+    dw_err = 0.0
+    for path, gk in k[2].items():
+        gp = p[2][path]
+        for layer in range(gk.shape[0]):
+            scale = gp[layer].abs().max().clamp_min(1e-30)
+            dw_err = max(dw_err, float((gk[layer] - gp[layer]).abs().max()
+                                       / scale))
+    data_err = max(float((k[4][path] - p[4][path]).abs().max())
+                   for path in k[4])
+    upd_err = max(float((k[4][path] - p[4][path]).norm()
+                        / p[4][path].norm().clamp_min(1e-30)) for path in k[4])
+    log(f"f32 debias, kernels vs plain: step-1 loss {k[0]:.6f} vs {p[0]:.6f}; "
+        f"dx max err / max|dx| per layer {dx_err:.3e}, dw {dw_err:.3e} "
+        f"(bound {GRAD_RTOL}); block-store updates after {COMPARE_STEPS} "
+        f"steps at lr {COMPARE_LR}: |diff| / |update| {upd_err:.3e} (bound "
+        f"{UPDATE_RTOL}), max |diff| {data_err:.3e}")
+    if dx_err > GRAD_RTOL or dw_err > GRAD_RTOL or upd_err > UPDATE_RTOL:
+        raise SystemExit("kernel path and plain path disagree")
+
+    phase("train: bf16 debias step profile")
+    model = build(get_config(ARCH), device=dev)
+    cp = Checkpointer(str(cdir)).restore_compressed(device=dev)
+    trainable, rebuild = split_trainable(cp)
+    opt = optimizers.prox_adam(TRAIN_LR, lam=0.0)
+    holder = [TrainState(params=trainable, opt_state=opt.init(trainable),
+                         mask=masks.zero_mask(trainable), step=0)]
+    step = make_train_step(model, opt, param_transform=rebuild)
+    batch = token_batch(data, 0, device=dev)
+
+    def one():
+        holder[0], met = step(holder[0], batch)
+        float(met["loss"])
+
+    one()                                            # warm-up
+    _profile("debias step (batch 8 x 64)", 0, one, top=10)
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            holder[0], _ = step(holder[0], batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                                for w in caught)
+    log(f"host syncs in one debias step (loss not read): {len(caught)}, "
+        f"by caller {where.most_common(8)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -829,6 +1361,11 @@ def main() -> int:
     launches, formats = model_phase(dev)
     paged_rows = paged_kernel_phase(dev)
     paged_launches = engine_phase(dev, formats)
+    del formats
+    torch.cuda.empty_cache()
+    train_rows = train_kernel_phase(dev)
+    train_counts, cdir = train_phase(dev)
+    train_compare_phase(dev, cdir)
 
     phase("kernel table")
     mat, m_rows, x_dtype = TABLE_SHAPE
@@ -856,6 +1393,40 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": f"{r['case']} B={r['B']} C={r['C']} P={r['P']} "
                  f"pool={r['pool']} kv_splits={r['kv_splits']}",
+        "card": card})
+    mat, dt = TRAIN_TABLE_SHAPE
+    for name, replaces in (
+            ("bsr_spmm_t", "src/repro/kernels/bsr_spmm/bsr_spmm.py:163"),
+            ("bsr_sddmm", "src/repro/kernels/bsr_sddmm/bsr_sddmm.py:44")):
+        r = train_rows[(name, mat, dt)]
+        table.append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/csrc/bsr_spmm.cu"
+                       if name == "bsr_spmm_t"
+                       else "src/repro_torch/csrc/bsr_sddmm.cu"),
+            "replaces": replaces,
+            "launches": train_counts["spmm_t" if name == "bsr_spmm_t"
+                                     else "bsr_sddmm"],
+            "max_abs_err": max(v["max_abs_err"] for key, v in
+                               train_rows.items() if key[0] == name),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": f"{mat} {r['shape']} M={TRAIN_M} "
+                     f"{'dy' if name == 'bsr_spmm_t' else 'x'}=bfloat16 "
+                     "store=bfloat16",
+            "card": card})
+    r = train_rows[("prox_adam", "bcsr_data mlp.wi", True)]
+    table.append({
+        "name": "prox_adam", "route": "cuda",
+        "source": "src/repro_torch/csrc/prox_adam.cu",
+        "replaces": "src/repro/kernels/prox_adam/prox_adam.py:69",
+        "launches": train_counts["prox_adam"],
+        "max_abs_err": max(v["max_abs_err"] for key, v in train_rows.items()
+                           if key[0] == "prox_adam"),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "shape": f"bcsr_data mlp.wi leaf, {r['numel']} f32 elements, "
+                 "with the prox",
         "card": card})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,28 +1,49 @@
-"""Read half of the checkpointer: restore a compressed checkpoint written by
-the JAX package's ``Checkpointer``.
+"""Checkpointer: the JAX package's checkpoint format, written and read.
 
-The format, as ``repro.checkpoint.checkpointer`` writes it:
-  * ``<dir>/step_NNNNNNNNN/manifest.json``: ``leaves`` (one entry per leaf:
-    ``name``, ``format`` in dense | csr | bcsr | palette_bcsr, ``shape``,
-    ``dtype``, and for compressed leaves ``block``, ``n_blocks``, ``bits``)
-    and ``extra`` (``plan``, ``arch``, ``reduced``);
+Port of ``repro.checkpoint.checkpointer``. The format, byte-compatible
+both ways (the JAX ``Checkpointer`` reads what the port writes, and the
+port reads what JAX writes):
+  * ``<dir>/step_NNNNNNNNN/manifest.json``: ``step``, ``time``, ``extra``
+    (for a compressed model: ``plan``, ``arch``, ``reduced``) and
+    ``leaves``, one entry per leaf: ``name``, ``format`` in dense | csr |
+    bcsr | palette_bcsr, ``shape``, ``dtype``, and for compressed leaves
+    ``block``, ``n_blocks`` and ``bits``;
   * ``arrays.npz``: one array per dense leaf; ``<name>__<field>`` per
     BlockCSR / PaletteBCSR field; ``<name>__data|indices|indptr`` per CSR
     leaf. A ``/`` in a name is stored as ``|``.
-Leaf names start with ``dense/`` or ``sparse/`` for a ``CompressedParams``.
-The write half comes with the training slice.
+Leaf names join the tree keys with ``/``: ``params/...``,
+``opt_state/step``, ``opt_state/m/...``, ``opt_state/v/...``, ``mask/...``
+and ``step`` for a ``TrainState``; ``dense/...`` and ``sparse/...`` for a
+``CompressedParams``.
+
+Writes are atomic (a temporary directory, then ``os.replace``); the
+newest ``keep_n`` checkpoints are kept. A regularized 2D dense leaf that is
+at least 70% zero is stored as elementwise CSR (densified on restore);
+BlockCSR and PaletteBCSR leaves are stored verbatim and restore without
+densifying.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+import shutil
+import tempfile
+import time
+from typing import Any, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.checkpoint.bridge import compressed_from_numpy, plan_from_json
+from repro_torch.checkpoint.bridge import (compressed_from_numpy,
+                                           format_from_fields, plan_from_json)
+from repro_torch.core.optimizers import ProxState
+from repro_torch.core.prox import default_regularized_predicate
 from repro_torch.sparse.compress import CompressedParams
+from repro_torch.sparse.formats import PaletteBCSR, is_bcsr
+from repro_torch.train.state import TrainState
 
+PyTree = Any
+_SPARSE_THRESHOLD = 0.7      # store CSR when >= 70% zero
 _INDEX_FIELDS = ("col_idx", "row_ptr",
                  "gather_idx", "gather_blk", "gather_nnz",
                  "gather_t_idx", "gather_t_blk", "gather_t_nnz")
@@ -32,6 +53,41 @@ _FIELDS = {"bcsr": ("data",) + _INDEX_FIELDS,
 
 def _key(name: str) -> str:
     return name.replace("/", "|")
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _children(node):
+    """(key, child) pairs of an interior node, in the reference's flatten
+    order; None for a leaf."""
+    if isinstance(node, TrainState):
+        return [("params", node.params), ("opt_state", node.opt_state),
+                ("mask", node.mask), ("step", node.step)]
+    if isinstance(node, ProxState):
+        return [("step", node.step), ("m", node.m), ("v", node.v)]
+    if isinstance(node, CompressedParams):
+        return [("dense", node.dense), ("sparse", node.sparse)]
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    return None
+
+
+def _flatten(tree, prefix: str = "") -> list:
+    """[(name, leaf)]; None subtrees (a TrainState without a mask) have no
+    leaves, as in JAX."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    out = []
+    for k, child in kids:
+        out += _flatten(child, f"{prefix}/{k}" if prefix else k)
+    return out
 
 
 def _csr_restore(npz, name: str, shape, dtype) -> np.ndarray:
@@ -44,11 +100,95 @@ def _csr_restore(npz, name: str, shape, dtype) -> np.ndarray:
     return dense
 
 
-class Checkpointer:
-    """Reads ``step_*`` checkpoints under ``directory``."""
+def _read_leaf(npz, e: dict):
+    """A leaf as numpy: an array, or a format field dict for the bridge."""
+    name, fmt = e["name"], e["format"]
+    if fmt in _FIELDS:
+        leaf = {f: npz[_key(f"{name}__{f}")] for f in _FIELDS[fmt]}
+        leaf.update(shape=e["shape"], block=e["block"], n_blocks=e["n_blocks"])
+        if fmt == "palette_bcsr":
+            leaf["bits"] = e["bits"]
+        return leaf
+    if fmt == "csr":
+        return _csr_restore(npz, name, tuple(e["shape"]), np.dtype(e["dtype"]))
+    return npz[_key(name)]
 
-    def __init__(self, directory: str):
+
+class Checkpointer:
+    """Writes and reads ``step_*`` checkpoints under ``directory``."""
+
+    def __init__(self, directory: str, keep_n: int = 3,
+                 sparse_storage: bool = True):
         self.dir = directory
+        self.keep_n = keep_n
+        self.sparse_storage = sparse_storage
+        os.makedirs(directory, exist_ok=True)
+
+    # -- write ---------------------------------------------------------------
+
+    def save(self, step: int, tree: PyTree, extra: Optional[dict] = None):
+        arrays: dict = {}
+        manifest = {"step": step, "time": time.time(), "extra": extra or {},
+                    "leaves": []}
+        for name, leaf in _flatten(tree):
+            if is_bcsr(leaf):
+                quant = isinstance(leaf, PaletteBCSR)
+                fmt = "palette_bcsr" if quant else "bcsr"
+                entry = {"name": name, "format": fmt,
+                         "shape": list(leaf.shape), "block": list(leaf.block),
+                         "n_blocks": int(leaf.n_blocks),
+                         "dtype": str(_np(leaf.palette if quant
+                                          else leaf.data[:0]).dtype)}
+                if quant:
+                    entry["bits"] = int(leaf.bits)
+                for f in _FIELDS[fmt]:
+                    arrays[f"{name}__{f}"] = _np(getattr(leaf, f))
+                manifest["leaves"].append(entry)
+                continue
+            arr = (np.asarray(leaf, np.int32) if isinstance(leaf, int)
+                   else _np(leaf))
+            entry = {"name": name, "shape": list(arr.shape),
+                     "dtype": str(arr.dtype), "format": "dense"}
+            if (self.sparse_storage and arr.ndim == 2
+                    and default_regularized_predicate(name, torch.empty(
+                        arr.shape, device="meta"))
+                    and arr.size > 4096
+                    and 1.0 - np.count_nonzero(arr) / arr.size
+                    >= _SPARSE_THRESHOLD):
+                rows, cols = np.nonzero(arr)
+                indptr = np.zeros(arr.shape[0] + 1, np.int32)
+                np.add.at(indptr, rows + 1, 1)
+                entry["format"] = "csr"
+                arrays[f"{name}__data"] = arr[rows, cols]
+                arrays[f"{name}__indices"] = cols.astype(np.int32)
+                arrays[f"{name}__indptr"] = np.cumsum(indptr).astype(np.int32)
+                manifest["leaves"].append(entry)
+                continue
+            arrays[name] = arr
+            manifest["leaves"].append(entry)
+
+        final = self._path(step)
+        tmp = tempfile.mkdtemp(prefix=f".tmp_step_{step}_", dir=self.dir)
+        try:
+            np.savez(os.path.join(tmp, "arrays.npz"),
+                     **{_key(k): v for k, v in arrays.items()})
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)          # atomic publish
+        finally:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp, ignore_errors=True)
+        self._gc()
+        return final
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[:-self.keep_n] if self.keep_n else []:
+            shutil.rmtree(self._path(s), ignore_errors=True)
+
+    # -- read ----------------------------------------------------------------
 
     def all_steps(self) -> list[int]:
         out = []
@@ -69,6 +209,30 @@ class Checkpointer:
         with open(os.path.join(self._path(step), "manifest.json")) as f:
             return json.load(f)
 
+    def restore(self, step: int, like: PyTree) -> PyTree:
+        """Restore into the structure of ``like`` (a ``TrainState``, a dict
+        tree or a ``CompressedParams``): each tensor leaf comes back on the
+        device and in the dtype of ``like``'s leaf, each int leaf as an
+        int."""
+        by_name = {e["name"]: e for e in self.manifest(step)["leaves"]}
+        with np.load(os.path.join(self._path(step), "arrays.npz")) as npz:
+            def build(node, prefix):
+                if node is None:
+                    return None
+                kids = _children(node)
+                if kids is None:
+                    return _restore_leaf(npz, by_name[prefix], node)
+                vals = {k: build(c, f"{prefix}/{k}" if prefix else k)
+                        for k, c in kids}
+                if isinstance(node, TrainState):
+                    return TrainState(**vals)
+                if isinstance(node, ProxState):
+                    return ProxState(**vals)
+                if isinstance(node, CompressedParams):
+                    return CompressedParams(plan=node.plan, **vals)
+                return vals
+            return build(like, "")
+
     def restore_compressed(self, step: Optional[int] = None,
                            device=None) -> CompressedParams:
         """The ``CompressedParams`` of a checkpoint, on ``device``, without
@@ -86,23 +250,24 @@ class Checkpointer:
                     raise ValueError(
                         f"step {step} in {self.dir} is not a CompressedParams "
                         f"checkpoint (leaf {name!r})")
-                fmt = e["format"]
-                if fmt in _FIELDS:
-                    leaf = {f: npz[_key(f"{name}__{f}")] for f in _FIELDS[fmt]}
-                    leaf.update(shape=e["shape"], block=e["block"],
-                                n_blocks=e["n_blocks"])
-                    if fmt == "palette_bcsr":
-                        leaf["bits"] = e["bits"]
-                elif fmt == "csr":
-                    leaf = _csr_restore(npz, name, tuple(e["shape"]),
-                                        np.dtype(e["dtype"]))
-                else:
-                    leaf = npz[_key(name)]
                 node = roots[root]
                 keys = rest.split("/")
                 for k in keys[:-1]:
                     node = node.setdefault(k, {})
-                node[keys[-1]] = leaf
+                node[keys[-1]] = _read_leaf(npz, e)
         plan = plan_from_json((manifest.get("extra") or {}).get("plan"))
         return compressed_from_numpy(roots["dense"], roots["sparse"], plan,
                                      device)
+
+
+def _restore_leaf(npz, e: dict, like):
+    if isinstance(like, int):
+        return int(_read_leaf(npz, e))
+    if is_bcsr(like):
+        return format_from_fields(_read_leaf(npz, e), like.gather_idx.device)
+    arr = _read_leaf(npz, e)
+    if list(arr.shape) != e["shape"]:
+        raise ValueError(f"{e['name']}: stored {arr.shape}, manifest "
+                         f"{e['shape']}")
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(
+        device=like.device, dtype=like.dtype)

@@ -1,11 +1,17 @@
-"""Model size reporting (port of ``repro.core.metrics.model_size_bytes``).
-
-Only the dense accounting is ported: it is what ``launch/serve`` prints.
-The CSR accounting (``sparse=True``) comes with the training slice.
+"""Compression-rate and model-size reporting (port of
+``repro.core.metrics``): compression_rate = #zeros / #total over the
+regularized leaves; the paper's 'x' factor is total / nnz.
 """
 from __future__ import annotations
 
+from typing import Any, Callable, Optional
+
 import torch
+
+from repro_torch.core.prox import default_regularized_predicate
+from repro_torch.core.tree import flatten_with_path, keystr
+
+PyTree = Any
 
 
 def tree_leaves(tree) -> list:
@@ -16,7 +22,52 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def layer_compression(params: PyTree,
+                      predicate: Optional[Callable] = None) -> dict[str, dict]:
+    """Per-leaf nnz / total table (the paper's Tables A1-A4)."""
+    predicate = predicate or default_regularized_predicate
+    table: dict[str, dict] = {}
+    for keys, leaf in flatten_with_path(params):
+        name = keystr(keys)
+        if not predicate(name, leaf):
+            continue
+        nnz = int(torch.count_nonzero(leaf))
+        total = int(leaf.numel())
+        table[name] = {"nnz": nnz, "total": total,
+                       "compression_rate": 1.0 - nnz / total,
+                       "x_factor": (total / nnz) if nnz else float("inf")}
+    return table
+
+
+def total_compression(params: PyTree,
+                      predicate: Optional[Callable] = None) -> dict:
+    table = layer_compression(params, predicate)
+    nnz = sum(v["nnz"] for v in table.values())
+    total = sum(v["total"] for v in table.values())
+    return {"nnz": nnz, "total": total,
+            "compression_rate": 1.0 - nnz / max(total, 1),
+            "x_factor": (total / nnz) if nnz else float("inf")}
+
+
+def compression_rate(params: PyTree,
+                     predicate: Optional[Callable] = None) -> float:
+    return total_compression(params, predicate)["compression_rate"]
+
+
+def format_table(table: dict[str, dict], title: str = "") -> str:
+    lines = [title] if title else []
+    lines.append(f"{'layer':48s} {'nnz/total':>24s} {'rate':>8s} {'x':>8s}")
+    for k, v in table.items():
+        x = v["x_factor"]
+        xs = f"{x:.0f}x" if x != float("inf") else "inf"
+        lines.append(f"{k:48s} {v['nnz']:>11d}/{v['total']:<12d} "
+                     f"{100*v['compression_rate']:7.2f}% {xs:>8s}")
+    return "\n".join(lines)
+
+
 def model_size_bytes(params) -> int:
-    """Dense model size: every leaf's elements times its item size."""
+    """Dense model size: every leaf's elements times its item size (what
+    ``launch/serve`` prints). The CSR accounting of the reference's
+    ``sparse=True`` is not ported: no entry point of the port reports it."""
     return sum(t.numel() * t.element_size() for t in tree_leaves(params)
                if isinstance(t, torch.Tensor))

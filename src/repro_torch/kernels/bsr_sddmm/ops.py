@@ -1,0 +1,175 @@
+"""Wrapper of the SDDMM block-gradient kernel (``csrc/bsr_sddmm.cu``).
+
+``bsr_weight_grad(x, dy, w)`` gives the (n_slots, br, bc) f32 gradient of a
+BlockCSR's block store: ``dW[s] = dY[:, r_s block]' @ X[:, c_s block]``
+summed over the M rows, at the resident slots only, aligned with
+``w.data``. Slot 0 (the pad) and the slots ``pad_bcsr`` appended carry
+zero. No dense (N, K) gradient is formed on either path.
+
+For tensors on the CPU it runs the plain version (``ref.py``); for CUDA
+tensors it launches the kernel or raises. There is no fallback.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.bsr_sddmm import ref
+from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
+
+launches = {"bsr_sddmm": 0}
+_THREADS = 256
+_MAX_OUT = 16 * _THREADS        # (br * bc) the kernel's registers hold
+_CHUNK = 32                     # rows of M staged per pass
+_SMEM = 48 * 1024
+# slot coordinates per gather table, newest last (see ``_coordinates``)
+_COORDS: collections.OrderedDict = collections.OrderedDict()
+_COORDS_MAX = 1024
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("bsr_sddmm")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bsr_sddmm.argtypes = [p, i, p, i, p, p, p, p] + [i] * 6 + [p]
+    lib.bsr_sddmm.restype = i
+    return lib
+
+
+def _reject_palette(w) -> None:
+    """Palette weights are serving-only: there is no fp block store to
+    take a gradient for. Debias before ``quantize_compressed``, or
+    ``dequantize_compressed`` first."""
+    if isinstance(w, PaletteBCSR):
+        raise TypeError(
+            "bsr_weight_grad got a PaletteBCSR: quantized weights are not "
+            "trainable; debias before quantize_compressed(), or "
+            "dequantize_compressed() to resume retraining")
+
+
+def _key(t: torch.Tensor) -> tuple:
+    # an inference tensor keeps no version counter
+    version = -1 if t.is_inference() else t._version
+    return (t.device, t.dtype, t.data_ptr(), tuple(t.shape), t.stride(),
+            version)
+
+
+def _coordinates(w: BlockCSR) -> tuple:
+    """(rows, cols, valid, valid as int32) of ``w``'s gather tables,
+    computed once per table. Debias freezes the tables for its whole phase,
+    and every layer's tables are views of one stacked store that lives as
+    long as the phase, so each backward finds them here instead of running
+    the ten small ops of ``slot_coordinates`` again. The key is the tables'
+    memory, layout and version counter; the entry holds the tables
+    themselves, so their memory cannot be handed to other tables while the
+    entry lives, and an in-place change to them misses."""
+    key = (_key(w.gather_idx), _key(w.gather_blk), w.data.shape[0])
+    hit = _COORDS.get(key)
+    if hit is not None:
+        _COORDS.move_to_end(key)
+        return hit[1]
+    rows, cols, valid = _slot_coordinates(w)
+    coords = (rows, cols, valid, valid.to(torch.int32))
+    _COORDS[key] = ((w.gather_idx, w.gather_blk), coords)
+    if len(_COORDS) > _COORDS_MAX:
+        _COORDS.popitem(last=False)
+    return coords
+
+
+def slot_coordinates(w: BlockCSR):
+    """Per-slot (block-row, block-col, valid) int32 / int32 / bool vectors,
+    derived from the gather tables on their device (computed once per
+    table, see ``_coordinates``; callers must not write to them).
+
+    ``valid`` marks the slots a gather entry references: slot 0 and any
+    trailing slots added by ``pad_bcsr`` are invalid and carry zero
+    gradient. The scatter writes slot 0 many times (every padded gather
+    entry points there), and which duplicate wins is undefined, so slot 0
+    is reset afterwards, as in the reference. Nothing here waits for the
+    device: no host scalar is copied over and no output is sized from
+    device data."""
+    return _coordinates(w)[:3]
+
+
+def _slot_coordinates(w: BlockCSR):
+    n_slots = w.data.shape[0]
+    r_grid, jmax = w.gather_idx.shape
+    dev = w.gather_idx.device
+    slots = w.gather_blk.reshape(-1).long()
+    entries = torch.arange(r_grid * jmax, device=dev)
+    keep = (torch.arange(n_slots, device=dev) != 0).to(torch.int32)
+
+    def scatter(src):
+        out = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+        return out.scatter_(0, slots, src.to(torch.int32)) * keep
+
+    rows = scatter(torch.div(entries, jmax, rounding_mode="floor"))
+    cols = scatter(w.gather_idx.reshape(-1))
+    valid = scatter(torch.ones_like(entries)) != 0
+    return rows, cols, valid
+
+
+def bsr_weight_grad_ref(x, dy, w: BlockCSR) -> torch.Tensor:
+    """The plain version: pad x and dy to the block grid, then the
+    per-slot product of ``ref.sddmm_block_grad_ref``."""
+    _reject_palette(w)
+    rows, cols, valid = slot_coordinates(w)
+    br, bc = w.block
+    r_grid, c_grid = w.block_grid
+    dy = torch.nn.functional.pad(dy, (0, r_grid * br - dy.shape[1]))
+    x = torch.nn.functional.pad(x, (0, c_grid * bc - x.shape[1]))
+    out = ref.sddmm_block_grad_ref(dy, x, rows, cols, w.data.shape[0], br, bc)
+    return out * valid[:, None, None].to(out.dtype)
+
+
+def _check(x, dy, w: BlockCSR):
+    if x.device.type != "cuda" or dy.device != x.device:
+        raise ValueError(f"bsr_sddmm takes x and dy on one CUDA device, got "
+                         f"{x.device} and {dy.device}")
+    n, k = w.shape
+    if x.dim() != 2 or dy.dim() != 2 or x.shape != (dy.shape[0], k) \
+            or dy.shape[1] != n:
+        raise ValueError(f"x {tuple(x.shape)} / dy {tuple(dy.shape)} do not "
+                         f"match W {w.shape}")
+    for t in (x, dy):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"bsr_sddmm takes f32 or bf16, got {t.dtype}")
+    br, bc = w.block
+    if br * bc > _MAX_OUT or _CHUNK * (br + bc) * 4 > _SMEM:
+        raise ValueError(f"block {w.block} is too large for bsr_sddmm")
+    if w.gather_idx.device != x.device or not w.gather_idx.is_contiguous():
+        raise ValueError("W's gather tables must be contiguous, on x's device")
+    return x.contiguous(), dy.contiguous()
+
+
+def bsr_weight_grad(x, dy, w: BlockCSR) -> torch.Tensor:
+    """x: (M, K) activations; dy: (M, N) output cotangent; w: (N, K)
+    BlockCSR. Returns (n_slots, br, bc) f32 gradient blocks for w.data."""
+    _reject_palette(w)
+    if x.device.type == "cpu":
+        return bsr_weight_grad_ref(x, dy, w)
+    x, dy = _check(x, dy, w)
+    rows, cols, _, valid = _coordinates(w)
+    n_slots = w.data.shape[0]
+    br, bc = w.block
+    out = torch.empty((n_slots, br, bc), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().bsr_sddmm(
+            dy.data_ptr(), int(dy.dtype == torch.bfloat16), x.data_ptr(),
+            int(x.dtype == torch.bfloat16), rows.data_ptr(), cols.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), x.shape[0], w.shape[0],
+            w.shape[1], n_slots, br, bc, stream)
+    if err:
+        raise RuntimeError(f"bsr_sddmm launch failed: CUDA error {err}")
+    launches["bsr_sddmm"] += 1
+    return out

@@ -17,6 +17,13 @@ def spmm_fwd_ref(x: torch.Tensor, w: BlockCSR) -> torch.Tensor:
     return x.float() @ wd.float().T
 
 
+def spmm_bwd_ref(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+    """dX (M, K) f32 = dY (M, N) @ W with W (N, K) BlockCSR: densify, then
+    a plain matmul."""
+    wd = bcsr_to_dense(w)[: w.shape[0], : w.shape[1]]
+    return dy.float() @ wd.float()
+
+
 def spmm_palette_fwd_ref(x: torch.Tensor, w) -> torch.Tensor:
     """Quantized forward: Y = X @ dequant(W)' for a ``PaletteBCSR`` W."""
     return spmm_fwd_ref(x, w.dequantize())

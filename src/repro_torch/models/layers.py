@@ -90,6 +90,8 @@ def _rounded_f32(w: Tensor, dtype) -> Tensor:
     width) to round it again."""
     if dtype == torch.float32:
         return w.float()
+    if w.requires_grad and torch.is_grad_enabled():
+        return w.to(dtype).float()          # training: no memo in the graph
     key = (dtype, w._version)
     memo = getattr(w, "_repro_rounded_f32", None)
     if memo is None or memo[0] != key:

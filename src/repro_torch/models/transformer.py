@@ -4,12 +4,12 @@ Port of ``repro.models.transformer`` for ``attn`` layers. The params keep
 the reference's layout: the layers of the repeated block pattern are
 stacked under ``params["layers"]`` with a leading ``n_super`` axis, the
 remainder under ``params["rem"]``. A Python loop over the layer axis takes
-the place of ``lax.scan``; ``t[i]`` of a stacked tensor (and ``m[i]`` of a
-stacked BlockCSR) is a contiguous view.
+the place of ``lax.scan``; the stacked params are unbound into per-layer
+views once per pass (so a backward stacks their gradients once).
 
 Entry points, each taking raw params or ``CompressedParams``:
     apply_hidden(params, batch)            -> hidden, aux
-    apply_train(params, batch)             -> logits, aux   (forward only)
+    apply_train(params, batch)             -> logits, aux
     head(params, hidden)                   -> f32 logits
     init_cache(batch, seq_len)             -> ring KV cache
     prefill(params, prompt, cache)         -> last-position logits, cache
@@ -23,6 +23,7 @@ on the card). RG-LRU, RWKV and MoE layers are not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
@@ -59,6 +60,25 @@ def _index(tree, i: int):
     if isinstance(tree, Tensor) or is_bcsr(tree):
         return tree[i]
     return tree
+
+
+def _unbind(tree, n: int) -> list:
+    """All ``n`` layers of a stacked tree at once (``torch.unbind`` per
+    tensor). Its backward stacks the layers' gradients once, where taking
+    ``tree[i]`` per layer would allocate a zero tensor of the whole stack
+    in the backward of every select."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, Tensor):
+        return list(tree.unbind(0))
+    if is_bcsr(tree):
+        fields = {f.name: getattr(tree, f.name).unbind(0)
+                  for f in dataclasses.fields(tree)
+                  if isinstance(getattr(tree, f.name), Tensor)}
+        return [dataclasses.replace(tree, **{k: v[i] for k, v in fields.items()})
+                for i in range(n)]
+    return [tree] * n
 
 
 def _stack_trees(trees: list):
@@ -143,11 +163,12 @@ class Model:
     def _layers(self, dense, sparse, cache=None):
         """Yield (layer params, compressed layer weights, layer cache) for
         every layer in order: the stacked ones, then the remainder."""
-        sp_layers = (sparse or {}).get("layers", {})
+        n = self.cfg.n_super_blocks
+        p_all = _unbind(dense["layers"], n)
+        sp_all = _unbind((sparse or {}).get("layers", {}), n)
         sp_rem = (sparse or {}).get("rem", {})
-        for i in range(self.cfg.n_super_blocks):
-            p_i = _index(dense["layers"], i)
-            sp_i = _index(sp_layers, i)
+        for i in range(n):
+            p_i, sp_i = p_all[i], sp_all[i]
             c_i = _index(cache["layers"], i) if cache is not None else {}
             for key in p_i:
                 yield p_i[key], sp_i.get(key) or {}, c_i.get(key)

@@ -427,6 +427,8 @@ class Scheduler:
         # but lazily allocate the page its token lands in first
         decodes: list[tuple[int, _Slot]] = []
         for i, s in decode:
+            if self.slots[i] is not s:
+                continue                   # preempted by an earlier slot's growth
             if self.paged and not self._ensure_pages(
                     i, pages_for(s.ctx_len + 1, self.page_size), now):
                 continue                   # deferred (or self-preempted)

@@ -1,6 +1,7 @@
-"""Whole-model compression, serving half: dense params -> ``CompressedParams``.
+"""Whole-model compression: dense params -> ``CompressedParams``, and the
+SpC-Retrain helpers that train into it.
 
-Port of the serving half of ``repro.sparse.compress``. Each target weight
+Port of ``repro.sparse.compress``. Each target weight
 is viewed as the 2D (out, in) matrix ``sparse_matmul`` consumes:
 
     attention wq/wk/wv  (d, h, hd)  -> (h*hd, d)
@@ -19,15 +20,23 @@ masks match the JAX package's bit for bit: ``argsort(kind="stable")`` on
 float64 block norms); the results go back to the params' device. With
 ``quantize_bits`` the leaves become ``PaletteBCSR``; the k-means runs on
 the device.
+
+For training: ``make_plan_prox`` is the block group-l1 prox on the plan's
+(out, in) grid in the stored layouts, so whole serving blocks hit zero
+during training; ``split_trainable`` turns a ``CompressedParams`` into the
+{dense residue, block stores} tree the debias phase trains, and
+``densify_compressed`` scatters the blocks back into a dense tree.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import re
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import prox as prox_lib
 from repro_torch.core import quantize as quantize_lib
 from repro_torch.core.metrics import tree_leaves
 from repro_torch.sparse.formats import (BlockCSR, PaletteBCSR, dense_to_bcsr,
@@ -342,6 +351,173 @@ def quantize_compressed(cp: CompressedParams,
 
     return CompressedParams(dense=cp.dense,
                             sparse=_replace_leaves(cp.sparse, one), plan=plan)
+
+
+def dequantize_compressed(cp: CompressedParams) -> CompressedParams:
+    """Expand every PaletteBCSR back to an fp BlockCSR (the palette values:
+    lossless against the quantized model), e.g. to resume retraining."""
+    return CompressedParams(
+        dense=cp.dense,
+        sparse=_replace_leaves(
+            cp.sparse, lambda _, leaf: leaf.dequantize()
+            if isinstance(leaf, PaletteBCSR) else leaf),
+        plan=cp.plan)
+
+
+# ---------------------------------------------------------------------------
+# Plan-aligned training prox (SpC-Retrain: train *into* the BCSR grid)
+# ---------------------------------------------------------------------------
+
+_ATTN_QKV = ("wq", "wk", "wv")
+
+
+def _norm_keystr(path: str) -> str:
+    """keystr "['layers']['b0_attn']['mlp']['wi']" -> "layers/b0_attn/mlp/wi"
+    (the path form ``CompressionPlan.block_for`` and this module use)."""
+    parts = re.findall(r"\['([^']+)'\]", path)
+    return "/".join(parts) if parts else path.strip("/").lstrip(".")
+
+
+def make_plan_prox(plan: CompressionPlan) -> Callable:
+    """Path-aware block group-l1 prox on the SAME (out, in) grid
+    ``compress_params`` tiles.
+
+    The optimizer sees weights in their stored layouts (stacked (L, d, ff)
+    MLPs, (L, d, h, hd) attention, ...), while the BCSR grid lives on the
+    2D (out, in) view. Block partitions map through the transpose, so
+    shrinking (bc, br) tiles of the flattened (in, out) view is exactly the
+    plan's (br, bc) group-l1 on (out, in): whole blocks of the serving grid
+    hit exact zero during training and ``compress_params`` then needs no
+    prune step. Leaves the plan does not compress (embeddings, matrices
+    under ``min_size``, ...) are returned untouched: the group-l1 lambda is
+    calibrated against block norms, so an elementwise l1 at the same lambda
+    would wipe them out in one step.
+
+    The returned ``prox_fn(z, tau, path="")`` takes the keystr path; the
+    ``path`` keyword is how ``ProxOptimizer`` detects path-awareness. The
+    stack (and expert) axes are a batch of the block reduction, where the
+    reference vmaps."""
+
+    def prox_fn(z, tau, path: str = ""):
+        p = _norm_keystr(path)
+        leaf = p.rsplit("/", 1)[-1]
+        stacked = p.startswith("layers/")
+        nd = z.dim() - (1 if stacked else 0)     # per-layer rank
+        wrapped = f"/{p}/"
+
+        def _in(sub, rank) -> bool:
+            return (f"/{sub}/" in wrapped and leaf in _LAYER_TARGETS[sub]
+                    and nd == rank)
+
+        eligible = (
+            ("/attn/" in wrapped and leaf in _LAYER_TARGETS["attn"]
+             and nd in (2, 3))
+            or _in("mlp", 2)
+            or _in("moe", 3)                    # per-expert (E, in, out)
+            or _in("tm", 2) or _in("cm", 2) or _in("rec", 2)
+            or (leaf == "head" and nd == 2))
+        if not eligible:
+            return z
+        br, bc = plan.block_for(p)
+        lead = int(stacked) + int(leaf in _PER_EXPERT)
+        shp = z.shape
+        per = shp[lead:]                         # one matrix's stored shape
+        if len(per) == 3 and leaf in _ATTN_QKV:  # (d, h, hd): in, out
+            flat = z.reshape(*shp[:lead], per[0], per[1] * per[2])
+        elif len(per) == 3:                      # attn wo (h, hd, d)
+            flat = z.reshape(*shp[:lead], per[0] * per[1], per[2])
+        else:                                    # 2D stored (in, out)
+            flat = z
+        if flat.shape[-2] * flat.shape[-1] < plan.min_size:
+            return z
+        # (in, out) view with transposed tiles == plan grid on (out, in)
+        return prox_lib.group_l1_blocks(flat, tau, (bc, br)).reshape(shp)
+
+    return prox_fn
+
+
+# ---------------------------------------------------------------------------
+# Mask-frozen retraining from a compressed model (paper section 2.4 debias)
+# ---------------------------------------------------------------------------
+
+def split_trainable(cp: CompressedParams):
+    """(trainable tree, rebuild fn) of a ``CompressedParams``.
+
+    ``trainable = {"dense": residue, "bcsr_data": {path: BlockCSR.data}}``
+    holds only float tensors, for autograd and a ``ProxOptimizer``;
+    ``rebuild(trainable)`` plants the block stores back into the BlockCSR
+    structures. The index and gather tables are closure constants, so the
+    sparsity pattern is frozen by construction, and
+    ``masks.zero_mask(trainable)`` also freezes intra-block zeros and pad
+    slots."""
+    leaves = list(iter_bcsr(cp))
+    for path, leaf in leaves:
+        if isinstance(leaf, PaletteBCSR):
+            raise TypeError(
+                f"split_trainable got a PaletteBCSR at {path}: quantized "
+                "weights are serving-only; debias before "
+                "quantize_compressed(), or dequantize_compressed() first")
+    trainable = {"dense": cp.dense,
+                 "bcsr_data": {path: leaf.data for path, leaf in leaves}}
+    plan = cp.plan
+    # keep only the index structure in the closure (a zero-size data
+    # slice): rebuild always overwrites data, and keeping the original
+    # blocks would pin a second copy of the compressed weights
+    skeleton = _replace_leaves(
+        cp.sparse, lambda _, leaf: dataclasses.replace(leaf, data=leaf.data[:0]))
+
+    def rebuild(tr) -> CompressedParams:
+        data = tr["bcsr_data"]
+        sparse = _replace_leaves(
+            skeleton,
+            lambda path, leaf: dataclasses.replace(leaf, data=data[path]))
+        return CompressedParams(dense=tr["dense"], sparse=sparse, plan=plan)
+
+    return trainable, rebuild
+
+
+def densify_compressed(cp: CompressedParams, like: PyTree) -> PyTree:
+    """Inverse of ``compress_params``: scatter the blocks back into a dense
+    tree shaped like ``like`` (host-side, for tests and the dense-mask
+    debias reference). Values come from ``cp``; ``like`` only supplies the
+    stored shapes the zero-size placeholders erased. Leaves go back to
+    ``like``'s devices."""
+    def merge(l, d):
+        if tuple(d.shape) != tuple(l.shape):      # placeholder: use like
+            return _np(l).copy()
+        return _np(d).copy()
+
+    def walk(l, d):
+        if isinstance(l, dict):
+            return {k: walk(l[k], d[k]) for k in l}
+        return merge(l, d)
+
+    out = walk(like, cp.dense)
+    for name, m in iter_bcsr(cp):
+        keys = name.split("/")
+        tgt = out
+        for k in keys[:-1]:
+            tgt = tgt[k]
+        ref = tgt[keys[-1]]
+        store = m.codes if isinstance(m, PaletteBCSR) else m.data
+        lead = store.dim() - 3                  # layer and/or expert axes
+        if lead:
+            mats = []
+            for i in np.ndindex(*store.shape[:lead]):
+                sl = m.map(lambda t, i=i: t[i])
+                mat = _np(sl.to_dense())[:sl.shape[0], :sl.shape[1]]
+                mats.append(_from_out_in(name, mat, ref.shape[lead:]))
+            tgt[keys[-1]] = np.stack(mats).reshape(ref.shape).astype(ref.dtype)
+        else:
+            mat = _np(m.to_dense())[:m.shape[0], :m.shape[1]]
+            tgt[keys[-1]] = _from_out_in(name, mat, ref.shape).astype(ref.dtype)
+
+    def back(l, a):
+        if isinstance(l, dict):
+            return {k: back(l[k], a[k]) for k in l}
+        return torch.as_tensor(a, device=l.device)
+
+    return back(like, out)
 
 
 # ---------------------------------------------------------------------------

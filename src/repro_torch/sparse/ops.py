@@ -1,12 +1,23 @@
 """Sparse op dispatch: the hand-written CUDA kernels vs the plain version.
 
-Port of ``repro.sparse.ops``, forward only. ``sparse_matmul(x, w)`` is
-``y = x @ w.T`` for a ``BlockCSR`` or ``PaletteBCSR`` weight.
+Port of ``repro.sparse.ops``. ``sparse_matmul(x, w)`` is ``y = x @ w.T``
+for a ``BlockCSR`` or ``PaletteBCSR`` weight, used by serving (forward
+only) and by SpC-Retrain's debias phase, which trains the block store
+itself. It is differentiable:
+
+  forward   y  = x @ W'   (dense x compressed', the spmm kernel)
+  backward  dx = dy @ W   (dense x compressed, ``spmm_t`` over the
+                           transposed gather tables), cast to x's dtype
+            dw = SDDMM    (``bsr_weight_grad``: gradients at the resident
+                           slots only, never a dense (out, in) tensor),
+                           cast to ``w.data``'s dtype
 
 Backends (``resolve_backend`` is the one point that decides):
-  'cuda' -- the kernels of ``kernels/bsr_spmm`` (a CPU tensor there runs
-            their plain version, as every kernel wrapper does),
-  'ref'  -- densify, then a plain f32 matmul; the result in x's dtype,
+  'cuda' -- the kernels of ``kernels/bsr_spmm`` and ``kernels/bsr_sddmm``
+            (a CPU tensor there runs their plain version, as every kernel
+            wrapper does),
+  'ref'  -- the plain versions: densify, then a plain f32 matmul (the
+            result in x's dtype), and the per-slot SDDMM,
   'auto' -- 'cuda' for a CUDA tensor, 'ref' for a CPU tensor. Decided by
             the tensor's device, never by whether a card is present.
 
@@ -14,17 +25,17 @@ The kernel path returns f32 and the ref path x's dtype, as in the
 reference; every caller casts. An explicit 'ref' on a CUDA tensor is
 allowed so the two can be compared on the card.
 
-The backward (dx through the transposed tables, dw by SDDMM at the resident
-slots) comes with the training slice (ROADMAP Queue 1 item 10); until then
-differentiating through ``sparse_matmul`` raises.
+A ``PaletteBCSR`` is serving-only: dx goes through ``w.dequantize()`` and
+the weight gets no gradient.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.bsr_sddmm import ops as sddmm_kops
 from repro_torch.kernels.bsr_spmm import ops as kops
 from repro_torch.kernels.bsr_spmm import ref as kref
-from repro_torch.sparse.formats import PaletteBCSR
+from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
@@ -47,21 +58,73 @@ def _forward(x: torch.Tensor, w, backend: str) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def _dx_product(dy: torch.Tensor, w: BlockCSR, backend: str) -> torch.Tensor:
+    if backend == "cuda":
+        return kops.spmm_t(dy, w)
+    return kref.spmm_bwd_ref(dy, w).to(dy.dtype)
+
+
+def _dw_product(x: torch.Tensor, dy: torch.Tensor, w: BlockCSR,
+                backend: str) -> torch.Tensor:
+    if backend == "cuda":
+        return sddmm_kops.bsr_weight_grad(x, dy, w)
+    return sddmm_kops.bsr_weight_grad_ref(x, dy, w)
+
+
 class _SparseMatmul(torch.autograd.Function):
+    """y = x @ W' with W a BlockCSR whose block store ``data`` is an input
+    of its own (the BlockCSR is not a tensor, so autograd would not see
+    it); the index and gather tables travel through ``ctx``."""
+
     @staticmethod
-    def forward(ctx, x, w, backend):
+    def forward(ctx, x, data, w, backend):
+        ctx.w, ctx.backend = w, backend
+        ctx.save_for_backward(x)
         return _forward(x, w, backend)
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "sparse_matmul has no backward yet: dx via spmm_t and dw via "
-            "SDDMM come with the training slice (ROADMAP Queue 1 item 10)")
+        (x,) = ctx.saved_tensors
+        w, backend = ctx.w, ctx.backend
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _dx_product(dy, w, backend).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _dw_product(x, dy, w, backend).to(w.data.dtype)
+        return dx, dw, None, None
+
+
+class _PaletteMatmul(torch.autograd.Function):
+    """y = x @ dequant(W)'; differentiable in x only."""
+
+    @staticmethod
+    def forward(ctx, x, w, backend):
+        ctx.w, ctx.backend = w, backend
+        ctx.x_dtype = x.dtype
+        return _forward(x, w, backend)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = _dx_product(dy, ctx.w.dequantize(), ctx.backend)
+        return dx.to(ctx.x_dtype), None, None
 
 
 def sparse_matmul(x: torch.Tensor, w, backend: str = "auto") -> torch.Tensor:
-    """y = x @ w.T for a compressed w (the paper's dense x compressed')."""
+    """y = x @ w.T for a compressed w (the paper's dense x compressed').
+    Differentiable in x and, for a BlockCSR, in ``w.data``."""
     backend = resolve_backend(backend, x)
-    if x.requires_grad and torch.is_grad_enabled():
-        return _SparseMatmul.apply(x, w, backend)
+    if torch.is_grad_enabled():
+        if isinstance(w, PaletteBCSR):
+            if x.requires_grad:
+                return _PaletteMatmul.apply(x, w, backend)
+        elif x.requires_grad or w.data.requires_grad:
+            return _SparseMatmul.apply(x, w.data, w, backend)
     return _forward(x, w, backend)
+
+
+def sparse_matmul_t(dy: torch.Tensor, w, backend: str = "auto") -> torch.Tensor:
+    """dx = dy @ w (the paper's dense x compressed). A ``PaletteBCSR`` is
+    dequantized first."""
+    if isinstance(w, PaletteBCSR):
+        w = w.dequantize()
+    return _dx_product(dy, w, resolve_backend(backend, dy))

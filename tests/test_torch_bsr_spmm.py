@@ -75,9 +75,11 @@ def test_sparse_matmul_dispatch_and_backward_guard():
     np.testing.assert_allclose(y_ref.numpy(), y_wrapper.numpy(), atol=1e-6)
     xb = x.bfloat16()
     assert sparse_ops.sparse_matmul(xb, m).dtype == torch.bfloat16  # ref: x's dtype
+    # the backward exists since the training slice: dx = dy @ W
     xg = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        sparse_ops.sparse_matmul(xg, m).sum().backward()
+    sparse_ops.sparse_matmul(xg, m).sum().backward()
+    np.testing.assert_allclose(xg.grad.numpy(),
+                               np.ones((4, 64), np.float32) @ w, atol=1e-5)
 
 
 def test_wrapper_rejects_other_devices():

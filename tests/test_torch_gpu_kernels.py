@@ -6,6 +6,8 @@ is not installed:
 
     python -m pytest -m gpu tests/test_torch_gpu_kernels.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -181,3 +183,125 @@ def test_cuda_paged_attention_never_gathers_the_context():
                               backend="cuda", kv_splits=4)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base < gathered
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: spmm_t, SDDMM, prox-Adam, and the bf16 block store
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.bsr_sddmm import ops as sddmm_ops  # noqa: E402
+from repro_torch.kernels.prox_adam import ops as adam_ops  # noqa: E402
+from repro_torch.sparse.formats import pad_bcsr  # noqa: E402
+
+
+def _train_weight(rng, n, k, block, density, dev, pad=False):
+    w = dense_to_bcsr(_block_sparse(rng, n, k, block, density), block)
+    if pad:      # pad_bcsr slots, as a stacked layer store carries them
+        w = pad_bcsr(w, w.data.shape[0] + 5, w.gather_idx.shape[1] + 1,
+                     w.gather_t_idx.shape[1] + 2)
+    return w.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,block", KERNEL_SHAPES)
+@pytest.mark.parametrize("density", [0.0, 0.1, 1.0])
+@pytest.mark.parametrize("m", [1, 33, 512])
+@pytest.mark.parametrize("pad", [False, True])
+def test_cuda_spmm_t_matches_plain(n, k, block, density, m, pad):
+    dev = _cuda()
+    rng = np.random.default_rng(21)
+    w = _train_weight(rng, n, k, block, density, dev, pad)
+    for dt, st in ((torch.float32, torch.float32),
+                   (torch.bfloat16, torch.bfloat16)):
+        wd = dataclasses.replace(w, data=w.data.to(st))
+        dy = torch.tensor(rng.normal(size=(m, n)), dtype=dt, device=dev)
+        before = ops.launches["spmm_t"]
+        got = ops.spmm_t(dy, wd)
+        assert ops.launches["spmm_t"] == before + 1
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref.spmm_bwd_ref(dy, wd), atol=ATOL,
+                                   rtol=RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,block", KERNEL_SHAPES)
+@pytest.mark.parametrize("m", [4, 512])
+def test_cuda_spmm_bf16_store_matches_plain(n, k, block, m):
+    dev = _cuda()
+    rng = np.random.default_rng(22)
+    w = _train_weight(rng, n, k, block, 0.2, dev)
+    wb = dataclasses.replace(w, data=w.data.to(torch.bfloat16))
+    x = torch.tensor(rng.normal(size=(m, k)), dtype=torch.bfloat16, device=dev)
+    got = ops.spmm(x, wb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.spmm_fwd_ref(x, wb), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,block", KERNEL_SHAPES)
+@pytest.mark.parametrize("density", [0.0, 0.1, 1.0])
+@pytest.mark.parametrize("m", [1, 33, 512])
+@pytest.mark.parametrize("pad", [False, True])
+def test_cuda_sddmm_matches_plain(n, k, block, density, m, pad):
+    dev = _cuda()
+    rng = np.random.default_rng(23)
+    w = _train_weight(rng, n, k, block, density, dev, pad)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.tensor(rng.normal(size=(m, k)), dtype=dt, device=dev)
+        dy = torch.tensor(rng.normal(size=(m, n)), dtype=dt, device=dev)
+        before = sddmm_ops.launches["bsr_sddmm"]
+        got = sddmm_ops.bsr_weight_grad(x, dy, w)
+        assert sddmm_ops.launches["bsr_sddmm"] == before + 1
+        again = sddmm_ops.bsr_weight_grad(x, dy, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)            # deterministic: bit-equal
+        want = sddmm_ops.bsr_weight_grad_ref(x, dy, w)
+        torch.testing.assert_close(got, want, atol=ATOL * max(1, m / 32),
+                                   rtol=RTOL)
+        _, _, valid = sddmm_ops.slot_coordinates(w)
+        assert (got[~valid] == 0).all()
+        if density == 0.0:
+            assert (got == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4, 1000, 4097, 2560 * 960])
+@pytest.mark.parametrize("rule", ["adam", "rmsprop"])
+@pytest.mark.parametrize("prox", [True, False])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_cuda_prox_adam_matches_plain(n, rule, prox, wdt):
+    dev = _cuda()
+    rng = np.random.default_rng(24)
+    mk = lambda s=1.0: torch.tensor(rng.normal(size=n) * s,  # noqa: E731
+                                    dtype=torch.float32, device=dev)
+    w, g, m = mk().to(wdt), mk(), mk(0.1)
+    v = mk(0.1).abs()
+    sc = adam_ops.make_scalars(1e-2, 3.0, 0.9, 0.999, 1e-8, 7)
+    want = adam_ops.fused_prox_update_ref(w, g, m, v, sc, rule=rule,
+                                          apply_prox=prox)
+    before = adam_ops.launches["prox_adam"]
+    got = adam_ops.fused_update_leaf(w, g, m, v, sc, rule=rule,
+                                     apply_prox=prox)
+    assert adam_ops.launches["prox_adam"] == before + 1
+    assert got[0] is w                            # in place
+    torch.cuda.synchronize()
+    # the same f32 operations in the same order, each rounded to nearest
+    # (the kernel contracts no FMA), so w, also after its bf16 rounding,
+    # m and v agree to 1e-6
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_prox_adam_unaligned_view():
+    """A leaf that starts off a 16-byte boundary takes the scalar path."""
+    dev = _cuda()
+    base = torch.randn(1001, device=dev)
+    w, g = base[1:], torch.randn(1000, device=dev)
+    m, v = torch.zeros(1000, device=dev), torch.zeros(1000, device=dev)
+    sc = adam_ops.make_scalars(1e-2, 0.5, 0.9, 0.999, 1e-8, 1)
+    want = adam_ops.fused_prox_update_ref(w, g, m, v, sc)
+    adam_ops.fused_update_leaf(w, g, m, v, sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(w, want[0], atol=1e-6, rtol=1e-6)
