@@ -14,9 +14,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
   4. model: the port's serving CLI drives full-width smollm-360m (32
      layers, random weights from seed 0, pruned at 0.9 on (8, 128) blocks)
      from BlockCSR, palette-8 and palette-4 weights, with every kernel's
-     launch counter read around each run; then prefill logits (bf16) and
-     greedy generate tokens (f32) of the kernel path are held against the
-     plain path (``sparse_backend="ref"``) on the same card;
+     launch counter read around each run; then prefill logits (bf16, each
+     kernel call also held to its plain version on its inputs) and greedy
+     generate tokens (f32) of the kernel path are held against the plain
+     path (``sparse_backend="ref"``) on the same card;
   5. paged kernel: the paged flash-decode kernel at smollm-360m's width
      (5 kv heads of 64, g = 3, page 16) on a decode tick, a prefill tick
      and a 4096-token decode, kv_splits 1 and 4, bf16 and f32 pools,
@@ -55,7 +56,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
      losses, the first step's dx and dw per layer and the final block
      stores agree; a profile of one bf16 debias step gives the device busy
      share and the top kernels;
- 10. the kernel table (one JSON line) and the contract line.
+ 10. recurrentgemma-9b at full width and depth (38 layers: 12 x (RG-LRU,
+     RG-LRU, local attention) + 2 RG-LRU; d 4096, 16 heads of 256 on one kv
+     head, window 2048, vocab 256,000): seed-0 weights pruned at 0.9 on
+     (8, 128) blocks, built into BlockCSR on the card part by part
+     (``sparse.compress.init_compressed``, as ``launch/serve --sparse``
+     builds it), then palette-8; the bf16 prefill at full depth with each
+     kernel call held to its plain version, and its logits to the plain
+     path's where bf16 is accurate (within 2% of f32); ``generate`` and the
+     engine (the 16-request mix with its longest prompt replaced by 3,072
+     tokens, past the window) in bf16 with the launch counters read around
+     each run (spmm on every projection; the paged kernel at hd 256, g 16
+     in the engine); the
+     paged kernel at that shape against its plain versions; in f32 at a
+     cut depth (one super-block and the two remainder layers), the kernel
+     path against the plain path and the engine against ``generate``;
+ 11. rwkv6-3b at full width and depth (32 layers, d 2560, 40 WKV heads of
+     64, d_ff 8960, vocab 65,536), the same runs and checks, on a mix whose
+     prompts RWKV's 64-token WKV chunks take;
+ 12. flash attention: the kernel against its plain version at
+     recurrentgemma-9b's local attention (S 4096, window 2048) and
+     smollm-360m's prefill, causal, not causal and windowed, bf16 and
+     f32, timed beside the plain version, ``scaled_dot_product_attention``
+     (which the port never calls) and its bound; then its entry point
+     ``ops.flash_attention`` (no model code calls it: the serving and
+     training phases launch it 0 times);
+ 13. the kernel table (one JSON line) and the contract line.
 
 It imports nothing of JAX or of the JAX package, and exits with an error
 when no CUDA device is visible.
@@ -91,6 +117,8 @@ from repro_torch.kernels.bsr_spmm import ops, ref  # noqa: E402
 from repro_torch.kernels.prox_adam import ops as adam_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as paged_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.model_zoo import build  # noqa: E402
@@ -98,15 +126,19 @@ from repro_torch.serve import api  # noqa: E402
 from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.step import generate  # noqa: E402
 from repro_torch.sparse import ops as sparse_ops  # noqa: E402
-from repro_torch.sparse.compress import (CompressionPlan, _prune_blocks_2d,  # noqa: E402
-                                         compress_params, iter_bcsr,
-                                         prune_blocks_for_plan,
+from repro_torch.core.metrics import model_size_bytes  # noqa: E402
+from repro_torch.sparse.compress import (CompressionPlan,  # noqa: E402
+                                         _prune_blocks_2d,
+                                         bcsr_equiv_size_bytes,
+                                         compressed_size_bytes,
+                                         init_compressed, iter_bcsr,
                                          quantize_bcsr, quantize_compressed,
                                          split_trainable)
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train.state import TrainState  # noqa: E402
 from repro_torch.train.step import make_loss_fn, make_train_step  # noqa: E402
-from repro_torch.sparse.formats import bcsr_to_dense, dense_to_bcsr  # noqa: E402
+from repro_torch.sparse.formats import (PaletteBCSR, bcsr_to_dense,  # noqa: E402
+                                        dense_to_bcsr)
 
 ARCH = "smollm-360m"
 BLOCK = (8, 128)
@@ -135,6 +167,10 @@ BF16_LOGITS_RTOL = 2e-2
 # also the near-tie margin below which a greedy token may differ.
 F32_LOGITS_ATOL = 1e-4
 EXPECTED_LAUNCHES = 7 * 32 * GEN      # 7 projections x 32 layers x 32 passes
+# The f32 agreement checks of the smollm-360m serving and engine phases run
+# the first 8 of the 32 layers (the same weights), to keep the whole script
+# within its time limit; the bf16 main-path runs keep all 32.
+SMOLLM_F32_LAYERS = 8
 
 # (name in the kernel table, wrapper, palette bits, x dtype)
 VARIANTS = [("bsr_spmm", "spmm", None, torch.float32),
@@ -224,6 +260,63 @@ LOSS_RTOL = 1e-5
 UPDATE_RTOL = 1e-2
 # where the engine runs write their request file, metrics and traces
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+# Flash attention (its own entry point, ops.flash_attention; no model code
+# calls it). (case, B, S, H, KV, hd, causal, window, dtype): recurrentgemma-
+# 9b's local attention (the kernel-table row; tiles whose top rows start on
+# a fully masked kv tile once the window bites), smollm-360m's prefill in
+# bf16 and f32, and both shapes without the causal mask.
+FLASH_CASES = [
+    ("recurrentgemma local", 1, 4096, 16, 1, 256, True, 2048, torch.bfloat16),
+    ("recurrentgemma local", 1, 4096, 16, 1, 256, True, 2048, torch.float32),
+    ("recurrentgemma windowed, not causal", 1, 4096, 16, 1, 256, False, 2048,
+     torch.bfloat16),
+    ("smollm prefill", 4, 2048, 15, 5, 64, True, None, torch.bfloat16),
+    ("smollm prefill", 4, 2048, 15, 5, 64, True, None, torch.float32),
+    ("smollm, not causal", 4, 2048, 15, 5, 64, False, None, torch.bfloat16),
+]
+FLASH_TABLE_ROW = 0
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:80"
+# Kernel vs plain: f32, the same products summed in another order (the JAX
+# kernel tests' tolerance); bf16 outputs are rounded from f32 sums in
+# another order, so they sit at most one bf16 step (2**-8 relative) apart.
+FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -7)}
+
+# The recurrent families at full width. recurrentgemma-9b: 38 layers (12 x
+# (rglru, rglru, attn) + 2 rglru), d 4096, lru 4096, 16 heads of 256 on one
+# kv head, window 2048, vocab 256,000; rwkv6-3b: 32 layers, d 2560, 40 WKV
+# heads of 64, d_ff 8960, vocab 65,536. Seed-0 weights pruned at 0.9 on
+# (8, 128) blocks and built into BlockCSR on the card, part by part.
+HYBRID, RWKV = "recurrentgemma-9b", "rwkv6-3b"
+# The engine mix of the smollm phase with its longest prompt (200) replaced
+# by one longer than the 2,048-token window. 3,072 is a multiple of
+# prefill's 1,024-token query chunk, so generate takes it too.
+HYBRID_LONG = 3072
+HYBRID_PROMPTS = [HYBRID_LONG if n == max(ENGINE_PROMPTS) else n
+                  for n in ENGINE_PROMPTS]
+# RWKV's chunked WKV takes prompts shorter than its 64-token chunk or a
+# multiple of it (as the reference does): the mix rounds down to that.
+RWKV_PROMPTS = [n if n < 64 else n // 64 * 64 for n in ENGINE_PROMPTS]
+# The f32 agreement checks of the hybrid run at a cut depth: one
+# super-block and the two remainder layers (5 of 38 layers).
+HYBRID_F32_LAYERS = 5
+# kv splits of the hybrid engine's paged kernel: the long request's
+# window spans about 130 pages, walked by 4 thread blocks instead of 1
+HYBRID_KV_SPLITS = 4
+# the paged kernel at recurrentgemma-9b's shape: a prefill tick of 8 slots
+# at late positions (the long request's window bites) and a decode tick
+HYBRID_PAGED_CASES = [
+    ("hd256 prefill", 32, (3040, 2976, 32, 96, 0, 64, 2912, 128),
+     (32,) * 7 + (9,), 194),
+    ("hd256 decode", 1, (3103, 17, 100, 64, 0, 199, 150, 31), (1,) * 8, 194),
+]
+# engine profile windows of the recurrent runs (a few prefill and decode
+# ticks each), and the tokens of their profiled generate
+RECURRENT_PROFILE_TICKS = (20, 30)
+PROFILE_GEN = 8
+# rwkv6-3b's f32 checks run its first 8 of 32 layers (the same weights),
+# to keep the whole script within its time limit
+RWKV_F32_LAYERS = 8
 
 
 def log(*a):
@@ -446,6 +539,85 @@ def _profile(what: str, n_tokens: int, run, top: int) -> None:
     _log_profile(what, wall, dev_s, rows, top, n_tokens)
 
 
+@contextlib.contextmanager
+def _held_calls(what: str):
+    """Within the block, every kernel call of ``sparse_matmul``'s forward is
+    also run through its plain version on the same inputs and held to it
+    at KERNEL_ATOL / KERNEL_RTOL (the kernels phase's tolerance), both in
+    f32; yields the list of each call's max |kernel - plain|."""
+    forward = sparse_ops._forward
+    errs = []
+
+    def held(x, w, backend):
+        y = forward(x, w, backend)
+        if backend == "cuda":
+            plain = (ref.spmm_palette_fwd_ref if isinstance(w, PaletteBCSR)
+                     else ref.spmm_fwd_ref)
+            want = plain(x, w)
+            errs.append(float((y - want).abs().max()))
+            if not torch.allclose(y, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+                raise SystemExit(f"{what}: kernel call {len(errs)} (x "
+                                 f"{tuple(x.shape)} {x.dtype}, W {w.shape}) "
+                                 f"disagrees with plain, max err {errs[-1]}")
+        return y
+
+    sparse_ops._forward = held
+    try:
+        yield errs
+    finally:
+        sparse_ops._forward = forward
+
+
+def _prefill_logits(model, params, prompt) -> torch.Tensor:
+    with torch.inference_mode():
+        return model.prefill(params, prompt,
+                             model.init_cache(*prompt.shape))[0].float()
+
+
+def _bf16_logits_check(what, kernel_model, plain_model, params, prompt,
+                       plain_f32=None) -> None:
+    """The bf16 prefill of the kernel path, each kernel call held to its
+    plain version on the same inputs (``_held_calls``); then its logits,
+    within BF16_LOGITS_RTOL of the largest logit of the plain path
+    (``sparse_backend="ref"``). With ``plain_f32`` (the recurrent
+    families) the logits are held so only where bf16 itself is that
+    accurate: where the bf16 plain path lies within BF16_LOGITS_RTOL of
+    the f32 plain path. Past that, rounding in the bf16 model (rwkv6-3b's
+    data-dependent decays at 32 layers) moves two correct bf16 paths apart
+    as far as each lies from f32, the log shows it, and the kernel is held
+    call by call alone."""
+    b = prompt.shape[0]
+    with _held_calls(what) as errs:
+        lk = _prefill_logits(kernel_model, params, prompt)
+    if not errs:
+        raise SystemExit(f"{what}: the bf16 prefill launched no kernel")
+    lr = _prefill_logits(plain_model, params, prompt)
+    if not (torch.isfinite(lk).all()
+            and lk.shape == (b, kernel_model.cfg.vocab)):
+        raise SystemExit(f"{what}: prefill logits not finite or misshapen")
+    err = float((lk - lr).abs().max())
+    bound = BF16_LOGITS_RTOL * float(lr.abs().max())
+    log(f"{what}: {len(errs)} kernel calls of the bf16 prefill held to their "
+        f"plain versions, max |diff| {max(errs):.3e}; bf16 prefill logits "
+        f"max |kernel - plain| = {err:.3e} (bound {bound:.3e}; max |logit| "
+        f"{float(lr.abs().max()):.3e})")
+    if plain_f32 is not None:
+        l32 = _prefill_logits(plain_f32, params, prompt)
+        plain_err = float((lr - l32).abs().max())
+        kernel_err = float((lk - l32).abs().max())
+        accurate = plain_err <= BF16_LOGITS_RTOL * float(l32.abs().max())
+        log(f"{what}: max |logit - f32 plain logit|: bf16 plain "
+            f"{plain_err:.3e}, bf16 kernel {kernel_err:.3e} (max |f32 logit| "
+            f"{float(l32.abs().max()):.3e}); " + (
+                "bf16 is accurate here: the logits are held" if accurate else
+                "bf16 rounding dominates the logits here: the kernel is held "
+                "call by call only"))
+        if not accurate:
+            return
+    if err > bound:
+        raise SystemExit(f"{what}: bf16 prefill logits disagree")
+
+
 def model_phase(dev) -> dict:
     phase("model: serving CLI (the main path)")
     main_counts = {}
@@ -464,10 +636,8 @@ def model_phase(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     kernel_bf16 = build(cfg, device=dev)
-    params = kernel_bf16.init(gen)
-    plan = CompressionPlan(block=BLOCK)
-    cp = compress_params(prune_blocks_for_plan(params, plan, SPARSITY), plan)
-    del params
+    cp = init_compressed(kernel_bf16, CompressionPlan(block=BLOCK), SPARSITY,
+                         gen)
     leaves = list(iter_bcsr(cp))
     if len(leaves) != 7:
         raise SystemExit(f"expected 7 compressed projections, got "
@@ -482,24 +652,17 @@ def model_phase(dev) -> dict:
     _profile(f"generate {GEN} tokens x {BATCH}", BATCH * GEN,
              lambda: generate(kernel_bf16, cp, prompt, GEN), top=6)
     plain_bf16 = build(cfg, device=dev, sparse_backend="ref")
-    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              n_layers=SMOLLM_F32_LAYERS)
     kernel_f32 = build(f32, device=dev)
     plain_f32 = build(f32, device=dev, sparse_backend="ref")
+    log(f"the f32 generate checks run the first {SMOLLM_F32_LAYERS} of "
+        f"{cfg.n_layers} layers; the bf16 checks run all")
 
     wrappers = {"bcsr": "spmm", "pal8": "spmm_palette", "pal4": "spmm_palette"}
     for fmt, params in formats.items():
-        with torch.inference_mode():
-            lk = kernel_bf16.prefill(params, prompt, kernel_bf16.init_cache(BATCH, PROMPT))[0]
-            lr = plain_bf16.prefill(params, prompt, plain_bf16.init_cache(BATCH, PROMPT))[0]
-        if not (torch.isfinite(lk).all() and lk.shape == (BATCH, cfg.vocab)):
-            raise SystemExit(f"{fmt}: prefill logits not finite or misshapen")
-        err = float((lk - lr).abs().max())
-        bound = BF16_LOGITS_RTOL * float(lr.abs().max())
-        log(f"{fmt}: bf16 prefill logits max |kernel - plain| = {err:.3e} "
-            f"(bound {bound:.3e}; max |logit| {float(lr.abs().max()):.3e})")
-        if err > bound:
-            raise SystemExit(f"{fmt}: bf16 prefill logits disagree")
-
+        _bf16_logits_check(fmt, kernel_bf16, plain_bf16, params, prompt)
+        params = _cut_depth(params, f32.n_super_blocks)
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -509,7 +672,7 @@ def model_phase(dev) -> dict:
         dt = time.perf_counter() - t0
         counts = dict(ops.launches)
         peak = torch.cuda.max_memory_allocated()
-        if counts[wrappers[fmt]] != EXPECTED_LAUNCHES:
+        if counts[wrappers[fmt]] != 7 * f32.n_layers * GEN:
             raise SystemExit(f"{fmt}: f32 generate launches {counts}")
         out_r = generate(plain_f32, params, prompt, GEN)
         matched = 0
@@ -540,9 +703,9 @@ def model_phase(dev) -> dict:
 # paged attention
 # ---------------------------------------------------------------------------
 
-def _paged_inputs(dev, case, dtype):
+def _paged_inputs(dev, case, dtype, cfg=None):
     _, c, starts, n_tok, p_log = case
-    cfg = get_config(ARCH)
+    cfg = cfg or get_config(ARCH)
     kv, hd, h = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
     b = len(starts)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -564,7 +727,7 @@ def _grouped(q, kv):
     return q.reshape(b, c, kv, h // kv, hd).permute(0, 2, 1, 3, 4).contiguous()
 
 
-def _paged_bound(case, kv, g, hd, elt, splits):
+def _paged_bound(case, kv, g, hd, elt, splits, window=None):
     """Least time for one kernel call: the K and V bytes of the pages that
     run (all kv heads of each running (slot, page)), q, the partials and
     the index tables, each moved once, against the f32 FMAs of the
@@ -572,6 +735,7 @@ def _paged_bound(case, kv, g, hd, elt, splits):
     _, c, starts, _, p_log = case
     b = len(starts)
     runs = sum(page * PAGE <= s0 + c - 1
+               and (window is None or page * PAGE + PAGE - 1 >= s0 - window + 1)
                for s0 in starts for page in range(p_log))
     nbytes = (runs * PAGE * kv * hd * elt * 2 + b * kv * c * g * hd * 4
               + b * kv * splits * c * g * (hd + 2) * 4
@@ -582,10 +746,11 @@ def _paged_bound(case, kv, g, hd, elt, splits):
             "operations", int(nbytes), int(flops), int(runs))
 
 
-def _gather_sdpa(q, kp, vp, table, positions):
+def _gather_sdpa(q, kp, vp, table, positions, window=None):
     """Library yardstick: gather the page table into the dense context,
     repeat it over the GQA groups, then ``scaled_dot_product_attention``
-    with the causal-by-absolute-position mask. The port never calls it."""
+    with the causal-by-absolute-position mask (and the window). The port
+    never calls it."""
     b, c, h, hd = q.shape
     p_log, kv = table.shape[1], kp.shape[2]
     ctx = p_log * PAGE
@@ -595,7 +760,10 @@ def _gather_sdpa(q, kp, vp, table, positions):
         return x.repeat_interleave(h // kv, dim=1)
 
     k_pos = torch.arange(ctx, device=q.device)
-    mask = (k_pos[None, None, :] <= positions[:, :, None])[:, None]
+    mask = k_pos[None, None, :] <= positions[:, :, None]
+    if window is not None:
+        mask &= positions[:, :, None] - k_pos[None, None, :] < window
+    mask = mask[:, None]
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2).to(kp.dtype), dense(kp), dense(vp), attn_mask=mask)
 
@@ -750,6 +918,38 @@ def _engine_cli_run(tag: str, extra: list, req_file: Path) -> tuple:
     return counts, s, peak
 
 
+def _cut_depth(params, n_super: int):
+    """The same weights with only the first ``n_super`` super-blocks of the
+    stacked layers (the remainder layers kept): the params of the config
+    with ``n_layers`` cut to match."""
+    def cut(node):
+        if isinstance(node, dict):
+            return {k: cut(v) for k, v in node.items()}
+        if isinstance(node, torch.Tensor):
+            return node[:n_super]
+        return node.map(lambda t: t[:n_super])          # BlockCSR / palette
+
+    return dataclasses.replace(
+        params, dense={**params.dense, "layers": cut(params.dense["layers"])},
+        sparse={**params.sparse, "layers": cut(params.sparse["layers"])})
+
+
+def _logits_after(model, params, prompt, tokens) -> torch.Tensor:
+    """The logits that pick the token after ``prompt`` and ``tokens``: one
+    prefill of the prompt, then a decode step per token, as ``generate``
+    runs them (so any prompt that ``generate`` takes will do)."""
+    p = torch.as_tensor(list(prompt), device=model.device)[None]
+    with torch.inference_mode():
+        cache = model.init_cache(1, p.shape[1] + len(tokens) + 1)
+        logits, cache = model.prefill(params, p, cache)
+        for i, t in enumerate(tokens):
+            tok = torch.tensor([[t]], device=model.device)
+            logits, cache = model.decode_step(params, tok, cache,
+                                              p.shape[1] + i)
+            logits = logits[:, 0]
+    return logits[0]
+
+
 def _divergence_ok(model, params, prompt, ref_tokens, got_tokens,
                    what: str) -> int:
     """Tokens matched before the first difference; raises unless the
@@ -760,10 +960,9 @@ def _divergence_ok(model, params, prompt, ref_tokens, got_tokens,
         return len(ref_tokens)
     t = next(i for i, (a, b) in enumerate(zip(ref_tokens, got_tokens))
              if a != b)
-    seq = torch.tensor(list(prompt) + ref_tokens[:t], device=model.device)[None]
-    with torch.inference_mode():
-        logits = model.prefill(params, seq, model.init_cache(1, seq.shape[1]))[0]
-    margin = _top2_margin(logits)
+    margin = _top2_margin(_logits_after(model, params,
+                                        [int(x) for x in prompt],
+                                        ref_tokens[:t]))
     log(f"{what}: first differs at step {t}, top-2 margin {margin:.3e}")
     if margin >= F32_LOGITS_ATOL:
         raise SystemExit(f"{what}: greedy tokens differ away from a near-tie")
@@ -778,34 +977,34 @@ def _engine(model, params, requests, **kw) -> ServeEngine:
         **kw))
 
 
-def _profile_engine_window(engine, requests) -> None:
+def _profile_engine_window(make_engine, requests, ticks=PROFILE_TICKS) -> None:
     """Where a bf16 engine run's time goes, over the ticks
     ``PROFILE_TICKS``: the device time of every kernel (torch.profiler)
     against the host-clock time of the same ticks in an unprofiled run of
     the same requests (each tick ends in its device sync). A window keeps
     the profiler's own parse of the trace short."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    first, last = PROFILE_TICKS
+    first, last = ticks
 
-    def drive(after_tick):
+    def drive(engine, after_tick):
         for r in requests:
             engine.submit(r)
         tick = 0
-        while engine.scheduler.has_work():
+        while engine.scheduler.has_work() and tick < last:
             engine.step()
             after_tick(tick)
             tick += 1
 
     ends = {}
-    drive(lambda i: ends.__setitem__(i, time.perf_counter()))
+    drive(make_engine(), lambda i: ends.__setitem__(i, time.perf_counter()))
     wall = ends[last - 1] - ends[first - 1]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=first - 1, warmup=1,
                                    active=last - first, repeat=1)) as prof:
-        drive(lambda i: prof.step())
+        drive(make_engine(), lambda i: prof.step())
     dev_s, rows = _device_rows(prof)
-    _log_profile(f"engine, {len(requests)} requests, ticks {first}-{last - 1} "
-                 f"of {len(ends)}", wall, dev_s, rows, top=8)
+    _log_profile(f"engine, {len(requests)} requests, ticks {first}-{last - 1}",
+                 wall, dev_s, rows, top=8)
 
 
 def engine_phase(dev, formats) -> dict:
@@ -837,19 +1036,25 @@ def engine_phase(dev, formats) -> dict:
         main_counts[fmt] = counts["paged_flash_fwd"]
 
     phase("engine: bf16 profile")
-    _profile_engine_window(_engine(build(cfg, device=dev), formats["bcsr"],
-                                   requests), requests)
+    model = build(cfg, device=dev)
+    _profile_engine_window(lambda: _engine(model, formats["bcsr"], requests),
+                           requests)
 
     phase("engine: f32 tokens against generate, backends, prefix cache")
-    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              n_layers=SMOLLM_F32_LAYERS)
     kernel_f32 = build(f32, device=dev)
+    log(f"the f32 engine checks run the first {SMOLLM_F32_LAYERS} of "
+        f"{cfg.n_layers} layers")
+    formats = {fmt: _cut_depth(params, f32.n_super_blocks)
+               for fmt, params in formats.items()}
     for fmt, params in formats.items():
         engine = _engine(kernel_f32, params, requests, attn_backend="cuda")
         ops.reset_launches()
         paged_ops.reset_launches()
         out = engine.run(requests)
         ticks = out["stats"]["n_ticks"]
-        if paged_ops.launches["paged_flash_fwd"] != cfg.n_layers * ticks:
+        if paged_ops.launches["paged_flash_fwd"] != f32.n_layers * ticks:
             raise SystemExit(f"{fmt}: f32 engine paged launches "
                              f"{paged_ops.launches} over {ticks} ticks")
         matched = 0
@@ -1350,26 +1555,367 @@ def train_compare_phase(dev, cdir: Path) -> None:
         f"by caller {where.most_common(8)}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda", 0)
-    card = device_phase(dev)
-    build_phase()
-    rows = kernel_phase(dev)
-    launches, formats = model_phase(dev)
-    paged_rows = paged_kernel_phase(dev)
-    paged_launches = engine_phase(dev, formats)
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _flash_pairs(s: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one head: the products the work needs
+    (a kernel skips the masked ones where it can)."""
+    i = np.arange(s)
+    hi = i if causal else np.full(s, s - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(s, np.int64)
+    return int((hi - lo + 1).sum())
+
+
+def _flash_bound(b, s, h, kv, hd, causal, window, dtype):
+    """q, k and v read once and o written once, against 4 * hd flops per
+    unmasked (query, key) pair and head (scores and probability times V),
+    at the bf16 tensor-core rate for bf16 operands, else the f32 rate."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * h + 2 * b * kv) * s * hd * elt
+    flops = 4 * hd * b * h * _flash_pairs(s, causal, window)
+    return _ops_bound(nbytes, flops, dtype)
+
+
+def _flash_mask(s, causal, window, dev):
+    """SDPA's boolean mask, or None where ``is_causal`` (or nothing) says it."""
+    if window is None:
+        return None
+    qp = torch.arange(s, device=dev)[:, None]
+    kp = torch.arange(s, device=dev)[None, :]
+    mask = (qp - kp) < window
+    return mask & (qp >= kp) if causal else mask
+
+
+def flash_phase(dev) -> tuple:
+    """The flash-attention kernel against its plain version at the shapes
+    of FLASH_CASES, timed beside it, SDPA and its bound; then its entry
+    point ``ops.flash_attention`` driven once in the model layout with the
+    launch counter set to 0 just before. The counter's value on arrival is
+    what the serving and training phases launched: no model code calls
+    the kernel."""
+    phase("flash attention")
+    model_launches = flash_ops.launches["flash_attention_fwd"]
+    rows = []
+    for ci, (case, b, s, h, kv, hd, causal, window, dtype) in enumerate(FLASH_CASES):
+        gen = torch.Generator(device=dev).manual_seed(ci)
+
+        def mk(n):
+            return torch.randn(n, s, hd, device=dev, generator=gen).to(dtype)
+
+        q, k, v = mk(b * h), mk(b * kv), mk(b * kv)
+        got = flash_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                            window=window)
+        want = flash_ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window)
+        torch.cuda.synchronize()
+        atol, rtol = FLASH_TOL[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        if not (torch.isfinite(got.float()).all() and torch.allclose(
+                got.float(), want.float(), atol=atol, rtol=rtol)):
+            raise SystemExit(f"flash {case} {dtype}: kernel disagrees with "
+                             f"plain, max err {err}")
+        sets = copies(lambda: (mk(b * h), mk(b * kv), mk(b * kv)),
+                      tensor_bytes(q, k, v) * 2)
+        kern = functools.partial(flash_ops.flash_attention_fwd,
+                                 causal=causal, window=window)
+        plain = functools.partial(flash_ref.flash_attention_ref,
+                                  causal=causal, window=window)
+        mask = _flash_mask(s, causal, window, dev)
+
+        def sdpa(q, k, v):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+
+        lib_sets = [(q_.view(b, h, s, hd), k_.view(b, kv, s, hd),
+                     v_.view(b, kv, s, hd)) for q_, k_, v_ in sets]
+        lib_err = float((sdpa(*lib_sets[0]).reshape(b * h, s, hd).float()
+                         - plain(*sets[0]).float()).abs().max())
+        row = {"kernel": "flash_attention", "case": case, "B": b, "S": s,
+               "H": h, "KV": kv, "hd": hd, "causal": causal,
+               "window": window, "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": err, "atol": atol, "rtol": rtol,
+               "ms": time_ms(kern, sets, calls=20),
+               "plain_ms": time_ms(plain, sets[:2], calls=3),
+               "library_ms": time_ms(sdpa, lib_sets, calls=20),
+               "library": "scaled_dot_product_attention(enable_gqa=True"
+                          + (", boolean mask)" if mask is not None else
+                             ", is_causal)" if causal else ")"),
+               "library_max_abs_err": lib_err}
+        row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                       _flash_bound(b, s, h, kv, hd, causal, window, dtype)))
+        log(json.dumps(row))
+        rows.append(row)
+
+    # the entry point, in the (B, S, H, hd) model layout, at the table row's
+    # shape and at smollm-360m's prefill shape
+    flash_ops.reset_launches()
+    for case, b, s, h, kv, hd, causal, window, dtype in (
+            FLASH_CASES[FLASH_TABLE_ROW], FLASH_CASES[3]):
+        gen = torch.Generator(device=dev).manual_seed(99)
+        q = torch.randn(b, s, h, hd, device=dev, generator=gen).to(dtype)
+        k = torch.randn(b, s, kv, hd, device=dev, generator=gen).to(dtype)
+        v = torch.randn(b, s, kv, hd, device=dev, generator=gen).to(dtype)
+        out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_ref.flash_attention_ref(
+            q.transpose(1, 2).reshape(b * h, s, hd),
+            k.transpose(1, 2).reshape(b * kv, s, hd),
+            v.transpose(1, 2).reshape(b * kv, s, hd), causal=causal,
+            window=window).reshape(b, h, s, hd).transpose(1, 2)
+        torch.cuda.synchronize()
+        atol, rtol = FLASH_TOL[dtype]
+        if tuple(out.shape) != (b, s, h, hd) or not torch.allclose(
+                out.float(), want.float(), atol=atol, rtol=rtol):
+            raise SystemExit(f"flash_attention entry point, {case}: "
+                             "disagrees with the plain version")
+    launches = flash_ops.launches["flash_attention_fwd"]
+    log(f"flash_attention entry point: {launches} launches; the serving and "
+        f"training phases launched it {model_launches} times")
+    if launches < 2 or model_launches:
+        raise SystemExit("flash_attention launch counts are off")
+    return rows, launches, model_launches
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: recurrentgemma-9b (RG-LRU + local attention) and
+# rwkv6-3b, at full width
+# ---------------------------------------------------------------------------
+
+def _spmm_per_pass(cp) -> int:
+    """spmm launches of one forward pass: one per compressed matrix of
+    every layer (a stacked store counts once per layer)."""
+    return sum(m.data.shape[0] if m.data.dim() == 4 else 1
+               for _, m in iter_bcsr(cp))
+
+
+def _recurrent_requests(vocab: int, prompts) -> list:
+    rng = np.random.default_rng(7)
+    return [api.Request(prompt=rng.integers(0, vocab, n),
+                        max_new_tokens=ENGINE_GEN) for n in prompts]
+
+
+def _paged_hd256_rows(dev, cfg) -> list:
+    """The paged flash-decode kernel at recurrentgemma-9b's attention
+    (16 q heads of 256 on one kv head, window 2048): against its plain
+    version, timed beside it, the gather + SDPA yardstick and its bound."""
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    g = cfg.n_heads // kv
+    window = cfg.attn_window
+    rows = []
+    for case in HYBRID_PAGED_CASES:
+        q, kp, vp, table, positions, valid = _paged_inputs(
+            dev, case, torch.bfloat16, cfg)
+        qg = _grouped(q, kv)
+        plain_out = paged_ref.paged_attention_ref(q, kp, vp, table, positions,
+                                                  window=window)
+        for splits in (1, HYBRID_KV_SPLITS):
+            out = paged_ops.paged_flash_attention(q, kp, vp, table, positions,
+                                                  window=window,
+                                                  kv_splits=splits)
+            torch.cuda.synchronize()
+            err = float((out[valid] - plain_out[valid]).abs().max())
+            if not (torch.isfinite(out).all() and err <= PAGED_ATOL):
+                raise SystemExit(f"paged {case[0]} S={splits}: kernel "
+                                 f"disagrees with plain, {err}")
+            sets = copies(lambda: (qg.clone(), kp.clone(), vp.clone(), table,
+                                   positions), tensor_bytes(qg, kp, vp))
+            kern = functools.partial(paged_ops.paged_flash_fwd, window=window,
+                                     kv_splits=splits)
+            row = {"kernel": "paged_flash_attention", "case": case[0],
+                   "B": len(case[2]), "C": case[1], "P": case[4], "g": g,
+                   "hd": hd, "window": window, "pool": "bfloat16",
+                   "kv_splits": splits, "max_abs_err": err,
+                   "atol": PAGED_ATOL, "ms": time_ms(kern, sets, calls=10),
+                   "plain_ms": time_ms(lambda *a: paged_ref.paged_flash_fwd_ref(
+                       *a, a[-1][:, 0], window=window, kv_splits=splits),
+                       sets[:1], calls=2),
+                   "library_ms": time_ms(
+                       functools.partial(_gather_sdpa, window=window),
+                       [(q, kp_, vp_, tb, ps_) for _, kp_, vp_, tb, ps_ in sets],
+                       calls=20),
+                   "library": "gather + repeat_interleave + "
+                              "scaled_dot_product_attention (window mask)"}
+            row.update(zip(("bound_ms", "bound_by", "bytes", "flops",
+                            "pages_run"),
+                           _paged_bound(case, kv, g, hd, kp.element_size(),
+                                        splits, window)))
+            log(json.dumps(row))
+            rows.append(row)
+    return rows
+
+
+def _check_counts(what, counts, want: dict) -> None:
+    for name, n in want.items():
+        if counts.get(name, 0) != n:
+            raise SystemExit(f"{what}: launches {counts}, expected {want}")
+
+
+def recurrent_phase(dev, arch: str, prompts, f32_layers=None,
+                    kv_splits: int = 1) -> dict:
+    """One recurrent family at full width: the compressed model built on
+    the card (BlockCSR, then palette-8); ``generate`` (batch 4, prompt 16,
+    32 new tokens) and the engine on the request mix ``prompts`` in bf16,
+    each with the launch counters set to 0 just before and read just
+    after; where the time goes (torch.profiler); then in f32 the kernel
+    path against the plain path and the engine against ``generate``, at
+    the depth ``f32_layers`` (all layers when None)."""
+    cfg = get_config(arch)
+    phase(f"{arch}: the compressed model, built on the card")
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev)
+    cp = init_compressed(model, CompressionPlan(block=BLOCK), SPARSITY,
+                         torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    formats = {"bcsr": cp, "pal8": quantize_compressed(cp, 8)}
+    torch.cuda.synchronize()
+    dense_b = model_size_bytes(model.init(device="meta"))
+    per_pass = _spmm_per_pass(cp)
+    n_attn = (cfg.n_super_blocks * cfg.block_pattern.count("attn")
+              + cfg.remainder_pattern.count("attn"))
+    sizes = {"dense": dense_b, "bcsr": bcsr_equiv_size_bytes(cp),
+             "pal8": compressed_size_bytes(formats["pal8"])}
+    log(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_params():,} params; {len(list(iter_bcsr(cp)))} compressed "
+        f"weights, {per_pass} spmm per pass, {n_attn} attention layers; "
+        f"build {t1 - t0:.1f} s, palette-8 {time.perf_counter() - t1:.1f} s; "
+        f"bytes dense {dense_b / 1e6:.2f} MB, bcsr {sizes['bcsr'] / 1e6:.2f} "
+        f"MB, palette-8 {sizes['pal8'] / 1e6:.2f} MB")
+    result = {"arch": arch, "sizes": sizes, "per_pass": per_pass}
+
+    phase(f"{arch}: kernel path vs plain path, bf16, all {cfg.n_layers} "
+          "layers")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                           device=dev)
+    plain = build(cfg, device=dev, sparse_backend="ref")
+    plain_f32 = build(dataclasses.replace(cfg, compute_dtype="float32"),
+                      device=dev, sparse_backend="ref")
+    for fmt, params in formats.items():
+        _bf16_logits_check(f"{arch} {fmt}", model, plain, params, prompt,
+                           plain_f32)
+    torch.cuda.empty_cache()
+
+    phase(f"{arch}: generate (the main path)")
+    for fmt, params in formats.items():
+        wrapper = "spmm" if fmt == "bcsr" else "spmm_palette"
+        ops.reset_launches()
+        paged_ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(model, params, prompt, GEN)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {**ops.launches, **paged_ops.launches}
+        _check_counts(f"{arch} {fmt} generate", counts,
+                      {wrapper: per_pass * GEN, "paged_flash_fwd": 0})
+        if tuple(out.shape) != (BATCH, GEN) or int(out.min()) < 0 or \
+                int(out.max()) >= cfg.vocab:
+            raise SystemExit(f"{arch} {fmt}: generate returned {out.shape}")
+        log(f"{arch} {fmt} bf16 generate {BATCH} x {GEN}: "
+            f"{BATCH * GEN / dt:.1f} tok/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"{counts}")
+        result[f"generate_{fmt}"] = {"tok_s": BATCH * GEN / dt,
+                                     "launches": counts[wrapper]}
+    _profile(f"{arch} generate {PROFILE_GEN} tokens x {BATCH}",
+             BATCH * PROFILE_GEN,
+             lambda: generate(model, cp, prompt, PROFILE_GEN), top=8)
+
+    if arch == HYBRID:
+        phase(f"{arch}: paged kernel at hd {cfg.resolved_head_dim}, "
+              f"g {cfg.n_heads // cfg.n_kv_heads}")
+        result["paged_rows"] = _paged_hd256_rows(dev, cfg)
+
+    phase(f"{arch}: engine (the main path)")
+    requests = _recurrent_requests(cfg.vocab, prompts)
+    for fmt, params in formats.items():
+        wrapper = "spmm" if fmt == "bcsr" else "spmm_palette"
+        engine = _engine(model, params, requests, kv_splits=kv_splits)
+        ops.reset_launches()
+        paged_ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = engine.run(requests)
+        torch.cuda.synchronize()
+        counts = {**ops.launches, **paged_ops.launches}
+        s = out["stats"]
+        ticks = s["n_ticks"]
+        _check_counts(f"{arch} {fmt} engine", counts,
+                      {wrapper: per_pass * ticks,
+                       "paged_flash_fwd": n_attn * ticks})
+        if s["n_requests"] != len(requests) or \
+                s["n_generated"] != len(requests) * ENGINE_GEN:
+            raise SystemExit(f"{arch} engine {fmt}: served {s['n_requests']} "
+                             f"requests, {s['n_generated']} tokens")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{arch} engine {fmt} bf16: {s['tok_s']:.1f} tok/s, ttft p50/p95 "
+            f"{s['ttft_p50_s'] * 1e3:.1f}/{s['ttft_p95_s'] * 1e3:.1f} ms, "
+            f"{ticks} ticks, {s['n_prefill_chunks']} prefill chunks, pools "
+            f"kv {s['kv_page_bytes']} + state {s['state_slot_bytes']} bytes, "
+            f"peak memory {peak / 2**30:.2f} GiB, run "
+            f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+        result[f"engine_{fmt}"] = {"tok_s": s["tok_s"], "ticks": ticks,
+                                   "paged": counts["paged_flash_fwd"],
+                                   "spmm": counts[wrapper]}
+    _profile_engine_window(
+        lambda: _engine(model, cp, requests, kv_splits=kv_splits), requests,
+        RECURRENT_PROFILE_TICKS)
     del formats
     torch.cuda.empty_cache()
-    train_rows = train_kernel_phase(dev)
-    train_counts, cdir = train_phase(dev)
-    train_compare_phase(dev, cdir)
 
-    phase("kernel table")
+    phase(f"{arch}: f32, kernel path vs plain path and engine vs generate")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    if f32_layers:
+        f32 = dataclasses.replace(f32, n_layers=f32_layers)
+        log(f"{arch}: the f32 checks run at a cut depth of {f32_layers} "
+            f"layers ({f32.n_super_blocks} super-block(s) and remainder "
+            f"{f32.remainder_pattern}); the bf16 runs above are at full "
+            f"depth, {cfg.n_layers} layers")
+    kernel_f32 = build(f32, device=dev)
+    plain_f32 = build(f32, device=dev, sparse_backend="ref")
+    p32 = _cut_depth(cp, f32.n_super_blocks)
+    out_k = generate(kernel_f32, p32, prompt, GEN)
+    out_r = generate(plain_f32, p32, prompt, GEN)
+    matched = sum(_divergence_ok(plain_f32, p32, prompt[row].tolist(),
+                                 out_r[row], out_k[row],
+                                 f"{arch} f32 generate kernel vs plain row {row}")
+                  for row in range(BATCH))
+    log(f"{arch}: f32 generate {matched}/{BATCH * GEN} tokens of the kernel "
+        "path match the plain path")
+    ops.reset_launches()
+    paged_ops.reset_launches()
+    cuda_out = _engine(kernel_f32, p32, requests, attn_backend="cuda",
+                       kv_splits=kv_splits).run(requests)
+    counts = {**ops.launches, **paged_ops.launches}
+    matched = sum(_divergence_ok(
+        kernel_f32, p32, r.prompt,
+        generate(kernel_f32, p32, torch.tensor(r.prompt_ids, device=dev)[None],
+                 ENGINE_GEN)[0],
+        cuda_out["results"][rid], f"{arch} f32 engine vs generate rid {rid}")
+        for rid, r in enumerate(requests))
+    log(f"{arch}: f32 engine {matched}/{len(requests) * ENGINE_GEN} tokens "
+        f"match generate ({cuda_out['stats']['n_ticks']} ticks, launches "
+        f"{counts})")
+    plain_out = _engine(plain_f32, p32, requests, attn_backend="ref"
+                        ).run(requests)
+    matched = sum(_divergence_ok(plain_f32, p32, r.prompt,
+                                 plain_out["results"][rid],
+                                 cuda_out["results"][rid],
+                                 f"{arch} f32 engine kernel vs plain rid {rid}")
+                  for rid, r in enumerate(requests))
+    log(f"{arch}: f32 engine {matched}/{len(requests) * ENGINE_GEN} tokens of "
+        "the kernel path (spmm and paged kernels) match the plain path")
+    del cp, p32
+    torch.cuda.empty_cache()
+    return result
+
+
+def _spmm_rows(table, rows, launches, card) -> None:
     mat, m_rows, x_dtype = TABLE_SHAPE
-    table = []
     for name, fmt in (("bsr_spmm", "bcsr"), ("bsr_spmm_palette8", "pal8"),
                       ("bsr_spmm_palette4", "pal4")):
         r = rows[(name, mat, m_rows, x_dtype)]
@@ -1383,6 +1929,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": f"{mat} {r['shape']} M={m_rows} x={r['x']}",
             "card": card})
+
+
+def _paged_row(table, paged_rows, paged_launches, card) -> None:
     r = paged_rows[PAGED_TABLE_ROW]
     table.append({
         "name": "paged_flash_attention", "route": "cuda",
@@ -1394,6 +1943,9 @@ def main() -> int:
         "shape": f"{r['case']} B={r['B']} C={r['C']} P={r['P']} "
                  f"pool={r['pool']} kv_splits={r['kv_splits']}",
         "card": card})
+
+
+def _train_rows(table, train_rows, train_counts, card) -> None:
     mat, dt = TRAIN_TABLE_SHAPE
     for name, replaces in (
             ("bsr_spmm_t", "src/repro/kernels/bsr_spmm/bsr_spmm.py:163"),
@@ -1428,6 +1980,51 @@ def main() -> int:
         "shape": f"bcsr_data mlp.wi leaf, {r['numel']} f32 elements, "
                  "with the prox",
         "card": card})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = device_phase(dev)
+    build_phase()
+    flash_ops.reset_launches()
+    table = []
+    rows = kernel_phase(dev)
+    launches, formats = model_phase(dev)
+    _spmm_rows(table, rows, launches, card)
+    paged_rows = paged_kernel_phase(dev)
+    paged_launches = engine_phase(dev, formats)
+    _paged_row(table, paged_rows, paged_launches, card)
+    del formats
+    torch.cuda.empty_cache()
+    train_rows = train_kernel_phase(dev)
+    train_counts, cdir = train_phase(dev)
+    train_compare_phase(dev, cdir)
+    _train_rows(table, train_rows, train_counts, card)
+    hybrid = recurrent_phase(dev, HYBRID, HYBRID_PROMPTS,
+                             f32_layers=HYBRID_F32_LAYERS,
+                             kv_splits=HYBRID_KV_SPLITS)
+    log(f"{HYBRID}: {json.dumps(hybrid, default=str)}")
+    rwkv = recurrent_phase(dev, RWKV, RWKV_PROMPTS, f32_layers=RWKV_F32_LAYERS)
+    log(f"{RWKV}: {json.dumps(rwkv, default=str)}")
+    flash_rows, flash_launches, model_launches = flash_phase(dev)
+    r = flash_rows[FLASH_TABLE_ROW]
+    table.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": FLASH_REPLACES, "launches": flash_launches,
+        "model_path_launches": model_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in flash_rows),
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "shape": f"B={r['B']} S={r['S']} H={r['H']} KV={r['KV']} "
+                 f"hd={r['hd']} causal window={r['window']} {r['dtype']}",
+        "card": card})
+
+    phase("kernel table")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,19 +6,23 @@ Port of ``repro.launch.serve``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --batch 4 --prompt-len 16 --gen 32 --sparse [--quantize-bits 8|4]
 
+``--arch`` takes the attention-only configs and the recurrent families
+``recurrentgemma-9b`` (RG-LRU + local attention) and ``rwkv6-3b``.
 ``--sparse`` block-magnitude-prunes the random init on the serving BCSR
-grid, compresses it (attention q/k/v/o, MLP and an untied head as BlockCSR;
-dense where a matrix does not compress) and serves from it: every
-compressed projection runs the CUDA spmm kernels in prefill and decode.
+grid, compresses it (attention q/k/v/o, MLP, the RG-LRU and RWKV
+projections and an untied head as BlockCSR; dense where a matrix does not
+compress) and serves from it: every compressed projection runs the CUDA
+spmm kernels in prefill and decode.
 ``--quantize-bits 8|4`` serves PaletteBCSR instead. ``--ckpt-dir`` serves a
 compressed checkpoint written by the JAX package's ``launch/train
 --sparse``. Either way the per-matrix size table and the dense / bcsr /
 palette byte line are printed. The model runs on ``--device`` (``cuda``).
 
 ``--engine`` serves a ``--requests`` mix through the continuous-batching
-engine (``serve/engine.py``): paged KV pools, chunked prefill interleaved
-with decode, priority classes with preemption, an optional radix prefix
-cache, and the paged flash-decode CUDA kernel for attention
+engine (``serve/engine.py``): slot resource pools (paged KV for attention
+layers, slot-indexed state for recurrent ones), chunked prefill
+interleaved with decode, priority classes with preemption, an optional
+radix prefix cache, and the paged flash-decode CUDA kernel for attention
 (``--attn-backend``). ``--parity-check`` holds every request's greedy
 tokens against ``generate``; ``--metrics-out`` and ``--trace-out`` write
 the metrics registry and a Chrome trace of the run.
@@ -43,13 +47,13 @@ from repro_torch.serve.api import SamplingParams
 from repro_torch.serve.engine import EngineConfig, ServeEngine
 from repro_torch.serve.step import generate
 from repro_torch.sparse.compress import (CompressionPlan, bcsr_equiv_size_bytes,
-                                         compress_params, compressed_size_bytes,
+                                         compressed_size_bytes,
                                          compression_summary, format_size_report,
-                                         iter_bcsr, prune_blocks_for_plan)
+                                         init_compressed, iter_bcsr)
 from repro_torch.sparse.formats import PaletteBCSR
 
 _NOT_PORTED = {
-    "--profile": "the kernel profiler (ROADMAP Queue 1 item 8)",
+    "--profile": "the kernel profiler (ROADMAP Queue 1 item 8b)",
     "--replicas": "the router slice (ROADMAP Queue 1 item 11)",
     "--route": "the router slice (ROADMAP Queue 1 item 11)",
     "--mesh": "the multi-device slice (ROADMAP Queue 1 item 12)",
@@ -190,14 +194,13 @@ def main(argv=None):
         # dense bytes from shapes only: no dense model is allocated
         _report_sizes(params, model_size_bytes(model.init(device="meta")))
     elif args.sparse:
-        params = model.init(gen)
         plan = CompressionPlan(block=tuple(args.block),
                                min_sparsity=args.min_block_sparsity,
                                quantize_bits=args.quantize_bits or None)
-        params = prune_blocks_for_plan(params, plan, args.sparsity)
-        dense_b = model_size_bytes(params)
-        params = compress_params(params, plan)
-        _report_sizes(params, dense_b)
+        # pruned and compressed part by part on the device: the dense
+        # model never exists whole
+        params = init_compressed(model, plan, args.sparsity, gen)
+        _report_sizes(params, model_size_bytes(model.init(device="meta")))
     else:
         params = model.init(gen)
 
@@ -305,6 +308,7 @@ def _run_engine(model, params, args) -> dict:
                          generator=gen, tracer=tracer)
     pb = engine.pool_bytes
     print(f"engine pools: kv_pages={pb['kv_page_bytes'] / 2**20:.2f} MiB "
+          f"recurrent_state={pb['state_slot_bytes'] / 2**20:.2f} MiB "
           f"({engine.config.max_batch} slots)")
     try:
         out = engine.run(requests)
@@ -318,7 +322,7 @@ def _run_engine(model, params, args) -> dict:
           f" | latency p50/p95 {_ms(s['latency_p50_s'])}/"
           f"{_ms(s['latency_p95_s'])}ms | {s['n_ticks']} ticks, "
           f"{s['n_prefill_chunks']} prefill chunks | pools "
-          f"kv={s['kv_page_bytes']} bytes")
+          f"kv={s['kv_page_bytes']} state={s['state_slot_bytes']} bytes")
     if len(s["by_class"]) > 1 or s["n_preemptions"]:
         for c, cs in s["by_class"].items():
             print(f"  class {c}: {cs['n_requests']} requests "

@@ -40,6 +40,7 @@ from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.optimizers import prox_adam, prox_rmsprop, prox_sgd
 from repro_torch.data.synthetic import TokenStreamConfig, token_batch
 from repro_torch.models.model_zoo import build
+from repro_torch.models.transformer import RECURRENT_KINDS, layer_kinds
 from repro_torch.sparse.compress import (CompressionPlan, compressed_size_bytes,
                                          compression_summary, format_size_report,
                                          make_plan_prox, quantize_compressed)
@@ -112,7 +113,12 @@ def main(argv=None):
     cfg = model.cfg
     if cfg.frontend != "none":
         raise SystemExit(f"{cfg.name}: frontend embeddings are not ported yet "
-                         "(ROADMAP Queue 1 item 8)")
+                         "(ROADMAP Queue 1 item 8b)")
+    recurrent = sorted(set(RECURRENT_KINDS) & set(layer_kinds(cfg)))
+    if recurrent:
+        raise SystemExit(f"{cfg.name}: training layer kinds {recurrent} is "
+                         "not ported yet; it comes with recurrent-family "
+                         "training (ROADMAP Queue 1 item 14)")
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(gen)
     n_params = sum(p.numel() for p in metrics_lib.tree_leaves(params))

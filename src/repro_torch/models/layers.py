@@ -117,6 +117,19 @@ def apply_head(p: dict, x: Tensor, tie: bool, softcap: Optional[float],
     return logits
 
 
+def apply_proj(p: dict, x: Tensor, name: str,
+               sparse: Optional[dict] = None, backend: str = "auto") -> Tensor:
+    """y = x @ p[name] for a stored 2D (in, out) projection, in x's dtype.
+    A BlockCSR / PaletteBCSR entry in ``sparse`` (stored (out, in)) runs
+    ``sparse_matmul`` instead: the dense-or-compressed dispatch of the
+    RWKV time / channel mix and the RG-LRU block."""
+    if sparse and name in sparse:
+        y = sparse_ops.sparse_matmul(x.reshape(-1, x.shape[-1]), sparse[name],
+                                     backend)
+        return y.reshape(*x.shape[:-1], -1).to(x.dtype)
+    return x @ p[name].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Activations
 # ---------------------------------------------------------------------------
@@ -151,14 +164,9 @@ def apply_mlp(p: dict, x: Tensor, act: str, gated: bool,
               sparse_weights: Optional[dict] = None,
               backend: str = "auto") -> Tensor:
     f = activation(act)
-    dt = x.dtype
 
     def mm(name, h):
-        if sparse_weights and name in sparse_weights:
-            hs = h.reshape(-1, h.shape[-1])
-            y = sparse_ops.sparse_matmul(hs, sparse_weights[name], backend)
-            return y.reshape(*h.shape[:-1], -1).to(dt)
-        return h @ p[name].to(dt)
+        return apply_proj(p, h, name, sparse_weights, backend)
 
     h = mm("wi", x)
     if gated:

@@ -1,6 +1,8 @@
-"""Decoder stack for attention-only configs.
+"""Decoder stack for attention, RG-LRU and RWKV layers.
 
-Port of ``repro.models.transformer`` for ``attn`` layers. The params keep
+Port of ``repro.models.transformer`` for the layer kinds ``attn``,
+``rglru`` (Griffin: temporal conv + RG-LRU, then an MLP) and ``rwkv``
+(time mix, then channel mix). The params keep
 the reference's layout: the layers of the repeated block pattern are
 stacked under ``params["layers"]`` with a leading ``n_super`` axis, the
 remainder under ``params["rem"]``. A Python loop over the layer axis takes
@@ -17,20 +19,23 @@ Entry points, each taking raw params or ``CompressedParams``:
     paged_step(params, tokens, pools, page_table, start_pos, n_tokens)
                                            -> last-valid-token logits, pools
 
-Compressed projections (attention q/k/v/o, MLP, head) run ``sparse_matmul``
-with the model's ``sparse_backend`` ('auto': the CUDA kernels for tensors
-on the card). RG-LRU, RWKV and MoE layers are not ported yet.
+Compressed projections (attention q/k/v/o, MLP, the RG-LRU and RWKV
+projections, head) run ``sparse_matmul`` with the model's
+``sparse_backend`` ('auto': the CUDA kernels for tensors on the card).
+Caches and engine pools are updated in place: attention writes its K/V
+into them, and a recurrent layer copies its new state over the old one.
+MoE layers are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, rglru, rwkv6
 from repro_torch.models.layers import (apply_embed, apply_head, apply_mlp,
                                        apply_norm, init_embed, init_mlp,
                                        init_norm, truncated_normal_init)
@@ -42,8 +47,17 @@ PyTree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-_LATER = ("not ported yet: RG-LRU, RWKV and MoE layers come with ROADMAP "
-          "Queue 1 item 8")
+_LATER = ("not ported yet: MoE layers come with ROADMAP Queue 1 item 8b")
+# the layer kinds the port runs, and those of them that carry recurrent
+# state (the serving engine's slot pools, launch/train's refusal)
+KINDS = ("attn", "rglru", "rwkv")
+RECURRENT_KINDS = ("rglru", "rwkv")
+
+
+def layer_kinds(cfg) -> tuple:
+    """The kinds of ``cfg``'s layers in order: the block pattern, then the
+    remainder pattern."""
+    return tuple(cfg.block_pattern) + tuple(cfg.remainder_pattern)
 
 
 def _split_params(params) -> tuple[PyTree, Optional[PyTree]]:
@@ -93,8 +107,23 @@ def _zero_aux(device) -> dict:
             "z_loss": torch.zeros((), device=device)}
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _write_state(cache: dict, new: dict) -> None:
+    """Copy a recurrent layer's new state over its cache entries, in
+    place (the entries may be views into a stacked cache)."""
+    for sub, tree in new.items():
+        for leaf, t in tree.items():
+            cache[sub][leaf].copy_(t)
+
+
 class Model:
-    """An attention-only decoder of config ``cfg`` on ``device``.
+    """A decoder of config ``cfg`` (layer kinds attn / rglru / rwkv) on
+    ``device``.
 
     ``sparse_backend`` is handed to every ``sparse_matmul``: 'auto' (the
     kernels on a CUDA device, the plain version on the CPU) or 'ref' (the
@@ -102,11 +131,14 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, device=None,
                  sparse_backend: str = "auto"):
-        kinds = set(cfg.block_pattern) | set(cfg.remainder_pattern)
-        if kinds != {"attn"} or cfg.moe is not None:
+        kinds = set(layer_kinds(cfg))
+        if cfg.moe is not None:
             raise NotImplementedError(
-                f"{cfg.name}: layer kinds {sorted(kinds)}"
-                f"{' with MoE' if cfg.moe is not None else ''} are {_LATER}")
+                f"{cfg.name}: layer kinds {sorted(kinds)} with MoE are "
+                f"{_LATER}")
+        if not kinds <= set(KINDS):
+            raise ValueError(f"{cfg.name}: unknown layer kinds "
+                             f"{sorted(kinds - set(KINDS))}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.sparse_backend = sparse_backend
@@ -114,35 +146,55 @@ class Model:
 
     # -- params ---------------------------------------------------------------
 
-    def _init_layer(self, gen, device) -> dict:
+    def _init_layer(self, kind: str, gen, device) -> dict:
         cfg = self.cfg
-        return {"pre_norm": init_norm(cfg.d_model, cfg.norm, device),
-                "attn": attention.init_attention(cfg, gen, device),
-                "ffn_norm": init_norm(cfg.d_model, cfg.norm, device),
-                "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gated, gen,
-                                device)}
+        p = {"pre_norm": init_norm(cfg.d_model, cfg.norm, device)}
+        if kind == "attn":
+            p["attn"] = attention.init_attention(cfg, gen, device)
+        elif kind == "rglru":
+            p["rec"] = rglru.init_rglru(cfg, gen, device)
+        else:
+            p["tm"] = rwkv6.init_time_mix(cfg, gen, device)
+        p["ffn_norm"] = init_norm(cfg.d_model, cfg.norm, device)
+        if kind == "rwkv":
+            p["cm"] = rwkv6.init_channel_mix(cfg, gen, device)
+        else:
+            p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gated, gen,
+                                device)
+        return p
 
     def _init_super(self, gen, device) -> dict:
-        return {f"b{i}_{kind}": self._init_layer(gen, device)
+        return {f"b{i}_{kind}": self._init_layer(kind, gen, device)
                 for i, kind in enumerate(self.cfg.block_pattern)}
 
     def init(self, gen: Optional[torch.Generator] = None,
-             device=None) -> dict:
+             device=None, each_part: Optional[Callable] = None) -> dict:
         """Random f32 params in the reference's layout. The generator ``gen``
-        must live on the target device; ``device="meta"`` gives shapes only."""
+        must live on the target device; ``device="meta"`` gives shapes only.
+
+        ``each_part(group, part)``, where given, takes each part as it is
+        drawn and returns what to keep of it, before the next part is
+        drawn: group "layers" with one super-block's {key: layer}, "rem"
+        with one remainder layer's {key: layer}, "head" with the untied
+        head (``sparse.compress.init_compressed`` prunes and compresses
+        there, so that the dense model never exists whole)."""
         cfg = self.cfg
         dev = self.device if device is None else torch.device(device)
+        keep = each_part or (lambda group, part: part)
         params: dict = {"embed": init_embed(cfg.vocab, cfg.d_model, gen, dev)}
         params["layers"] = _stack_trees(
-            [self._init_super(gen, dev) for _ in range(cfg.n_super_blocks)])
+            [keep("layers", self._init_super(gen, dev))
+             for _ in range(cfg.n_super_blocks)])
         rem = cfg.remainder_pattern
         if rem:
-            params["rem"] = {f"r{i}_{kind}": self._init_layer(gen, dev)
-                             for i, kind in enumerate(rem)}
+            params["rem"] = {}
+            for i, kind in enumerate(rem):
+                params["rem"].update(keep("rem", {
+                    f"r{i}_{kind}": self._init_layer(kind, gen, dev)}))
         params["final_norm"] = init_norm(cfg.d_model, cfg.norm, dev)
         if not cfg.tie_embeddings:
-            params["head"] = truncated_normal_init((cfg.d_model, cfg.vocab),
-                                                   1.0, gen, dev)
+            params["head"] = keep("head", truncated_normal_init(
+                (cfg.d_model, cfg.vocab), 1.0, gen, dev))
         return params
 
     # -- layers ---------------------------------------------------------------
@@ -153,16 +205,9 @@ class Model:
             return inputs.to(self.cdt)
         return apply_embed(dense["embed"], inputs, self.cdt)
 
-    def _ffn(self, p, x, sp):
-        cfg = self.cfg
-        h = apply_norm(p["ffn_norm"], x, cfg.norm)
-        return x + apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_gated,
-                             sparse_weights=sp.get("mlp"),
-                             backend=self.sparse_backend)
-
     def _layers(self, dense, sparse, cache=None):
-        """Yield (layer params, compressed layer weights, layer cache) for
-        every layer in order: the stacked ones, then the remainder."""
+        """Yield (kind, layer params, compressed layer weights, layer cache)
+        for every layer in order: the stacked ones, then the remainder."""
         n = self.cfg.n_super_blocks
         p_all = _unbind(dense["layers"], n)
         sp_all = _unbind((sparse or {}).get("layers", {}), n)
@@ -171,24 +216,90 @@ class Model:
             p_i, sp_i = p_all[i], sp_all[i]
             c_i = _index(cache["layers"], i) if cache is not None else {}
             for key in p_i:
-                yield p_i[key], sp_i.get(key) or {}, c_i.get(key)
+                yield (key.split("_", 1)[1], p_i[key], sp_i.get(key) or {},
+                       c_i.get(key))
         for key, p in dense.get("rem", {}).items():
             c = cache["rem"][key] if cache is not None else None
-            yield p, sp_rem.get(key) or {}, c
+            yield key.split("_", 1)[1], p, sp_rem.get(key) or {}, c
+
+    def _layer(self, kind: str, p: dict, x: Tensor, sp: dict, mode: str,
+               cache: Optional[dict] = None, positions=None, pos=None,
+               page_table=None, n_tokens=None, backend: str = "auto",
+               kv_splits: int = 1) -> Tensor:
+        """One layer, mixer then FFN, pre-norm residuals. ``mode``: 'train'
+        (full sequence, no cache), 'prefill' (full sequence from a fresh
+        state, filling ``cache``), 'decode' (one token at ``pos``) or
+        'paged' (the engine's mixed step against the slot pools). The new
+        recurrent state is written into ``cache`` in place."""
+        cfg, sb = self.cfg, self.sparse_backend
+        state = cache
+        if mode == "paged" and kind != "attn":
+            # a slot whose FIRST prefill chunk lands this tick (absolute
+            # position 0) starts a new request: its state starts from zero,
+            # whatever a previous occupant of the slot left (the engine also
+            # zeroes recycled slots; this is the correctness invariant)
+            fresh = (positions[:, 0] == 0) & (n_tokens > 0)
+            state = _tree_map(lambda t: torch.where(
+                fresh.reshape((-1,) + (1,) * (t.dim() - 1)), 0, t), cache)
+        carried = mode in ("decode", "paged")
+        h = apply_norm(p["pre_norm"], x, cfg.norm)
+        new: dict = {}
+        if kind == "attn":
+            a, sa = p["attn"], sp.get("attn")
+            if mode == "train":
+                mix = attention.apply_attention(a, h, cfg, positions, sa, sb)
+            elif mode == "prefill":
+                mix, _ = attention.prefill_attention(a, h, cache["attn"],
+                                                     positions, cfg, sa, sb)
+            elif mode == "decode":
+                mix, _ = attention.decode_attention(a, h, cache["attn"], pos,
+                                                    cfg, sa, sb)
+            else:
+                mix, _ = attention.paged_attention(
+                    a, h, cache["attn"], page_table, positions, n_tokens, cfg,
+                    sa, backend=backend, kv_splits=kv_splits,
+                    sparse_backend=sb)
+        elif kind == "rglru":
+            if mode == "paged":
+                mix, new["rec"] = rglru.apply_rglru_block_paged(
+                    p["rec"], h, cfg, state["rec"], n_tokens, sp.get("rec"), sb)
+            else:
+                mix, new["rec"] = rglru.apply_rglru_block(
+                    p["rec"], h, cfg, state["rec"] if carried else None,
+                    sp.get("rec"), sb)
+        else:
+            if mode == "paged":
+                mix, new["tm"] = rwkv6.apply_time_mix_paged(
+                    p["tm"], h, cfg, state["tm"], n_tokens, sp.get("tm"), sb)
+            else:
+                mix, new["tm"] = rwkv6.apply_time_mix(
+                    p["tm"], h, cfg, state["tm"] if carried else None,
+                    sp.get("tm"), sb)
+        x = x + mix
+        h = apply_norm(p["ffn_norm"], x, cfg.norm)
+        if kind == "rwkv":
+            if mode == "paged":
+                f, new["cm"] = rwkv6.apply_channel_mix_paged(
+                    p["cm"], h, state["cm"], n_tokens, sp.get("cm"), sb)
+            else:
+                f, new["cm"] = rwkv6.apply_channel_mix(
+                    p["cm"], h, state["cm"] if carried else None,
+                    sp.get("cm"), sb)
+        else:
+            f = apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_gated,
+                          sparse_weights=sp.get("mlp"), backend=sb)
+        if cache is not None:
+            _write_state(cache, new)
+        return x + f
 
     def apply_hidden(self, params, batch: dict) -> tuple[Tensor, dict]:
         dense, sparse = _split_params(params)
-        cfg = self.cfg
         x = self._embed(dense, batch["inputs"])
         b, s = x.shape[0], x.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
-        for p, sp, _ in self._layers(dense, sparse):
-            h = apply_norm(p["pre_norm"], x, cfg.norm)
-            x = x + attention.apply_attention(p["attn"], h, cfg, positions,
-                                              sp.get("attn"),
-                                              self.sparse_backend)
-            x = self._ffn(p, x, sp)
+        for kind, p, sp, _ in self._layers(dense, sparse):
+            x = self._layer(kind, p, x, sp, "train", positions=positions)
         return x, _zero_aux(x.device)
 
     def head(self, params, x: Tensor) -> Tensor:
@@ -205,19 +316,27 @@ class Model:
         x, aux = self.apply_hidden(params, batch)
         return self.head(params, x), aux
 
+    def _layer_cache(self, kind: str, batch: int, seq_len: int, dtype) -> dict:
+        cfg, dev = self.cfg, self.device
+        if kind == "attn":
+            return {"attn": attention.init_kv_cache(cfg, batch, seq_len, dtype,
+                                                    dev)}
+        if kind == "rglru":
+            return {"rec": rglru.init_rglru_state(cfg, batch, dtype, dev)}
+        return rwkv6.init_rwkv_state(cfg, batch, dev)
+
     def init_cache(self, batch: int, seq_len: int, dtype=None) -> dict:
+        """Ring KV caches for attention layers, recurrent state for RG-LRU
+        and RWKV layers, in the reference's tree."""
         cfg = self.cfg
         dtype = dtype or self.cdt
-
-        def one():
-            return {"attn": attention.init_kv_cache(cfg, batch, seq_len, dtype,
-                                                    self.device)}
-
         cache = {"layers": _stack_trees([
-            {f"b{i}_{kind}": one() for i, kind in enumerate(cfg.block_pattern)}
+            {f"b{i}_{kind}": self._layer_cache(kind, batch, seq_len, dtype)
+             for i, kind in enumerate(cfg.block_pattern)}
             for _ in range(cfg.n_super_blocks)])}
         if cfg.remainder_pattern:
-            cache["rem"] = {f"r{i}_{kind}": one()
+            cache["rem"] = {f"r{i}_{kind}": self._layer_cache(kind, batch,
+                                                              seq_len, dtype)
                             for i, kind in enumerate(cfg.remainder_pattern)}
         return cache
 
@@ -226,33 +345,24 @@ class Model:
         """inputs: (B, 1) ids or (B, 1, d) embeddings; pos: int. The cache
         is updated in place and returned."""
         dense, sparse = _split_params(params)
-        cfg = self.cfg
         x = self._embed(dense, inputs)
-        for p, sp, c in self._layers(dense, sparse, cache):
-            h = apply_norm(p["pre_norm"], x, cfg.norm)
-            mix, _ = attention.decode_attention(p["attn"], h, c["attn"], pos,
-                                                cfg, sp.get("attn"),
-                                                self.sparse_backend)
-            x = self._ffn(p, x + mix, sp)
+        for kind, p, sp, c in self._layers(dense, sparse, cache):
+            x = self._layer(kind, p, x, sp, "decode", c, pos=pos)
         return self.head(params, x), cache
 
     def prefill(self, params, inputs: Tensor,
                 cache: dict) -> tuple[Tensor, dict]:
-        """Whole prompt in one forward, filling the cache in place. Returns
-        (last-position logits (B, vocab), cache ready for decode at S)."""
+        """Whole prompt in one forward, filling the cache in place (the
+        recurrent layers scan from a zero state and keep the final one).
+        Returns (last-position logits (B, vocab), cache ready for decode
+        at S)."""
         dense, sparse = _split_params(params)
-        cfg = self.cfg
         x = self._embed(dense, inputs)
         b, s = x.shape[0], x.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
-        for p, sp, c in self._layers(dense, sparse, cache):
-            h = apply_norm(p["pre_norm"], x, cfg.norm)
-            mix, _ = attention.prefill_attention(p["attn"], h, c["attn"],
-                                                 positions, cfg,
-                                                 sp.get("attn"),
-                                                 self.sparse_backend)
-            x = self._ffn(p, x + mix, sp)
+        for kind, p, sp, c in self._layers(dense, sparse, cache):
+            x = self._layer(kind, p, x, sp, "prefill", c, positions=positions)
         return self.head(params, x[:, -1:])[:, 0], cache
 
     def paged_step(self, params, tokens: Tensor, pools: dict,
@@ -263,27 +373,26 @@ class Model:
 
         tokens: (B, C) ids, up to C new tokens per slot (decode slots carry
         1, prefill slots a chunk, inactive slots 0, see ``n_tokens``);
-        pools: the paged KV tree of ``serve.paged_kv.init_paged_cache``,
-        updated in place; page_table: (B, P) int32; start_pos, n_tokens:
-        (B,) int32. Returns (f32 logits at each slot's LAST valid token
-        (B, vocab), pools): one call serves any prefill/decode mix of an
-        engine tick. ``backend`` and ``kv_splits`` pick the paged attention
-        ('cuda': the paged flash-decode kernel, 'ref': gather then softmax,
-        'auto': by the tensors' device; see ``attention.paged_attention``).
+        pools: the slot resource pools of ``serve.paged_kv.init_paged_cache``
+        (paged KV for attention layers, slot-indexed state for recurrent
+        ones), updated in place; page_table: (B, P) int32; start_pos,
+        n_tokens: (B,) int32. Returns (f32 logits at each slot's LAST valid
+        token (B, vocab), pools): one call serves any prefill/decode mix of
+        an engine tick. ``backend`` and ``kv_splits`` pick the paged
+        attention ('cuda': the paged flash-decode kernel, 'ref': gather then
+        softmax, 'auto': by the tensors' device; see
+        ``attention.paged_attention``).
         """
         dense, sparse = _split_params(params)
-        cfg = self.cfg
         x = self._embed(dense, tokens)
         c = x.shape[1]
         positions = (start_pos[:, None]
                      + torch.arange(c, dtype=torch.int32, device=x.device))
-        for p, sp, cache in self._layers(dense, sparse, pools):
-            h = apply_norm(p["pre_norm"], x, cfg.norm)
-            mix, _ = attention.paged_attention(
-                p["attn"], h, cache["attn"], page_table, positions, n_tokens,
-                cfg, sp.get("attn"), backend=backend, kv_splits=kv_splits,
-                sparse_backend=self.sparse_backend)
-            x = self._ffn(p, x + mix, sp)
+        for kind, p, sp, cache in self._layers(dense, sparse, pools):
+            x = self._layer(kind, p, x, sp, "paged", cache,
+                            positions=positions, page_table=page_table,
+                            n_tokens=n_tokens, backend=backend,
+                            kv_splits=kv_splits)
         last = (n_tokens.long() - 1).clamp(0, c - 1)
         xl = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
         return self.head(params, xl)[:, 0], pools

@@ -4,7 +4,7 @@ request tracer, copies of ``repro.obs.metrics`` and ``repro.obs.trace``.
 Everything defaults off (``NULL_REGISTRY`` / ``NULL_TRACER``) and the
 disabled path is a no-op method call per site. ``obs.profile`` holds the
 training telemetry (``TrainTelemetry`` and the block-sparsity probes); the
-kernel profiler of ``repro.obs.profile`` comes with ROADMAP Queue 1 item 8.
+kernel profiler of ``repro.obs.profile`` comes with ROADMAP Queue 1 item 8b.
 """
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, NULL_REGISTRY,

@@ -1,7 +1,7 @@
 """Training telemetry: the phase-tagged JSONL stream and the block-sparsity
 measurements on the serving grid (the training half of
 ``repro.obs.profile``). Everything here runs on the host. The kernel
-profiler of the reference comes with ROADMAP Queue 1 item 8.
+profiler of the reference comes with ROADMAP Queue 1 item 8b.
 """
 from __future__ import annotations
 

@@ -12,8 +12,11 @@ step runs the same ``sparse_matmul`` kernels as ``generate``.
 Where the reference jits its step, the port calls it as it is (PyTorch
 runs eagerly), and where the reference donates the pools to the step, the
 port updates the pool tensors in place. The sampled tokens reach the host
-once per tick. Per-request memory lives in the block-paged KV pools of
-``serve/paged_kv.py``. Attention inside the step dispatches by
+once per tick. Per-request memory lives in the slot resource pools of
+``serve/paged_kv.py``: block-paged KV for attention layers, slot-indexed
+state for RG-LRU and RWKV layers, zeroed when a slot is vacated. A model
+without attention layers (rwkv6) allocates no pages. Attention inside the
+step dispatches by
 ``EngineConfig.attn_backend``: 'cuda' walks page tables with the
 hand-written paged flash-decode kernel (``kernels/paged_attention``)
 instead of gathering the whole pool.
@@ -31,9 +34,11 @@ from repro_torch.obs.metrics import MetricsRegistry, slo_summary
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serve import api
 from repro_torch.serve.api import ApiValidationError, Completion, SamplingParams
+from repro_torch.models.transformer import RECURRENT_KINDS, layer_kinds
 from repro_torch.serve.paged_kv import (PageAllocator, copy_page,
                                         init_paged_cache, pages_for,
-                                        slot_resource_bytes)
+                                        slot_resource_bytes, unsupported_kinds,
+                                        zero_state_slots)
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import Request as _SchedRequest
 from repro_torch.serve.scheduler import Scheduler
@@ -145,22 +150,38 @@ class ServeEngine:
                  sampler: Optional[Callable] = None,
                  generator: Optional[torch.Generator] = None, *,
                  metrics=None, tracer=None):
+        bad = unsupported_kinds(model)
+        if bad:
+            raise NotImplementedError(
+                f"{model.cfg.name}: layer kind(s) {', '.join(map(repr, bad))}"
+                " have no slot resource pool — the engine covers "
+                "attn/rglru/rwkv; use the sequential serving path "
+                "(launch/serve without --engine)")
         self.model = model
         self.params = params
         self.config = config
         self.device = model.device
+        kinds = layer_kinds(model.cfg)
+        self.has_attn = "attn" in kinds
+        self.has_state = any(k in RECURRENT_KINDS for k in kinds)
         # one registry shared by the allocator, prefix cache, scheduler and
         # the engine's own tick instruments: the stats dict and the
         # Prometheus exposition read the same numbers
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.pools = init_paged_cache(model, config.total_pages,
-                                      config.page_size)
+                                      config.page_size,
+                                      capacity=config.max_batch)
         self.pool_bytes = slot_resource_bytes(self.pools)
         self.allocator = PageAllocator(config.total_pages,
                                        metrics=self.metrics)
         self.prefix_cache = None
         if config.prefix_cache:
+            if self.has_state:
+                raise NotImplementedError(
+                    f"{model.cfg.name}: --prefix-cache shares paged KV, but "
+                    "recurrent (rglru/rwkv) state is not position-sliceable "
+                    "— prefix caching covers attention-only models")
             self.prefix_cache = PrefixCache(self.allocator, config.page_size,
                                             metrics=self.metrics)
         self.scheduler = Scheduler(
@@ -169,6 +190,7 @@ class ServeEngine:
             max_pages=config.pages_per_slot,
             token_budget=config.token_budget,
             first_chunk=config.first_chunk,
+            paged=self.has_attn,
             prefix_cache=self.prefix_cache,
             class_shares=dict(config.class_shares or ()),
             metrics=self.metrics, tracer=self.tracer)
@@ -276,13 +298,21 @@ class ServeEngine:
         self._m_ticks.inc(width=str(plan.width))
         self._m_tick_tokens.observe(n_tok)
         self._m_sampler_batch.observe(len(plan.samples))
-        self._m_occupancy.observe(
-            self.allocator.n_pages - 1 - self.allocator.n_free)
+        if self.has_attn:
+            self._m_occupancy.observe(
+                self.allocator.n_pages - 1 - self.allocator.n_free)
         with tracer.span("bookkeep"):
             finished = self.scheduler.complete_tick(
                 plan, sampled, now=time.perf_counter())
-            # attention-only models keep no per-slot state to zero
-            self.scheduler.drain_freed_slots()
+            # zero the recurrent state of slots vacated this tick (finish
+            # or preemption) unless a new occupant landed already: the
+            # in-step position-0 reset covers that occupant regardless
+            freed = [i for i in self.scheduler.drain_freed_slots()
+                     if self.scheduler.slots[i] is None]
+            if self.has_state and freed:
+                mask = np.zeros(self.config.max_batch, bool)
+                mask[freed] = True
+                zero_state_slots(self.pools, mask)
         for r in finished:
             self._m_finished.inc(request_class=str(r["priority"]))
             self._m_gen_tokens.inc(r["n_generated"])

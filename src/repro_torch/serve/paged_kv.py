@@ -1,17 +1,24 @@
 """Slot resource pools for the continuous-batching serving engine.
 
-Port of ``repro.serve.paged_kv`` for attention layers. Every attention
-layer gets a **block-paged KV pool**: ``(n_pages, page_size, kv_heads,
-head_dim)`` K and V pages shared by every request slot, mapped onto each
-request's logical context through a per-slot **page table** ``(capacity,
-max_pages)``: logical page ``p`` of a slot covers absolute positions
-``[p*page_size, (p+1)*page_size)``. Int8-KV configs store int8 pages plus
-per-(page, offset, head) f32 scales (``attention.init_paged_kv``).
+Port of ``repro.serve.paged_kv``. Every layer gets a slot resource pool,
+of one of two kinds by layer kind:
 
-The pool tree mirrors ``Model.init_cache``: the layers of the repeated
-block pattern are stacked under ``"layers"`` (leading ``n_super`` axis),
-the remainder under ``"rem"``. Slot-indexed recurrent state (RG-LRU and
-RWKV layers) comes with ROADMAP Queue 1 item 8.
+* **Block-paged KV** (``attn`` layers): ``(n_pages, page_size,
+  kv_heads, head_dim)`` K and V pages shared by every request slot, mapped
+  onto each request's logical context through a per-slot **page table**
+  ``(capacity, max_pages)``: logical page ``p`` of a slot covers absolute
+  positions ``[p*page_size, (p+1)*page_size)``. Int8-KV configs store int8
+  pages plus per-(page, offset, head) f32 scales
+  (``attention.init_paged_kv``).
+* **Slot-indexed recurrent state** (``rglru`` / ``rwkv`` layers): state
+  tensors with a leading ``capacity`` axis, slot ``i``'s state at index
+  ``i``. No paging: recurrent state is O(1) per slot whatever the
+  context length.
+
+Both kinds coexist in one tree for hybrid block patterns (recurrentgemma's
+2:1 RG-LRU : attention), which mirrors ``Model.init_cache``: the layers of
+the repeated block pattern are stacked under ``"layers"`` (leading
+``n_super`` axis), the remainder under ``"rem"``.
 
 Page allocation is host-side (``PageAllocator``, a refcounted free list);
 the step only consumes the page table. Page 0 is reserved as the trash
@@ -28,7 +35,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.metrics import tree_leaves
-from repro_torch.models import attention
+from repro_torch.models import attention, rglru, rwkv6
+from repro_torch.models.transformer import KINDS, layer_kinds
 from repro_torch.obs.metrics import NULL_REGISTRY
 
 # pool-subtree keys holding slot-indexed recurrent state (vs "attn" pages)
@@ -40,31 +48,43 @@ def pages_for(n_tokens: int, page_size: int) -> int:
     return -(-int(n_tokens) // int(page_size))
 
 
+def unsupported_kinds(model) -> list[str]:
+    """Layer kinds of the model outside the engine's pool coverage."""
+    return sorted(set(layer_kinds(model.cfg)) - set(KINDS))
+
+
 def _layer_pools(cfg, kind: str, n_pages: int, page_size: int, dtype,
-                 device) -> dict:
+                 capacity: int, device) -> dict:
     if kind == "attn":
         return {"attn": attention.init_paged_kv(cfg, n_pages, page_size,
                                                 dtype, device)}
+    if kind == "rglru":
+        return {"rec": rglru.init_rglru_state(cfg, capacity, dtype, device)}
+    if kind == "rwkv":
+        return rwkv6.init_rwkv_state(cfg, capacity, device)
     raise NotImplementedError(
-        f"layer kind {kind!r} has no slot resource pool in repro_torch yet: "
-        "RG-LRU and RWKV state slots come with ROADMAP Queue 1 item 8")
+        f"layer kind {kind!r} has no slot resource pool: the engine covers "
+        "attn/rglru/rwkv; use the sequential serving path (launch/serve "
+        "without --engine)")
 
 
-def init_paged_cache(model, n_pages: int, page_size: int,
-                     dtype=None) -> dict:
+def init_paged_cache(model, n_pages: int, page_size: int, dtype=None, *,
+                     capacity: int = 1) -> dict:
     """Slot resource pool tree of ``model`` on its device.
 
     Mirrors ``Model.init_cache``'s tree with each attention layer's ring
-    buffer replaced by a ``(n_pages, page_size, kv, hd)`` page pool. One
-    page table indexes every layer's pool identically, so the engine
-    allocates pages once per request, not per layer. (The reference's
-    ``capacity`` sizes recurrent state pools, which come with item 8.)"""
+    buffer replaced by a ``(n_pages, page_size, kv, hd)`` page pool and
+    each recurrent layer's state by a ``capacity``-slot state pool (the
+    engine's slot-batch size). One page table indexes every attention
+    layer's pool identically, so the engine allocates pages once per
+    request, not per layer."""
     cfg = model.cfg
     dtype = dtype or model.cdt
     dev = model.device
 
     def stacked(kind):
-        one = _layer_pools(cfg, kind, n_pages, page_size, dtype, "meta")
+        one = _layer_pools(cfg, kind, n_pages, page_size, dtype, capacity,
+                           "meta")
         return {sub: {leaf: torch.zeros((cfg.n_super_blocks,) + t.shape,
                                         dtype=t.dtype, device=dev)
                       for leaf, t in tree.items()}
@@ -75,7 +95,8 @@ def init_paged_cache(model, n_pages: int, page_size: int,
     rem = cfg.remainder_pattern
     if rem:
         pools["rem"] = {f"r{i}_{kind}": _layer_pools(cfg, kind, n_pages,
-                                                     page_size, dtype, dev)
+                                                     page_size, dtype,
+                                                     capacity, dev)
                         for i, kind in enumerate(rem)}
     return pools
 
@@ -115,10 +136,12 @@ def zero_state_slots(pools, mask):
     ``mask`` ((capacity,) bool): a finished request's state must not be
     readable by the slot's next occupant. Touches only the state-pool
     subtrees; paged KV pages are recycled through the page allocator."""
-    mask = torch.as_tensor(mask, dtype=torch.bool)
+    slots = torch.as_tensor(mask, dtype=torch.bool).cpu().nonzero()[:, 0]
+    idx = {}                                # one host-to-device copy
     for leaf, lead in _group_leaves(pools, _STATE_KEYS):
-        idx = mask.to(leaf.device).nonzero()[:, 0]
-        leaf.index_fill_(lead, idx, 0)
+        if leaf.device not in idx:
+            idx[leaf.device] = slots.to(leaf.device)
+        leaf.index_fill_(lead, idx[leaf.device], 0)
     return pools
 
 

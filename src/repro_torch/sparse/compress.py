@@ -19,7 +19,9 @@ residue. Pruning and format construction run on the host in numpy (the
 masks match the JAX package's bit for bit: ``argsort(kind="stable")`` on
 float64 block norms); the results go back to the params' device. With
 ``quantize_bits`` the leaves become ``PaletteBCSR``; the k-means runs on
-the device.
+the device. ``init_compressed`` gives what ``compress_params(
+prune_blocks_for_plan(model.init(gen), ...))`` gives for a random init,
+part by part on the device, without the dense model or a host copy.
 
 For training: ``make_plan_prox`` is the block group-l1 prox on the plan's
 (out, in) grid in the stored layouts, so whole serving blocks hit zero
@@ -39,8 +41,9 @@ import torch
 from repro_torch.core import prox as prox_lib
 from repro_torch.core import quantize as quantize_lib
 from repro_torch.core.metrics import tree_leaves
-from repro_torch.sparse.formats import (BlockCSR, PaletteBCSR, dense_to_bcsr,
-                                        is_bcsr, pack_uint4, pad_bcsr)
+from repro_torch.sparse.formats import (BlockCSR, PaletteBCSR, bcsr_to_dense,
+                                        dense_to_bcsr, is_bcsr, pack_uint4,
+                                        pad_bcsr)
 
 PyTree = Any
 
@@ -224,7 +227,18 @@ def _try_compress(arr: np.ndarray, path: str, plan: CompressionPlan,
     if views[0] is None or views[0].size < plan.min_size:
         return None
     block = plan.block_for(path)
-    ms = [dense_to_bcsr(v, block) for v in views]
+    out = _pad_stack([dense_to_bcsr(v, block) for v in views], plan,
+                     arr.shape[:n_stack],
+                     views[0].size * views[0].dtype.itemsize)
+    return None if out is None else out.to(device)
+
+
+def _pad_stack(ms: list, plan: CompressionPlan, lead_shape: tuple,
+               dense_nbytes: int) -> Optional[BlockCSR]:
+    """The slices ``ms`` of one matrix padded to common widths and stacked
+    under ``lead_shape``; None when the matrix stays dense: its sparsest
+    slice is below ``plan.min_sparsity``, or the padded store saves nothing
+    over the ``dense_nbytes`` of one dense slice."""
     grid = int(np.prod(ms[0].block_grid))
     if min(1.0 - m.n_blocks / max(grid, 1) for m in ms) < plan.min_sparsity:
         return None
@@ -236,10 +250,9 @@ def _try_compress(arr: np.ndarray, path: str, plan: CompressionPlan,
     jmax = max(m.gather_idx.shape[1] for m in ms)
     jmax_t = max(m.gather_t_idx.shape[1] for m in ms)
     ms = [pad_bcsr(m, n_slots, jmax, jmax_t) for m in ms]
-    if ms[0].nbytes >= views[0].size * views[0].dtype.itemsize:
+    if ms[0].nbytes >= dense_nbytes:
         return None                           # dense fallback: no byte win
-    out = _stack(ms, arr.shape[:n_stack]) if n_stack else ms[0]
-    return out.to(device)
+    return _stack(ms, tuple(lead_shape)) if len(lead_shape) else ms[0]
 
 
 def _placeholder(t: torch.Tensor, n_stack: int) -> torch.Tensor:
@@ -269,6 +282,111 @@ def compress_params(params: PyTree,
         if m is not None:
             sparse["head"] = m
             dense["head"] = _placeholder(t, 0)
+    cp = CompressedParams(dense=dense, sparse=sparse, plan=plan)
+    if plan.quantize_bits or plan.quantize_overrides:
+        cp = quantize_compressed(cp)
+    return cp
+
+
+def _out_in_view(path: str, t: torch.Tensor) -> Optional[torch.Tensor]:
+    """``_as_out_in`` for a tensor, as a view on its device."""
+    if t.dim() == 2:
+        return t.T
+    if t.dim() == 3 and "/attn/" in f"/{path}/":
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf in ("wq", "wk", "wv"):
+            return t.reshape(t.shape[0], -1).T
+        if leaf == "wo":
+            return t.reshape(-1, t.shape[-1]).T
+    return None
+
+
+def _prune_to_bcsr(view: torch.Tensor, block: tuple[int, int],
+                   sparsity: float) -> BlockCSR:
+    """``dense_to_bcsr(_prune_blocks_2d(view, block, sparsity), block)`` in
+    torch on ``view``'s device: the same float64 block norms and stable
+    sort (the masks agree up to ties closer than float64 rounding), the
+    index tables built on the host from the (R, C) block occupancy alone,
+    and only the kept blocks copied."""
+    br, bc = block
+    r, c = view.shape
+    n_r, n_c = -(-r // br), -(-c // bc)
+    padded = torch.nn.functional.pad(view, (0, n_c * bc - c, 0, n_r * br - r))
+    blocks = padded.reshape(n_r, br, n_c, bc).permute(0, 2, 1, 3)
+    sq = blocks.double()
+    sq.square_()
+    norms = sq.sum((2, 3)).sqrt_().reshape(-1)
+    del sq
+    keep = torch.ones(norms.numel(), dtype=torch.bool, device=view.device)
+    k = int(round(sparsity * norms.numel()))
+    if k > 0:
+        keep[torch.argsort(norms, stable=True)[:k]] = False
+    # dense_to_bcsr keeps the blocks with any nonzero
+    occupied = keep.reshape(n_r, n_c) & blocks.ne(0).flatten(2).any(2)
+    tables = dense_to_bcsr(occupied.cpu().numpy(), (1, 1))
+    rows, cols = occupied.nonzero(as_tuple=True)     # row-major, as np.nonzero
+    data = torch.cat([view.new_zeros(1, br, bc), blocks[rows, cols]])
+    return dataclasses.replace(tables.to(view.device), data=data,
+                               shape=(r, c), block=(br, bc))
+
+
+def init_compressed(model, plan: Optional[CompressionPlan] = None,
+                    sparsity: float = 0.0,
+                    gen: Optional[torch.Generator] = None) -> CompressedParams:
+    """``compress_params(prune_blocks_for_plan(model.init(gen), plan,
+    sparsity), plan)`` without the dense model: ``model.init`` hands over
+    each super-block, remainder layer and the head as it draws them, and
+    every projection in them is pruned and cut into BlockCSR slices on the
+    params' device before the next part is drawn. The plan's rules apply as
+    in ``compress_params`` (min_size, min_sparsity, the dense fallback,
+    slot_multiple, quantize_bits); a matrix that stays dense is rebuilt,
+    pruned, from its slices. At recurrentgemma-9b (8.5B parameters) one
+    super-block is dense at a time, where the host path holds the f32
+    model (34 GB) and walks it in numpy."""
+    plan = plan or CompressionPlan()
+    slices: dict = {}        # path -> (stored shape of a slice, [BlockCSR])
+
+    def prune(path: str, t: torch.Tensor, lead: int) -> torch.Tensor:
+        flat = t.reshape((-1,) + t.shape[lead:]) if lead else t[None]
+        views = [_out_in_view(path, s) for s in flat]
+        if views[0] is None or views[0].numel() < plan.min_size:
+            return t
+        block = plan.block_for(path)
+        slices.setdefault(path, (flat.shape[1:], []))[1].extend(
+            _prune_to_bcsr(v, block, sparsity) for v in views)
+        return _placeholder(t, lead)
+
+    def part(group: str, tree):
+        if group == "head":
+            return prune("head", tree, 0)
+        for lkey, layer in tree.items():
+            for sub, names in _LAYER_TARGETS.items():
+                for name in names:
+                    if sub in layer and name in layer[sub]:
+                        layer[sub][name] = prune(
+                            f"{group}/{lkey}/{sub}/{name}", layer[sub][name],
+                            _lead_axes(name, False))
+        return tree
+
+    dense = model.init(gen, each_part=part)
+    sparse: dict = {}
+    for path, (shape, ms) in slices.items():
+        *keys, leaf = path.split("/")
+        holder = dense
+        for key in keys:
+            holder = holder[key]
+        lead_shape = tuple(holder[leaf].shape)     # the placeholder's
+        r, c = ms[0].shape
+        m = _pad_stack(ms, plan, lead_shape, r * c * ms[0].data.element_size())
+        if m is None:
+            holder[leaf] = torch.stack(
+                [bcsr_to_dense(s)[:r, :c].T.reshape(shape) for s in ms]
+            ).reshape(lead_shape + tuple(shape))
+            continue
+        node = sparse
+        for key in keys:
+            node = node.setdefault(key, {})
+        node[leaf] = m
     cp = CompressedParams(dense=dense, sparse=sparse, plan=plan)
     if plan.quantize_bits or plan.quantize_overrides:
         cp = quantize_compressed(cp)

@@ -33,6 +33,22 @@ def test_greedy_generate_matches_jax(weights, block):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("weights,block", [
+    ("dense", None), ("bcsr", (8, 64)), ("pal8", (8, 64))])
+def test_greedy_generate_recurrent_matches_jax(arch, weights, block):
+    """The recurrent families: prefill scans from a zero state (chunked WKV
+    for RWKV), then decode steps carry the state."""
+    jm = jax_build(arch, reduced=True)
+    tm = build(arch, reduced=True, device="cpu")
+    jp = jax_reduced_params(jm, weights, block, seed=3, sparsity=0.6)
+    prompt = np.random.default_rng(4).integers(
+        0, jm.cfg.vocab, size=(2, 6)).astype(np.int32)
+    want = np.asarray(jstep.generate(jm, jp, jnp.asarray(prompt), 10))
+    got = step.generate(tm, to_port(jp), torch.tensor(prompt), 10)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def _logits():
     rng = np.random.default_rng(5)
     logits = rng.normal(size=(3, 40)).astype(np.float32)
@@ -79,7 +95,8 @@ def test_sampling_params_validate():
 
 def test_cache_bytes_matches_jax():
     from repro.serve.kvcache import cache_bytes as jax_cache_bytes, cache_spec
-    for arch in ("smollm-360m", "command-r-plus-104b"):
+    for arch in ("smollm-360m", "command-r-plus-104b", "rwkv6-3b",
+                 "recurrentgemma-9b"):
         jm = jax_build(arch, reduced=True)
         tm = build(arch, reduced=True, device="cpu")
         assert cache_bytes(tm.init_cache(3, 20)) == \

@@ -185,6 +185,69 @@ def test_cuda_paged_attention_never_gathers_the_context():
     assert torch.cuda.max_memory_allocated() - base < gathered
 
 
+# -- flash attention (csrc/flash_attention.cu) -------------------------------
+
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+
+# (b, s, h, kv, hd): the JAX sweep's GQA shapes, a ragged S (not a multiple
+# of the kernel's 64-row tile), smollm-360m's heads and recurrentgemma-9b's
+# (16 q heads of 256 on one kv head)
+FLASH_SHAPES = [(2, 64, 4, 2, 32), (1, 100, 4, 1, 16), (2, 192, 15, 5, 64),
+                (1, 256, 16, 1, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 40), (False, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_flash_attention_matches_plain(b, s, h, kv, hd, causal, window,
+                                            dtype):
+    """Window 40 under the kernel's 64-row q tiles and 32-key kv tiles:
+    rows from 104 on start on a fully masked kv tile (the -1e30
+    sentinel's junk, wiped by the first real score)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(s + h + hd)
+    q = torch.randn(b * h, s, hd, device=dev, generator=gen).to(dtype)
+    k = torch.randn(b * kv, s, hd, device=dev, generator=gen).to(dtype)
+    v = torch.randn(b * kv, s, hd, device=dev, generator=gen).to(dtype)
+    before = flash_ops.launches["flash_attention_fwd"]
+    got = flash_ops.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                        bq=s, bk=s)
+    assert flash_ops.launches["flash_attention_fwd"] == before + 1
+    torch.cuda.synchronize()
+    want = flash_ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    # f32: the same products summed in another order (the JAX kernel
+    # tests' tolerance); bf16 / f16: outputs rounded from f32 sums that
+    # differ in order, at most a step of the type apart
+    tol = (dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32
+           else dict(atol=2 ** -7, rtol=2 ** -7))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_model_layout():
+    """``ops.flash_attention`` takes the (B, S, H, hd) model layout and
+    equals the plain version at recurrentgemma-9b's local attention."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(1, 512, 16, 256, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(1, 512, 1, 256, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(1, 512, 1, 256, device=dev, generator=gen).to(torch.bfloat16)
+    got = flash_ops.flash_attention(q, k, v, causal=True, window=128)
+    want = flash_ref.flash_attention_ref(
+        q.transpose(1, 2).reshape(16, 512, 256),
+        k.transpose(1, 2).reshape(1, 512, 256),
+        v.transpose(1, 2).reshape(1, 512, 256), causal=True, window=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               want.reshape(1, 16, 512, 256).transpose(1, 2).float(),
+                               atol=2 ** -7, rtol=2 ** -7)
+
+
 # ---------------------------------------------------------------------------
 # Training kernels: spmm_t, SDDMM, prox-Adam, and the bf16 block store
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Reduced-model logits of repro_torch against repro: the full-sequence
 forward, prefill and a decode step agree within 1e-4 (reduced configs run
-in f32), for dense and BlockCSR weights carried across (PaletteBCSR in
-test_torch_model_palette.py)."""
+in f32), for dense and BlockCSR weights carried across, and for the
+recurrent families (rwkv6-3b, recurrentgemma-9b) also PaletteBCSR at 8 and
+4 bits (smollm-360m's PaletteBCSR in test_torch_model_palette.py)."""
 import jax  # noqa: F401  (both packages in one process, JAX on the CPU)
 import pytest
 import torch
@@ -15,7 +16,10 @@ CASES = [  # (arch, weights, block)
     ("qwen3-0.6b", "bcsr", (8, 64)),           # qk_norm
     ("minitron-8b", "bcsr", (8, 64)),          # layernorm, relu2, untied head
     ("command-r-plus-104b", "bcsr", (8, 64)),  # int8 ring KV cache
-]
+] + [(arch, weights, block)                    # the recurrent families
+     for arch in ("rwkv6-3b", "recurrentgemma-9b")
+     for weights, block in (("dense", None), ("bcsr", (8, 64)),
+                            ("pal8", (8, 64)), ("pal4", (8, 64)))]
 
 
 @pytest.mark.parametrize("arch,weights,block", CASES)
@@ -24,8 +28,8 @@ def test_logits_match_jax(arch, weights, block):
 
 
 def test_unported_layer_kinds_raise():
-    for arch in ("rwkv6-3b", "recurrentgemma-9b", "olmoe-1b-7b"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    for arch in ("olmoe-1b-7b",):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
             build(arch, reduced=True, device="cpu")
 
 
