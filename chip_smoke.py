@@ -6,7 +6,9 @@
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: the card's name and power limit, torch and CUDA versions;
      TF32 off for matmuls and convolutions;
-  2. build: nvcc builds every CUDA source of ``src/repro_torch/csrc``;
+  2. build: nvcc builds every CUDA source of ``src/repro_torch/csrc``, one
+     process per source, all at once; each kernel's registers and spills
+     are printed from ptxas's report, with the kernels that spill;
   3. kernels: each spmm kernel at smollm-360m's projection shapes against
      its plain PyTorch version on the card, timed beside the plain version,
      a library yardstick (``torch.matmul`` on the densified weight, which
@@ -81,7 +83,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (which the port never calls) and its bound; then its entry point
      ``ops.flash_attention`` (no model code calls it: the serving and
      training phases launch it 0 times);
- 13. the kernel table (one JSON line) and the contract line.
+ 13. the kernel table (one JSON line: the paged kernel at a decode and a
+     prefill tick of the smollm-360m mix and at recurrentgemma-9b's prefill
+     tick, flash at recurrentgemma-9b's local attention and smollm-360m's
+     prefill, with the paged bound also at the bf16 tensor-core rate) and
+     the contract line.
 
 It imports nothing of JAX or of the JAX package, and exits with an error
 when no CUDA device is visible.
@@ -200,7 +206,9 @@ PAGED_CASES = [
     ("prefill", 32, (0, 32, 96, 160, 0, 64, 192, 128), (32,) * 7 + (9,), 15),
     ("long", 1, (4095,) * 8, (1,) * 8, 256),
 ]
-PAGED_TABLE_ROW = ("decode", torch.bfloat16, 1)   # the row of the kernel table
+# the rows of the kernel table: a decode tick and a prefill tick of the mix
+PAGED_TABLE_ROW = ("decode", torch.bfloat16, 1)
+PAGED_PREFILL_ROW = ("prefill", torch.bfloat16, 1)
 PAGED_REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:108"
 # The engine mix: 16 requests, prompts of 16-200 tokens, 32 new tokens.
 MAX_BATCH, CHUNK = 8, 32
@@ -275,7 +283,7 @@ FLASH_CASES = [
     ("smollm prefill", 4, 2048, 15, 5, 64, True, None, torch.float32),
     ("smollm, not causal", 4, 2048, 15, 5, 64, False, None, torch.bfloat16),
 ]
-FLASH_TABLE_ROW = 0
+FLASH_TABLE_ROW, FLASH_PREFILL_ROW = 0, 3   # kernel-table rows
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:80"
 # Kernel vs plain: f32, the same products summed in another order (the JAX
 # kernel tests' tolerance); bf16 outputs are rounded from f32 sums in
@@ -399,9 +407,24 @@ def build_phase():
     for name in _build.SOURCES:
         log_file = _build.log_path(name)
         if log_file.exists():
-            for line in log_file.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+            _log_ptxas(name, log_file.read_text())
+
+
+def _log_ptxas(name: str, report: str) -> None:
+    """Registers and spills of each kernel of a source, one line per kernel
+    named by its mangled symbol, then the kernels that spill."""
+    kernel, spill, spilling = "", "", []
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            kernel, spill = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif "registers" in line:
+            log(f"  ptxas {name} {kernel}: "
+                f"{line.split(':', 1)[1].strip()}; {spill}")
+            if spill and not spill.startswith("0 bytes spill stores"):
+                spilling.append(kernel)
+    log(f"  ptxas {name}: kernels that spill: {spilling or 'none'}")
 
 
 def _weight(rng, n, k, dev):
@@ -730,8 +753,10 @@ def _grouped(q, kv):
 def _paged_bound(case, kv, g, hd, elt, splits, window=None):
     """Least time for one kernel call: the K and V bytes of the pages that
     run (all kv heads of each running (slot, page)), q, the partials and
-    the index tables, each moved once, against the f32 FMAs of the
-    scores and the probability-times-V products of those pages."""
+    the index tables, each moved once, against the products (scores and
+    probability times V) of those pages at the f32 rate (q is f32). For
+    bf16 pools also the bound at the bf16 tensor-core rate, which the
+    kernel's products run at (None for other pools)."""
     _, c, starts, _, p_log = case
     b = len(starts)
     runs = sum(page * PAGE <= s0 + c - 1
@@ -742,8 +767,10 @@ def _paged_bound(case, kv, g, hd, elt, splits, window=None):
               + b * p_log * 4 + b * c * 4)
     flops = runs * kv * 4 * c * g * PAGE * hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    bf16_ms = (max(t_bytes, flops / BF16_FLOPS_PER_S) * 1e3 if elt == 2
+               else None)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else
-            "operations", int(nbytes), int(flops), int(runs))
+            "operations", int(nbytes), int(flops), int(runs), bf16_ms)
 
 
 def _gather_sdpa(q, kp, vp, table, positions, window=None):
@@ -822,10 +849,11 @@ def paged_kernel_phase(dev) -> dict:
                 library_ms = time_ms(_gather_sdpa, [
                     (q, kp_, vp_, tb, ps_) for _, kp_, vp_, tb, ps_ in sets],
                     calls=20)
-                bound_ms, bound_by, nbytes, flops, runs = _paged_bound(
-                    case, kv, g, hd, kp.element_size(), splits)
+                bound_ms, bound_by, nbytes, flops, runs, bf16_ms = \
+                    _paged_bound(case, kv, g, hd, kp.element_size(), splits)
                 row = {"kernel": "paged_flash_attention", "case": case[0],
                        "B": len(case[2]), "C": case[1], "P": case[4],
+                       "g": g, "hd": hd,
                        "pages_run": runs, "pool": str(dtype).split(".")[-1],
                        "kv_splits": splits, "max_abs_err": err,
                        "partials_max_rel_err": part_err, "atol": PAGED_ATOL,
@@ -835,7 +863,8 @@ def paged_kernel_phase(dev) -> dict:
                                   "scaled_dot_product_attention",
                        "library_max_abs_err": lib_err,
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "bytes": nbytes, "flops": flops}
+                       "bound_bf16_ms": bf16_ms, "bytes": nbytes,
+                       "flops": flops}
                 log(json.dumps(row))
                 rows[(case[0], dtype, splits)] = row
 
@@ -1738,7 +1767,7 @@ def _paged_hd256_rows(dev, cfg) -> list:
                    "library": "gather + repeat_interleave + "
                               "scaled_dot_product_attention (window mask)"}
             row.update(zip(("bound_ms", "bound_by", "bytes", "flops",
-                            "pages_run"),
+                            "pages_run", "bound_bf16_ms"),
                            _paged_bound(case, kv, g, hd, kp.element_size(),
                                         splits, window)))
             log(json.dumps(row))
@@ -1931,17 +1960,34 @@ def _spmm_rows(table, rows, launches, card) -> None:
             "card": card})
 
 
-def _paged_row(table, paged_rows, paged_launches, card) -> None:
-    r = paged_rows[PAGED_TABLE_ROW]
+def _paged_row(table, name, r, launches, max_err, card) -> None:
+    """A row of the paged kernel: ``r`` one of its timed rows, ``launches``
+    the paged launches of the engine run that drives that shape."""
     table.append({
-        "name": "paged_flash_attention", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
-        "replaces": PAGED_REPLACES, "launches": paged_launches["bcsr"],
-        "max_abs_err": max(v["max_abs_err"] for v in paged_rows.values()),
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "replaces": PAGED_REPLACES, "launches": launches,
+        "max_abs_err": max_err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "bound_bf16_ms": r["bound_bf16_ms"], "library_ms": r["library_ms"],
         "shape": f"{r['case']} B={r['B']} C={r['C']} P={r['P']} "
+                 f"g={r['g']} hd={r['hd']} "
                  f"pool={r['pool']} kv_splits={r['kv_splits']}",
+        "card": card})
+
+
+def _flash_row(table, name, r, launches, model_launches, max_err,
+               card) -> None:
+    table.append({
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": FLASH_REPLACES, "launches": launches,
+        "model_path_launches": model_launches, "max_abs_err": max_err,
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "shape": f"B={r['B']} S={r['S']} H={r['H']} KV={r['KV']} "
+                 f"hd={r['hd']} causal window={r['window']} {r['dtype']}",
         "card": card})
 
 
@@ -1996,7 +2042,12 @@ def main() -> int:
     _spmm_rows(table, rows, launches, card)
     paged_rows = paged_kernel_phase(dev)
     paged_launches = engine_phase(dev, formats)
-    _paged_row(table, paged_rows, paged_launches, card)
+    paged_err = max(v["max_abs_err"] for v in paged_rows.values())
+    _paged_row(table, "paged_flash_attention", paged_rows[PAGED_TABLE_ROW],
+               paged_launches["bcsr"], paged_err, card)
+    _paged_row(table, "paged_flash_attention_prefill",
+               paged_rows[PAGED_PREFILL_ROW], paged_launches["bcsr"],
+               paged_err, card)
     del formats
     torch.cuda.empty_cache()
     train_rows = train_kernel_phase(dev)
@@ -2007,22 +2058,20 @@ def main() -> int:
                              f32_layers=HYBRID_F32_LAYERS,
                              kv_splits=HYBRID_KV_SPLITS)
     log(f"{HYBRID}: {json.dumps(hybrid, default=str)}")
+    r = next(x for x in hybrid["paged_rows"] if x["case"] == "hd256 prefill"
+             and x["kv_splits"] == HYBRID_KV_SPLITS)
+    _paged_row(table, "paged_flash_attention_hd256_prefill", r,
+               hybrid["engine_bcsr"]["paged"],
+               max(x["max_abs_err"] for x in hybrid["paged_rows"]), card)
     rwkv = recurrent_phase(dev, RWKV, RWKV_PROMPTS, f32_layers=RWKV_F32_LAYERS)
     log(f"{RWKV}: {json.dumps(rwkv, default=str)}")
     flash_rows, flash_launches, model_launches = flash_phase(dev)
-    r = flash_rows[FLASH_TABLE_ROW]
-    table.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": FLASH_REPLACES, "launches": flash_launches,
-        "model_path_launches": model_launches,
-        "max_abs_err": max(v["max_abs_err"] for v in flash_rows),
-        "ms": r["ms"], "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"],
-        "shape": f"B={r['B']} S={r['S']} H={r['H']} KV={r['KV']} "
-                 f"hd={r['hd']} causal window={r['window']} {r['dtype']}",
-        "card": card})
+    flash_err = max(v["max_abs_err"] for v in flash_rows)
+    _flash_row(table, "flash_attention", flash_rows[FLASH_TABLE_ROW],
+               flash_launches, model_launches, flash_err, card)
+    _flash_row(table, "flash_attention_smollm_prefill",
+               flash_rows[FLASH_PREFILL_ROW], flash_launches, model_launches,
+               flash_err, card)
 
     phase("kernel table")
     print(json.dumps({"kernels": table}))

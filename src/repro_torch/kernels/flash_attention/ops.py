@@ -62,8 +62,10 @@ def _check(q, k, v) -> None:
             raise ValueError(f"a tensor lies on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
-    if hd > 256:
-        raise ValueError(f"head_dim {hd} exceeds the kernel's 256")
+    if hd > 256 or hd % 8:
+        raise ValueError(f"head_dim {hd} must be a multiple of 8, at most 256")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary")
     if _lib().flash_attention_fwd_smem_bytes(hd) > _MAX_SMEM:
         raise ValueError(f"head_dim {hd} exceeds the kernel's shared memory")
     if bh > 65535:

@@ -4,8 +4,9 @@
 window, kv_splits)`` is the engine's attention on the 'cuda' backend (port
 of ``repro.kernels.paged_attention.ops.paged_flash_attention``): it groups
 q per kv head as f32 ``(B, KV, C, g, hd)``, runs the kernel, which walks
-each slot's page table page by page and emits per-split unnormalized
-partials ``(acc, m, l)``, and then the exact cross-split softmax combine
+each slot's running keys through its page table in kv tiles (tensor cores,
+``csrc/attn_tile.cuh``) and emits per-split unnormalized partials
+``(acc, m, l)``, and then the exact cross-split softmax combine
 (``ref.combine_splits``; identity at one split). The gathered
 ``(B, P*page_size, ...)`` context is never formed.
 
@@ -71,13 +72,14 @@ def _check(q, k_pool, v_pool, page_table, positions) -> None:
             raise ValueError(f"a tensor lies on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
-    if hd > 256:
-        raise ValueError(f"head_dim {hd} exceeds the kernel's 256")
+    if hd > 256 or hd % 8:
+        raise ValueError(f"head_dim {hd} must be a multiple of 8, at most 256")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("q and the pools must start on a 16-byte boundary")
     if _lib().paged_flash_fwd_smem_bytes(ps, hd) > _MAX_SMEM:
-        raise ValueError(f"page size {ps} x head_dim {hd} exceeds the "
-                         "kernel's shared memory")
-    if b > 65535 or kv > 65535:
-        raise ValueError(f"grid ({b} slots, {kv} kv heads) exceeds 65535")
+        raise ValueError(f"head_dim {hd} exceeds the kernel's shared memory")
+    if b * kv > 65535:
+        raise ValueError(f"grid ({b} slots x {kv} kv heads) exceeds 65535")
 
 
 def paged_flash_fwd(q, k_pool, v_pool, page_table, positions, *,

@@ -120,18 +120,12 @@ def _paged_case(dev, *, g, ps, dtype, b=4, kv=2, hd=64, c=5, p_log=7,
     return q, kp, vp, table, positions, valid
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("g", [1, 3])
-@pytest.mark.parametrize("window", [None, 8])
-@pytest.mark.parametrize("splits", [1, 3, 7])
-@pytest.mark.parametrize("ps,dtype", [(16, torch.bfloat16), (16, torch.float32),
-                                      (12, torch.bfloat16), (48, torch.float32)])
-def test_cuda_paged_attention_matches_plain(g, window, splits, ps, dtype):
-    dev = _cuda()
-    q, kp, vp, table, positions, valid = _paged_case(dev, g=g, ps=ps,
-                                                     dtype=dtype)
+def _check_paged(q, kp, vp, table, positions, valid, window, splits):
+    """Kernel partials against ``paged_flash_fwd_ref`` and the wrapper
+    against the gathered softmax, on valid rows, at 1e-4."""
     kv = kp.shape[2]
     b, c, h, hd = q.shape
+    g = h // kv
     qg = q.reshape(b, c, kv, g, hd).permute(0, 2, 1, 3, 4).contiguous()
     before = paged_ops.launches["paged_flash_fwd"]
     got = paged_ops.paged_flash_fwd(qg, kp, vp, table, positions,
@@ -153,6 +147,79 @@ def test_cuda_paged_attention_matches_plain(g, window, splits, ps, dtype):
                                           window=window)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out[valid], plain[valid], atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("window", [None, 8])
+@pytest.mark.parametrize("splits", [1, 3, 7])
+@pytest.mark.parametrize("ps,dtype", [(16, torch.bfloat16), (16, torch.float32),
+                                      (12, torch.bfloat16), (48, torch.float32)])
+def test_cuda_paged_attention_matches_plain(g, window, splits, ps, dtype):
+    dev = _cuda()
+    _check_paged(*_paged_case(dev, g=g, ps=ps, dtype=dtype), window, splits)
+
+
+# (case, keyword arguments of _paged_case, window) at the tile core's
+# edges: recurrentgemma-9b's prefill tick (hd 256, g 16, C 32: 512 rows in
+# 8 row tiles) with a window that leaves a valid row's split only masked
+# keys; 65 and 96 rows (a ragged last row tile); f16 pools; a decode tick
+# whose 16 rows fill one warp's tile; hd 72, run in the hd-128 tiles with
+# the columns past hd zero-filled
+PAGED_TILE_CASES = [
+    ("hd256 prefill", dict(g=16, hd=256, kv=1, c=32, ps=16, p_log=10,
+                           starts=(120, 0, 64, 0), n_tok=(32, 32, 9, 0)), 48),
+    ("65 rows", dict(g=13, c=5, ps=16), None),
+    ("96 rows", dict(g=3, c=32, ps=12, p_log=10, starts=(40, 0, 80, 0),
+                     n_tok=(32, 20, 32, 0)), 24),
+    ("f16 pools", dict(g=3, ps=16, dtype=torch.float16), 8),
+    ("f16 pools, ps 48", dict(g=3, ps=48, dtype=torch.float16), None),
+    ("decode g 16", dict(g=16, c=1, hd=256, kv=1, ps=16, p_log=12,
+                         starts=(191, 17, 100, 0), n_tok=(1, 1, 1, 0)), 64),
+    ("decode g 16 hd 64", dict(g=16, c=1, ps=16, starts=(100, 17, 0, 0),
+                               n_tok=(1, 1, 1, 0)), None),
+    ("hd 72", dict(g=3, hd=72, ps=12), 8),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,kw,window", PAGED_TILE_CASES,
+                         ids=[c[0] for c in PAGED_TILE_CASES])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_cuda_paged_attention_tile_edges(case, kw, window, splits):
+    dev = _cuda()
+    kw = {"dtype": torch.bfloat16, **kw}
+    _check_paged(*_paged_case(dev, **kw), window, splits)
+
+
+def _off_boundary(t):
+    """t's values in a contiguous view that starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["hd 36", "q off a 16-byte boundary",
+                                  "k pool off a 16-byte boundary"])
+def test_cuda_paged_attention_rejects_what_the_tile_core_does_not_take(what):
+    """The tile core stages 16-byte chunks: head_dim must be a multiple of
+    8 and q and the pools must start on a 16-byte boundary."""
+    dev = _cuda()
+    q, kp, vp, table, positions, _ = _paged_case(
+        dev, g=2, ps=16, dtype=torch.bfloat16, hd=36 if what == "hd 36" else 64)
+    b, c, h, hd = q.shape
+    qg = q.reshape(b, c, 2, 2, hd).permute(0, 2, 1, 3, 4).contiguous()
+    if what.startswith("q "):
+        qg = _off_boundary(qg)
+    if what.startswith("k pool"):
+        kp = _off_boundary(kp)
+    before = paged_ops.launches["paged_flash_fwd"]
+    with pytest.raises(ValueError, match="multiple of 8|16-byte boundary"):
+        paged_ops.paged_flash_fwd(qg, kp, vp, table, positions)
+    assert paged_ops.launches["paged_flash_fwd"] == before
 
 
 @pytest.mark.gpu
@@ -191,10 +258,11 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 
 # (b, s, h, kv, hd): the JAX sweep's GQA shapes, a ragged S (not a multiple
-# of the kernel's 64-row tile), smollm-360m's heads and recurrentgemma-9b's
-# (16 q heads of 256 on one kv head)
+# of the kernel's 64-row tile), smollm-360m's heads, recurrentgemma-9b's
+# (16 q heads of 256 on one kv head), hd 128 at a ragged S, and hd 72 (the
+# hd-128 tiles with the columns past hd zero-filled)
 FLASH_SHAPES = [(2, 64, 4, 2, 32), (1, 100, 4, 1, 16), (2, 192, 15, 5, 64),
-                (1, 256, 16, 1, 256)]
+                (1, 256, 16, 1, 256), (1, 160, 8, 2, 128), (1, 100, 4, 2, 72)]
 
 
 @pytest.mark.gpu
@@ -205,9 +273,10 @@ FLASH_SHAPES = [(2, 64, 4, 2, 32), (1, 100, 4, 1, 16), (2, 192, 15, 5, 64),
                                    torch.float16])
 def test_cuda_flash_attention_matches_plain(b, s, h, kv, hd, causal, window,
                                             dtype):
-    """Window 40 under the kernel's 64-row q tiles and 32-key kv tiles:
-    rows from 104 on start on a fully masked kv tile (the -1e30
-    sentinel's junk, wiped by the first real score)."""
+    """Window 40 under the kernel's 64-row q tiles and 64-key kv tiles (32
+    at hd 256): rows of a q tile whose first kv tile lies below their
+    window start on a fully masked tile (the -1e30 sentinel's junk, wiped
+    by the first real score)."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(s + h + hd)
     q = torch.randn(b * h, s, hd, device=dev, generator=gen).to(dtype)
@@ -226,6 +295,26 @@ def test_cuda_flash_attention_matches_plain(b, s, h, kv, hd, causal, window,
     tol = (dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32
            else dict(atol=2 ** -7, rtol=2 ** -7))
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["hd 36", "q off a 16-byte boundary",
+                                  "v off a 16-byte boundary"])
+def test_cuda_flash_attention_rejects_what_the_tile_core_does_not_take(what):
+    """As the paged kernel: head_dim a multiple of 8, q, k and v on a
+    16-byte boundary."""
+    dev = _cuda()
+    hd = 36 if what == "hd 36" else 64
+    q, k, v = (torch.randn(n, 64, hd, device=dev).to(torch.bfloat16)
+               for n in (4, 2, 2))
+    if what.startswith("q "):
+        q = _off_boundary(q)
+    if what.startswith("v "):
+        v = _off_boundary(v)
+    before = flash_ops.launches["flash_attention_fwd"]
+    with pytest.raises(ValueError, match="multiple of 8|16-byte boundary"):
+        flash_ops.flash_attention_fwd(q, k, v, bq=64, bk=64)
+    assert flash_ops.launches["flash_attention_fwd"] == before
 
 
 @pytest.mark.gpu
