@@ -9,10 +9,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
   2. build: nvcc builds every CUDA source of ``src/repro_torch/csrc``, one
      process per source, all at once; each kernel's registers and spills
      are printed from ptxas's report, with the kernels that spill;
-  3. kernels: each spmm kernel at smollm-360m's projection shapes against
-     its plain PyTorch version on the card, timed beside the plain version,
-     a library yardstick (``torch.matmul`` on the densified weight, which
-     the port never calls) and the least time the card could take;
+  3. kernels: both forward spmm kernels (the decode kernel, which the
+     wrappers pick up to 16 rows of x, and the tensor-core tile kernel
+     above) at smollm-360m's projection shapes against their plain PyTorch
+     version on the card, timed beside the plain version, a library
+     yardstick (``torch.matmul`` on the densified weight, which the port
+     never calls) and the least time the card could take (at the rate of
+     the operands' types and at the bf16 tensor-core rate);
   4. model: the port's serving CLI drives full-width smollm-360m (32
      layers, random weights from seed 0, pruned at 0.9 on (8, 128) blocks)
      from BlockCSR, palette-8 and palette-4 weights, with every kernel's
@@ -63,13 +66,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      head, window 2048, vocab 256,000): seed-0 weights pruned at 0.9 on
      (8, 128) blocks, built into BlockCSR on the card part by part
      (``sparse.compress.init_compressed``, as ``launch/serve --sparse``
-     builds it), then palette-8; the bf16 prefill at full depth with each
+     builds it), then palette-8; both forward spmm kernels at the engine's
+     prefill tick (M = 256, bf16 x) on the first super-block's 19
+     projections, against the plain version, the f32 ``torch.matmul`` on
+     the densified weight, the bf16 one (for information) and the bound
+     (kernel-table row 1c); the bf16 prefill at full depth with each
      kernel call held to its plain version, and its logits to the plain
      path's where bf16 is accurate (within 2% of f32); ``generate`` and the
      engine (the 16-request mix with its longest prompt replaced by 3,072
      tokens, past the window) in bf16 with the launch counters read around
-     each run (spmm on every projection; the paged kernel at hd 256, g 16
-     in the engine); the
+     each run (spmm on every projection, the decode and tile kernels
+     counted apart; the paged kernel at hd 256, g 16 in the engine); the
      paged kernel at that shape against its plain versions; in f32 at a
      cut depth (one super-block and the two remainder layers), the kernel
      path against the plain path and the engine against ``generate``;
@@ -83,11 +90,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (which the port never calls) and its bound; then its entry point
      ``ops.flash_attention`` (no model code calls it: the serving and
      training phases launch it 0 times);
- 13. the kernel table (one JSON line: the paged kernel at a decode and a
-     prefill tick of the smollm-360m mix and at recurrentgemma-9b's prefill
-     tick, flash at recurrentgemma-9b's local attention and smollm-360m's
-     prefill, with the paged bound also at the bf16 tensor-core rate) and
-     the contract line.
+ 13. the kernel table (one JSON line: the decode spmm kernels at
+     smollm-360m's decode, the tile kernels at recurrentgemma-9b's prefill
+     tick (palette-4 at smollm-360m's M = 512), the paged kernel at a
+     decode and a prefill tick of the smollm-360m mix and at
+     recurrentgemma-9b's prefill tick, flash at recurrentgemma-9b's local
+     attention and smollm-360m's prefill, with the spmm and paged bounds
+     also at the bf16 tensor-core rate) and the contract line.
 
 It imports nothing of JAX or of the JAX package, and exits with an error
 when no CUDA device is visible.
@@ -311,6 +320,15 @@ HYBRID_F32_LAYERS = 5
 # kv splits of the hybrid engine's paged kernel: the long request's
 # window spans about 130 pages, walked by 4 thread blocks instead of 1
 HYBRID_KV_SPLITS = 4
+# kernel-table row 1c: the forward spmm at the engine's prefill tick (8
+# slots x chunks of 32 = 256 rows of bf16 x) on the projections of the
+# hybrid's first super-block
+HYBRID_SPMM_M = MAX_BATCH * CHUNK
+# the plain version and the library calls of row 1c take 0.3-2 ms a call
+# at these widths: 20 timed calls each keep the phase short
+HYBRID_YARDSTICK_CALLS = 20
+SUM_KEYS = ("ms", "ms_decode", "ms_tile", "plain_ms", "library_ms",
+            "bf16_matmul_ms", "bound_ms", "bound_bf16_ms", "bytes", "flops")
 # the paged kernel at recurrentgemma-9b's shape: a prefill tick of 8 slots
 # at late positions (the long request's window bites) and a decode tick
 HYBRID_PAGED_CASES = [
@@ -433,21 +451,78 @@ def _weight(rng, n, k, dev):
 
 
 def _bound(m_rows, w, x_dtype, bits):
-    """Least time for one call: each input read once (x, the resident
-    blocks and their gather entries, the palette), the output written once,
-    against the f32 FMAs the resident blocks need."""
+    """Least time for one forward call: each input read once (x, the
+    resident blocks at the store's element size, their gather entries, the
+    palette), the output written once, against the products the resident
+    blocks need. (bound ms, what bounds it, bytes, flops, bound ms at the
+    bf16 tensor-core rate): the first at the rate of the operands' types
+    (f32 when x, the store or the palette is f32), the last as if every
+    product ran at the bf16 rate, which the tile kernel's products do."""
     br, bc = w.block
     n_res = int(w.gather_nnz.sum())
     k_in, n_out = w.shape[1], w.shape[0]
     x_b = m_rows * k_in * torch.finfo(x_dtype).bits // 8
-    blk_b = n_res * br * bc * (4 if bits is None else bits / 8)
+    blk_b = n_res * br * bc * (w.data.element_size() if bits is None
+                               else bits / 8)
     pal_b = 0 if bits is None else (1 << bits) * 4
     tab_b = n_res * 8 + w.gather_nnz.numel() * 4
     nbytes = x_b + blk_b + pal_b + tab_b + m_rows * n_out * 4
     flops = 2 * m_rows * n_res * br * bc
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else
-            "operations", int(nbytes), int(flops))
+    store = w.data.dtype if bits is None else torch.float32
+    bound = _ops_bound(nbytes, flops, x_dtype, store)
+    return bound + (_ops_bound(nbytes, flops, torch.bfloat16)[0],)
+
+
+def _spmm_case(wq, x, wrapper: str, bits, bf16_matmul: bool = False,
+               yardstick_calls: int = TIMED_CALLS) -> dict:
+    """Both forward kernels (decode and tile) on (x, wq), each held to the
+    plain version at KERNEL_ATOL / KERNEL_RTOL and timed beside it, the
+    library call (``torch.matmul`` of x in f32 and the densified f32
+    weight: the same function) and the bound; with ``bf16_matmul`` also,
+    for information, the bf16 matmul on the bf16-rounded weight (another
+    function), each over ``yardstick_calls`` calls. ``ms`` is the kernel
+    the wrapper picks for this M (``picked``)."""
+    n, k = wq.shape
+    m_rows = x.shape[0]
+    plain = ref.spmm_fwd_ref if bits is None else ref.spmm_palette_fwd_ref
+    want = plain(x, wq)
+    store = wq.data if bits is None else wq.codes
+    sets = copies(lambda: (x.clone(), wq.map(torch.clone)),
+                  tensor_bytes(x, store))
+    row = {"matrix_shape": [n, k], "M": m_rows,
+           "x": str(x.dtype).split(".")[-1],
+           "store": str(store.dtype).split(".")[-1] if bits is None
+           else f"palette{bits}",
+           "resident_blocks": int(wq.gather_nnz.sum()),
+           "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL}
+    for kern in ops.KERNELS:
+        fn = functools.partial(ops._fwd, kernel=kern)
+        got = fn(x, wq)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+            raise SystemExit(f"{wrapper} ({kern}) {[n, k]} M={m_rows} "
+                             f"{x.dtype}: kernel disagrees with plain, max "
+                             f"err {err}")
+        row[f"max_abs_err_{kern}"] = err
+        row[f"ms_{kern}"] = time_ms(fn, sets)
+    row["picked"] = ops.pick_kernel(m_rows)
+    row["ms"] = row[f"ms_{row['picked']}"]
+    row["max_abs_err"] = max(row[f"max_abs_err_{k_}"] for k_ in ops.KERNELS)
+    row["plain_ms"] = time_ms(plain, sets, yardstick_calls)
+    wd = (bcsr_to_dense(wq if bits is None else wq.dequantize())
+          [:n, :k].float().T.contiguous())
+    row["library_ms"] = time_ms(torch.matmul, copies(
+        lambda: (x.float(), wd.clone()), tensor_bytes(x, wd) * 2),
+        yardstick_calls)
+    if bf16_matmul:
+        wb = wd.bfloat16()
+        row["bf16_matmul_ms"] = time_ms(torch.matmul, copies(
+            lambda: (x.bfloat16(), wb.clone()), tensor_bytes(x, wb) * 2),
+            yardstick_calls)
+    row.update(zip(("bound_ms", "bound_by", "bytes", "flops",
+                    "bound_bf16_ms"), _bound(m_rows, wq, x.dtype, bits)))
+    return row
 
 
 def kernel_phase(dev) -> dict:
@@ -459,35 +534,9 @@ def kernel_phase(dev) -> dict:
         packed = {None: w, 8: quantize_bcsr(w, 8), 4: quantize_bcsr(w, 4)}
         for m_rows in M_VALUES:
             for name, wrapper, bits, x_dtype in VARIANTS:
-                wq = packed[bits]
-                kernel = getattr(ops, wrapper)
-                plain = ref.spmm_fwd_ref if bits is None else ref.spmm_palette_fwd_ref
                 x = torch.randn(m_rows, k, device=dev).to(x_dtype)
-                got, want = kernel(x, wq), plain(x, wq)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                if not torch.allclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
-                    raise SystemExit(f"{name} {mat_name} M={m_rows} {x_dtype}: "
-                                     f"kernel disagrees with plain, max err {err}")
-                call_b = tensor_bytes(x, *(t for t in (getattr(wq, "data", None),
-                                                       getattr(wq, "codes", None))
-                                           if t is not None))
-                sets = copies(lambda: (x.clone(), wq.map(torch.clone)), call_b)
-                ms = time_ms(kernel, sets)
-                plain_ms = time_ms(plain, sets)
-                wd = (bcsr_to_dense(w if bits is None else wq.dequantize())
-                      [:n, :k].T.contiguous())
-                lib_sets = copies(lambda: (x.float(), wd.clone()),
-                                  tensor_bytes(x, wd) * 2)
-                library_ms = time_ms(torch.matmul, lib_sets)
-                bound_ms, bound_by, nbytes, flops = _bound(m_rows, wq, x_dtype, bits)
-                row = {"kernel": name, "matrix": mat_name, "shape": [n, k],
-                       "M": m_rows, "x": str(x_dtype).split(".")[-1],
-                       "resident_blocks": int(wq.gather_nnz.sum()),
-                       "max_abs_err": err, "atol": KERNEL_ATOL,
-                       "rtol": KERNEL_RTOL, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+                row = {"kernel": name, "matrix": mat_name,
+                       **_spmm_case(packed[bits], x, wrapper, bits)}
                 log(json.dumps(row))
                 rows[(name, mat_name, m_rows, x_dtype)] = row
     return rows
@@ -506,7 +555,7 @@ def _serve_run(extra: list) -> dict:
     with contextlib.redirect_stdout(buf):
         out = serve.main(argv)
     torch.cuda.synchronize()
-    counts = dict(ops.launches)
+    counts = {**ops.launches, **ops.variant_launches}
     text = buf.getvalue().splitlines()
     log(f"serve {' '.join(argv)}")
     for line in text[-3:]:
@@ -649,10 +698,15 @@ def model_phase(dev) -> dict:
                                 ("pal4", ["--quantize-bits", "4"], "spmm_palette")):
         counts = _serve_run(extra)
         other = "spmm" if wrapper == "spmm_palette" else "spmm_palette"
-        if counts[wrapper] != EXPECTED_LAUNCHES or counts[other]:
+        split = {k: counts[f"{wrapper}_{k}"] for k in ops.KERNELS}
+        # prefill (M = 64) runs the tile kernel, decode (M = 4) the other
+        if counts[wrapper] != EXPECTED_LAUNCHES or counts[other] or \
+                sum(split.values()) != EXPECTED_LAUNCHES or \
+                not all(split.values()):
             raise SystemExit(f"{fmt}: launches {counts}, expected "
-                             f"{EXPECTED_LAUNCHES} of {wrapper} only")
-        main_counts[fmt] = counts[wrapper]
+                             f"{EXPECTED_LAUNCHES} of {wrapper} only, through "
+                             "both of its kernels")
+        main_counts[fmt] = split
 
     phase("model: kernel path vs plain path")
     cfg = get_config(ARCH)
@@ -1775,6 +1829,40 @@ def _paged_hd256_rows(dev, cfg) -> list:
     return rows
 
 
+def _hybrid_spmm_rows(dev, formats) -> dict:
+    """Kernel-table row 1c: both forward kernels at the engine's prefill
+    tick (M = 256, bf16 x) on recurrentgemma-9b's own compressed
+    projections of its first super-block (two RG-LRU layers and a local
+    attention layer, each with its MLP: 19 matrices), BlockCSR (its f32
+    store) and palette-8, each against the plain version, the library call
+    (f32 matmul on the densified f32 weight), for information the bf16
+    matmul on the bf16-rounded weight, and the bound; then their sums over
+    the super-block."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for fmt, bits in (("bcsr", None), ("pal8", 8)):
+        rows = []
+        for path, m in iter_bcsr(formats[fmt]):
+            if not path.startswith("layers/"):
+                continue
+            w = m[0] if (m.data if bits is None else m.codes).dim() == 4 else m
+            x = torch.randn(HYBRID_SPMM_M, w.shape[1], generator=gen,
+                            device=dev).to(torch.bfloat16)
+            row = {"kernel": "bsr_spmm" if bits is None else "bsr_spmm_palette8",
+                   "matrix": path,
+                   **_spmm_case(w, x, "spmm" if bits is None else "spmm_palette",
+                                bits, bf16_matmul=True,
+                                yardstick_calls=HYBRID_YARDSTICK_CALLS)}
+            log(json.dumps(row))
+            rows.append(row)
+        total = {k: sum(r[k] for r in rows) for k in SUM_KEYS}
+        total.update(calls=len(rows), picked=rows[0]["picked"],
+                     max_abs_err=max(r["max_abs_err"] for r in rows))
+        log(json.dumps({"row": "1c", "format": fmt, "super_block": total}))
+        out[fmt] = {"rows": rows, "sum": total}
+    return out
+
+
 def _check_counts(what, counts, want: dict) -> None:
     for name, n in want.items():
         if counts.get(name, 0) != n:
@@ -1813,6 +1901,10 @@ def recurrent_phase(dev, arch: str, prompts, f32_layers=None,
         f"bytes dense {dense_b / 1e6:.2f} MB, bcsr {sizes['bcsr'] / 1e6:.2f} "
         f"MB, palette-8 {sizes['pal8'] / 1e6:.2f} MB")
     result = {"arch": arch, "sizes": sizes, "per_pass": per_pass}
+    if arch == HYBRID:
+        phase(f"{arch}: the forward spmm at the engine's prefill tick "
+              f"(M = {HYBRID_SPMM_M}), first super-block")
+        result["spmm_1c"] = _hybrid_spmm_rows(dev, formats)
 
     phase(f"{arch}: kernel path vs plain path, bf16, all {cfg.n_layers} "
           "layers")
@@ -1870,7 +1962,7 @@ def recurrent_phase(dev, arch: str, prompts, f32_layers=None,
         t0 = time.perf_counter()
         out = engine.run(requests)
         torch.cuda.synchronize()
-        counts = {**ops.launches, **paged_ops.launches}
+        counts = {**ops.launches, **ops.variant_launches, **paged_ops.launches}
         s = out["stats"]
         ticks = s["n_ticks"]
         _check_counts(f"{arch} {fmt} engine", counts,
@@ -1887,9 +1979,11 @@ def recurrent_phase(dev, arch: str, prompts, f32_layers=None,
             f"kv {s['kv_page_bytes']} + state {s['state_slot_bytes']} bytes, "
             f"peak memory {peak / 2**30:.2f} GiB, run "
             f"{time.perf_counter() - t0:.1f} s, launches {counts}")
-        result[f"engine_{fmt}"] = {"tok_s": s["tok_s"], "ticks": ticks,
-                                   "paged": counts["paged_flash_fwd"],
-                                   "spmm": counts[wrapper]}
+        result[f"engine_{fmt}"] = {
+            "tok_s": s["tok_s"], "ttft_p50_s": s["ttft_p50_s"],
+            "ttft_p95_s": s["ttft_p95_s"], "ticks": ticks,
+            "paged": counts["paged_flash_fwd"], "spmm": counts[wrapper],
+            **{k: counts[f"{wrapper}_{k}"] for k in ops.KERNELS}}
     _profile_engine_window(
         lambda: _engine(model, cp, requests, kv_splits=kv_splits), requests,
         RECURRENT_PROFILE_TICKS)
@@ -1943,7 +2037,13 @@ def recurrent_phase(dev, arch: str, prompts, f32_layers=None,
     return result
 
 
-def _spmm_rows(table, rows, launches, card) -> None:
+def _spmm_rows(table, rows, launches, hybrid, card) -> None:
+    """The forward spmm's rows: the decode kernel at smollm-360m's decode
+    (rows 1-2, M = 4), launched by ``launch/serve --sparse``'s decode
+    steps; the tile kernel at recurrentgemma-9b's prefill tick (row 1c,
+    per call over the first super-block's 19 projections), launched by the
+    hybrid engine's prefill ticks, and, for palette-4, at smollm-360m's
+    mlp.wi with M = 512, launched by the serve run's prefill."""
     mat, m_rows, x_dtype = TABLE_SHAPE
     for name, fmt in (("bsr_spmm", "bcsr"), ("bsr_spmm_palette8", "pal8"),
                       ("bsr_spmm_palette4", "pal4")):
@@ -1951,13 +2051,50 @@ def _spmm_rows(table, rows, launches, card) -> None:
         table.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/bsr_spmm.cu",
-            "replaces": REPLACES[name], "launches": launches[fmt],
+            "replaces": REPLACES[name], "launches": launches[fmt]["decode"],
             "max_abs_err": max(v["max_abs_err"] for k, v in rows.items()
                                if k[0] == name),
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": f"{mat} {r['shape']} M={m_rows} x={r['x']}",
+            "ms": r["ms_decode"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_bf16_ms": r["bound_bf16_ms"], "library_ms": r["library_ms"],
+            "shape": f"decode kernel, {mat} {r['matrix_shape']} M={m_rows} "
+                     f"x={r['x']}",
             "card": card})
+    for name, fmt in (("bsr_spmm_tile", "bcsr"),
+                      ("bsr_spmm_palette8_tile", "pal8")):
+        tot = hybrid["spmm_1c"][fmt]["sum"]
+        n = tot["calls"]
+        store = "f32" if fmt == "bcsr" else "palette8"
+        rate = F32_FLOPS_PER_S
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/bsr_spmm.cu",
+            "replaces": REPLACES[name.replace("_tile", "")],
+            "launches": hybrid[f"engine_{fmt}"]["tile"],
+            "max_abs_err": tot["max_abs_err"], "ms": tot["ms_tile"] / n,
+            "plain_ms": tot["plain_ms"] / n, "bound_ms": tot["bound_ms"] / n,
+            "bound_by": "bytes" if tot["bytes"] / HBM_BYTES_PER_S
+            >= tot["flops"] / rate else "operations",
+            "bound_bf16_ms": tot["bound_bf16_ms"] / n,
+            "library_ms": tot["library_ms"] / n,
+            "bf16_matmul_ms": tot["bf16_matmul_ms"] / n,
+            "shape": f"tile kernel, {HYBRID} first super-block's {n} "
+                     f"projections, per call, M={HYBRID_SPMM_M} x=bfloat16 "
+                     f"store={store}",
+            "card": card})
+    r = rows[("bsr_spmm_palette4", mat, max(M_VALUES), x_dtype)]
+    table.append({
+        "name": "bsr_spmm_palette4_tile", "route": "cuda",
+        "source": "src/repro_torch/csrc/bsr_spmm.cu",
+        "replaces": REPLACES["bsr_spmm_palette4"],
+        "launches": launches["pal4"]["tile"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms_tile"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "bound_bf16_ms": r["bound_bf16_ms"],
+        "library_ms": r["library_ms"],
+        "shape": f"tile kernel, {mat} {r['matrix_shape']} M={max(M_VALUES)} "
+                 f"x={r['x']}",
+        "card": card})
 
 
 def _paged_row(table, name, r, launches, max_err, card) -> None:
@@ -2039,7 +2176,6 @@ def main() -> int:
     table = []
     rows = kernel_phase(dev)
     launches, formats = model_phase(dev)
-    _spmm_rows(table, rows, launches, card)
     paged_rows = paged_kernel_phase(dev)
     paged_launches = engine_phase(dev, formats)
     paged_err = max(v["max_abs_err"] for v in paged_rows.values())
@@ -2057,12 +2193,13 @@ def main() -> int:
     hybrid = recurrent_phase(dev, HYBRID, HYBRID_PROMPTS,
                              f32_layers=HYBRID_F32_LAYERS,
                              kv_splits=HYBRID_KV_SPLITS)
-    log(f"{HYBRID}: {json.dumps(hybrid, default=str)}")
+    log(f"{HYBRID}: {json.dumps({k: v for k, v in hybrid.items() if k != 'spmm_1c'}, default=str)}")
     r = next(x for x in hybrid["paged_rows"] if x["case"] == "hd256 prefill"
              and x["kv_splits"] == HYBRID_KV_SPLITS)
     _paged_row(table, "paged_flash_attention_hd256_prefill", r,
                hybrid["engine_bcsr"]["paged"],
                max(x["max_abs_err"] for x in hybrid["paged_rows"]), card)
+    _spmm_rows(table, rows, launches, hybrid, card)
     rwkv = recurrent_phase(dev, RWKV, RWKV_PROMPTS, f32_layers=RWKV_F32_LAYERS)
     log(f"{RWKV}: {json.dumps(rwkv, default=str)}")
     flash_rows, flash_launches, model_launches = flash_phase(dev)

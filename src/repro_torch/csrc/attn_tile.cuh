@@ -20,7 +20,10 @@
 //   together; f16 parts beside f16 storage), and the products of the parts
 //   are summed in f32: QS, KS and PS count the parts of Q, K/V and P, and
 //   the products of two lo parts (2^-18) are dropped. bf16 x bf16 products
-//   are exact in f32.
+//   are exact in f32. Over the 8,192-key walk of an f32 pool the pair's
+//   2^-18 per product added up past 1e-4 (a chip run), so the paged kernel
+//   splits q, K, V and P into three parts (hi, mid, lo: exact) for f32
+//   pools and keeps the products whose part orders sum to at most 2.
 // * Scores are scaled, then masked with the reference's three kinds of key
 //   column (Mask): a key a row may see keeps its score; a real key that
 //   the causal or window mask hides gets -1e30 (the reference's sentinel:
@@ -34,6 +37,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_ops.cuh"
 
 namespace attn {
 
@@ -60,76 +65,21 @@ __host__ __device__ constexpr int padded_hd(int hd) {
   return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
 }
 
-// The 16-bit mma operand type for a storage type: f32 goes through bf16
-// hi / lo parts.
-template <typename T> struct Operand { using H = T; };
-template <> struct Operand<float> { using H = __nv_bfloat16; };
+// The tensor-core primitives of tc_ops.cuh, shared with bsr_tile.cuh.
+using tc::Half;
+using tc::Operand;
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ldsm_x4;
+using tc::ldsm_x4_t;
+using tc::split2;
 
-template <typename H> struct Half;
-
-template <> struct Half<__nv_bfloat16> {
-  static __device__ __forceinline__ __nv_bfloat16 from(float x) { return __float2bfloat16_rn(x); }
-  static __device__ __forceinline__ float to(__nv_bfloat16 x) { return __bfloat162float(x); }
-  static __device__ __forceinline__ uint32_t bits(__nv_bfloat16 x) { return __bfloat16_as_ushort(x); }
-  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-template <> struct Half<__half> {
-  static __device__ __forceinline__ __half from(float x) { return __float2half_rn(x); }
-  static __device__ __forceinline__ float to(__half x) { return __half2float(x); }
-  static __device__ __forceinline__ uint32_t bits(__half x) { return __half_as_ushort(x); }
-  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-// Two floats as packed 16-bit hi parts (a in the low half) and, where
-// PARTS == 2, lo parts.
-template <typename H, int PARTS>
-__device__ __forceinline__ void split2(float a, float b, uint32_t (&out)[PARTS]) {
-  using F = Half<H>;
-  const H ha = F::from(a), hb = F::from(b);
-  out[0] = F::bits(ha) | (F::bits(hb) << 16);
-  if constexpr (PARTS == 2) {
-    out[1] = F::bits(F::from(a - F::to(ha))) | (F::bits(F::from(b - F::to(hb))) << 16);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-// 16 bytes global -> shared; with ok false, 16 zero bytes (src unread).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(ok ? 16 : 0));
-}
 // The two warps of a 16-row group (64 threads) at barrier id.
 __device__ __forceinline__ void pair_sync(int id) {
   asm volatile("bar.sync %0, 64;\n" :: "r"(id) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 // Stage rows [0, NROWS <= 64) of a tile into dst, at row_stride<HD>():
 // row j is row(j) of the source (row(j) < 0: a padded row, zero-filled),
@@ -139,8 +89,10 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // row by a shuffle, so no chunk waits on a lookup. 16-bit T: cp.async (the
 // caller commits and waits). f32 T: plain loads, split into hi parts at
 // dst and lo parts at dst + part. Every lane of a warp runs the same
-// number of chunks (NROWS * HD / 8 is a multiple of 32).
-template <int HD, int THREADS, int NROWS, typename T, typename H, typename Row>
+// number of chunks (NROWS * HD / 8 is a multiple of 32). f32 T: PARTS
+// parts, part p at dst + p * part.
+template <int HD, int THREADS, int NROWS, int PARTS = 2, typename T, typename H,
+          typename Row>
 __device__ __forceinline__ void stage(H* dst, int part, const T* base, int pitch,
                                       int col0, int hd, Row row) {
   static_assert(NROWS <= 64 && NROWS * HD % 256 == 0, "rows per warp pass");
@@ -168,11 +120,12 @@ __device__ __forceinline__ void stage(H* dst, int part, const T* base, int pitch
     } else {
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (ok) x = __ldg(reinterpret_cast<const float4*>(src));
-      uint32_t p01[2], p23[2];
-      split2<H, 2>(x.x, x.y, p01);
-      split2<H, 2>(x.z, x.w, p23);
-      *reinterpret_cast<uint2*>(dst + j * STR + c * EL) = make_uint2(p01[0], p23[0]);
-      *reinterpret_cast<uint2*>(dst + part + j * STR + c * EL) = make_uint2(p01[1], p23[1]);
+      uint32_t p01[PARTS], p23[PARTS];
+      split2<H, PARTS>(x.x, x.y, p01);
+      split2<H, PARTS>(x.z, x.w, p23);
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p)
+        *reinterpret_cast<uint2*>(dst + p * part + j * STR + c * EL) = make_uint2(p01[p], p23[p]);
     }
   }
 }
@@ -223,6 +176,10 @@ struct Core {
   // per pass (2G independent accumulator chains beside acc)
   static constexpr int kStepUnroll = HD >= 128 ? 2 : HD / 16;
   static constexpr int G = DC >= 64 ? 4 : DC / 16;
+  // products of parts i (of Q or P) and j (of K or V) kept: i + j below
+  // the larger part count (with two split operands, lo x lo is dropped;
+  // with three, the terms of order 2^-27)
+  static constexpr int kOrderS = QS > KS ? QS : KS, kOrderP = PS > KS ? PS : KS;
   float acc[DC / 8][4];
   float m[2], l[2];
 
@@ -264,7 +221,7 @@ struct Core {
           uint32_t b[4];
           ldsm_x4(b, kb + j * kv_part + nn * 16 * STR + kk * 16);
 #pragma unroll
-          for (int i = 0; i + j <= 1 && i < QS; ++i) {   // no lo x lo
+          for (int i = 0; i + j < kOrderS && i < QS; ++i) {
             F::mma(s[2 * nn], a[i], b[0], b[1]);
             F::mma(s[2 * nn + 1], a[i], b[2], b[3]);
           }
@@ -371,7 +328,7 @@ struct Core {
             uint32_t b[4];
             ldsm_x4_t(b, vb + j * kv_part + kk * 16 * STR + (d0 + dn) * 16);
 #pragma unroll
-            for (int i = 0; i + j <= 1 && i < PS; ++i) {
+            for (int i = 0; i + j < kOrderP && i < PS; ++i) {
               F::mma(t[2 * dn], pa[kk][i], b[0], b[1]);
               F::mma(t[2 * dn + 1], pa[kk][i], b[2], b[3]);
             }

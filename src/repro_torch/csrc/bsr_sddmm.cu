@@ -11,19 +11,38 @@
 // trailing slots pad_bcsr appends) are written as zero. Only the resident
 // blocks are computed: no dense (N, K) gradient exists anywhere.
 //
-// Bound on an H100 SXM: at M = 512 each slot reads M * (br + bc) inputs and
-// does M * br * bc FMAs (2 flops each); over a layer's resident blocks the
-// f32 FMAs (67 TFLOP/s without tensor cores) and the bytes of the slabs
-// (each dY and X slab read once per slot that uses it) are of the same
-// order, so the bound is whichever this run's shapes make larger.
+// Bound on an H100 SXM: each valid slot does 2 M br bc flops and needs the
+// X and dY columns of its block; the bound is the larger of those bytes
+// (each X / dY column that some slot needs read once, the f32 output
+// written once) over 3.35 TB/s and the flops over 989 TFLOP/s (bf16 x
+// bf16) or 67 TFLOP/s (an f32 operand). At smollm-360m's widths and M =
+// 512 the bytes are the larger term.
 //
-// Design against that bound: one thread block (256 threads) per slot; the
-// TPU's sequential M grid axis becomes a loop over M in chunks of 32 rows.
-// Each chunk stages the dY (32 x br) and X (32 x bc) slabs in shared memory
-// (reads past M, N or K give zero: X is not padded to the block grid), and
-// each thread owns br * bc / 256 outputs in registers. Each output is
-// summed by one thread in a fixed order: no atomics, so two runs give
-// bit-equal gradients. No tensor cores yet.
+// Design: the block-tile core (bsr_tile.cuh) on the tensor cores, with
+// dW(s)' (bc x br) = X[:, c bc : +bc]' dY[:, r br : +br] as the product:
+// m = bc (16-column m-tiles of X), n = br (one n-tile of 8 at br 8, 2 or 4
+// at br 16 / 32, zero-filled n at br < 8), and the depth taken along M.
+// * Slots that share a block-column share their X slab: a thread block
+//   takes a group of 4 / NT slots of one block-column c in the order of the
+//   block-CSC tables (gather_t_*; blockIdx.y is the group), 128 columns of
+//   the block and 32 of its rows (blockIdx.x runs over c, then the
+//   128-column chunks, then the 32-row groups; one of each at (8, 128)).
+//   It stages X[rows, c bc + kc : +128] once per chunk of 64 rows for all
+//   its slots, and each slot's dY slab beside it, by cp.async (16-bit,
+//   aligned) or plain loads (f32 split into three bf16 parts that hold it
+//   exactly, see bsr_tile.cuh) into a ring of two stages.
+// * Warp w owns slot w / NT of the group and m-tiles (w % NT) * 8 / NT ..,
+//   all NT n-tiles: 8 mma tiles, 32 f32 sums a thread. Each chunk's
+//   products start from zero and are added to the sums in f32.
+// * At smollm-360m's widths there are only 8 block-columns, so the wrapper
+//   also splits M into n_split ranges of whole chunks (blockIdx.z) until
+//   the grid fills the card; each range writes its partial sums to a
+//   scratch (n_split, n_slots, br, bc), and a second kernel adds them in
+//   the order z = 0, 1, ... Every output is summed by one thread in a fixed
+//   order: no atomics, so two runs give bit-equal gradients.
+// * The zeros of the invalid slots: written by the thread blocks past the
+//   columns' (the last blockIdx.x, at y = 0) when M is not split, else by
+//   the combine.
 //
 // Built with nvcc into a shared library with a plain C interface; the
 // entry launches on the caller's stream, allocates nothing and returns
@@ -33,79 +52,208 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "bsr_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxPer = 16;          // outputs per thread: br * bc <= 4096
-constexpr int kChunk = 32;           // rows of M per staged slab
+using bsr::H;
+using bsr::kChunk;
+using bsr::kK;
+using bsr::kStr;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int kWarps = 4;
+constexpr int kZeroSlots = 8;         // invalid-slot zeroing: slots per block
 
-template <typename TY, typename TX>
-__global__ void __launch_bounds__(kThreads)
-sddmm_block_grad_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
-                        const int* __restrict__ rows, const int* __restrict__ cols,
-                        const int* __restrict__ valid, float* __restrict__ out,
-                        int M, int N, int K, int br, int bc) {
-  extern __shared__ float smem[];
-  float* sdy = smem;                   // [kChunk][br]
-  float* sx = smem + kChunk * br;      // [kChunk][bc]
-  const int s = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int n_out = br * bc;
-  float* o = out + (size_t)s * n_out;
-  if (!valid[s]) {                     // block-uniform: no barrier skipped
-    for (int e = tid; e < n_out; e += kThreads) o[e] = 0.0f;
-    return;
-  }
-  const int r0 = rows[s] * br, c0 = cols[s] * bc;
-  int rr[kMaxPer], kk[kMaxPer];
-  float acc[kMaxPer];
+__host__ __device__ constexpr int dy_cols(int nt) { return nt == 4 ? 32 : 16; }
+__host__ __device__ constexpr int dy_stride(int nt) { return dy_cols(nt) + 8; }
+
+// Stage chunk q (rows r0 + 64 q ..) into stage q & 1: the X slab at
+// columns c bc + kc .. + 128, and beside it the dY slab of each of the
+// thread block's SPB slots j0 .. (columns nc .. + 32 of the slot's
+// block-row; zero for a slot past the column's count).
+template <int SPB, int NT, int XS, int YS, typename TY, typename TX>
+__device__ __forceinline__ void stage_chunk(int q, const TY* dy, const TX* x,
+                                            const int* t_idx, int c, int jmax_t, int j0,
+                                            int n_j, int r0, int r1, int N, int K, int br,
+                                            int bc, int kc, int nc, bool x_vec, bool y_vec,
+                                            bsr::H* xs, bsr::H* ys) {
+  using bsr::kChunk;
+  using bsr::kStr;
+  constexpr int YSTR = dy_stride(NT);
+  constexpr int xpart = kChunk * kStr, ypart = SPB * kChunk * YSTR;
+  const int m = r0 + q * kChunk;
+  bsr::stage<XS>(xs + (q & 1) * XS * xpart, kStr, xpart, x, K, m, kChunk, r1,
+                 c * bc + kc, min(K, c * bc + bc), bsr::kK / 8, x_vec);
 #pragma unroll
-  for (int i = 0; i < kMaxPer; ++i) {
-    const int e = tid + i * kThreads;
-    rr[i] = e < n_out ? e / bc : 0;
-    kk[i] = e < n_out ? e % bc : 0;
-    acc[i] = 0.0f;
-  }
-  for (int m0 = 0; m0 < M; m0 += kChunk) {
-    __syncthreads();                   // the previous slabs are consumed
-    for (int e = tid; e < kChunk * br; e += kThreads) {
-      const int m = m0 + e / br, n = r0 + e % br;
-      sdy[e] = (m < M && n < N) ? to_f32(dy[(size_t)m * N + n]) : 0.0f;
-    }
-    for (int e = tid; e < kChunk * bc; e += kThreads) {
-      const int m = m0 + e / bc, k = c0 + e % bc;
-      sx[e] = (m < M && k < K) ? to_f32(x[(size_t)m * K + k]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kMaxPer; ++i) {
-      if (tid + i * kThreads < n_out) {
-        float a = acc[i];
-        for (int mm = 0; mm < kChunk; ++mm)
-          a += sdy[mm * br + rr[i]] * sx[mm * bc + kk[i]];
-        acc[i] = a;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxPer; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < n_out) o[e] = acc[i];
+  for (int i = 0; i < SPB; ++i) {
+    const bool live = j0 + i < n_j;
+    const int row = live ? t_idx[(size_t)c * jmax_t + j0 + i] : 0;
+    bsr::stage<YS>(ys + (q & 1) * YS * ypart + i * kChunk * YSTR, YSTR, ypart, dy, N, m,
+                   kChunk, r1, row * br + nc, live ? min(N, row * br + br) : 0,
+                   dy_cols(NT) / 8, y_vec);
   }
 }
 
-template <typename TY, typename TX>
-int launch(const void* dy, const void* x, const int* rows, const int* cols,
-           const int* valid, float* out, int M, int N, int K, int n_slots, int br,
-           int bc, cudaStream_t st) {
-  const size_t smem = (size_t)kChunk * (br + bc) * sizeof(float);
-  sddmm_block_grad_kernel<TY, TX><<<n_slots, kThreads, smem, st>>>(
-      static_cast<const TY*>(dy), static_cast<const TX*>(x), rows, cols, valid, out,
-      M, N, K, br, bc);
+template <int NT, typename TY, typename TX>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+sddmm_tile_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
+                  const int* __restrict__ t_idx, const int* __restrict__ t_blk,
+                  const int* __restrict__ t_nnz, const int* __restrict__ valid,
+                  float* __restrict__ out, int M, int N, int K, int C, int jmax_t, int br,
+                  int bc, int n_slots, int rows_per_split, int x_vec, int y_vec) {
+  constexpr int XS = bsr::parts<TX>(), YS = bsr::parts<TY>();
+  constexpr int SPB = kWarps / NT;                 // slots per thread block
+  constexpr int MT = kK / 16 / NT;                 // m-tiles per warp
+  constexpr int YSTR = dy_stride(NT);
+  constexpr int xpart = kChunk * kStr, xstage = XS * xpart;
+  constexpr int ypart = SPB * kChunk * YSTR, ystage = YS * ypart;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  H* const xs = reinterpret_cast<H*>(smem_raw);    // [2][XS][kChunk][kStr]
+  H* const ys = xs + 2 * xstage;                   // [2][YS][SPB][kChunk][YSTR]
+  const int n_kc = (bc + kK - 1) / kK, n_nc = (br + 31) / 32;
+  const size_t n_out = (size_t)br * bc;
+
+  if ((int)blockIdx.x >= C * n_kc * n_nc) {        // zeros of invalid slots
+    if (blockIdx.y || blockIdx.z) return;
+    const int s0 = (blockIdx.x - C * n_kc * n_nc) * kZeroSlots;
+    for (int s = s0; s < min(s0 + kZeroSlots, n_slots); ++s)
+      if (!valid[s])
+        for (size_t e = threadIdx.x; e < n_out; e += blockDim.x) out[s * n_out + e] = 0.f;
+    return;
+  }
+  const int c = blockIdx.x / (n_kc * n_nc);
+  const int kc = (blockIdx.x / n_nc % n_kc) * kK, nc = (blockIdx.x % n_nc) * 32;
+  const int j0 = blockIdx.y * SPB;
+  const int n_j = t_nnz[c];
+  if (j0 >= n_j) return;                           // block-uniform
+  const int z = blockIdx.z;
+  const int r0 = z * rows_per_split, r1 = min(M, r0 + rows_per_split);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int my_j = j0 + warp / NT, mg = warp % NT;
+  float acc[MT][NT][4], t[MT][NT][4];
+#pragma unroll
+  for (int a = 0; a < MT; ++a)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
+  const int chunks = (r1 - r0 + kChunk - 1) / kChunk;
+  if (chunks > 0)
+    stage_chunk<SPB, NT, XS, YS>(0, dy, x, t_idx, c, jmax_t, j0, n_j, r0, r1, N, K, br, bc,
+                                 kc, nc, x_vec != 0, y_vec != 0, xs, ys);
+  tc::cp_async_commit();
+  for (int q = 0; q < chunks; ++q) {
+    if (q + 1 < chunks)
+      stage_chunk<SPB, NT, XS, YS>(q + 1, dy, x, t_idx, c, jmax_t, j0, n_j, r0, r1, N, K,
+                                   br, bc, kc, nc, x_vec != 0, y_vec != 0, xs, ys);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < MT; ++a)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[a][n][e] = 0.f;
+    bsr::sddmm_chunk<MT, NT, XS, YS>(t, xs + (q & 1) * xstage, xpart, mg * MT * 16,
+                                     ys + (q & 1) * ystage + (warp / NT) * kChunk * YSTR,
+                                     ypart, YSTR);
+#pragma unroll
+    for (int a = 0; a < MT; ++a)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][n][e] += t[a][n][e];
+    __syncthreads();
+  }
+  if (my_j >= n_j) return;
+  const int s = t_blk[(size_t)c * jmax_t + my_j];
+  float* const o = out + ((size_t)z * n_slots + s) * n_out;
+  // thread: X columns (m) lane / 4 and lane / 4 + 8 of each m-tile, dY
+  // columns (n) 8n + 2 (lane % 4) + {0, 1}; dW[s] is (br, bc), so dW[n][m]
+#pragma unroll
+  for (int a = 0; a < MT; ++a)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = kc + (mg * MT + a) * 16 + (lane >> 2) + 8 * h;
+      if (m >= bc) continue;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = nc + n * 8 + (lane & 3) * 2 + e;
+          if (col < br) o[(size_t)col * bc + m] = acc[a][n][2 * h + e];
+        }
+    }
+}
+
+// out[s] = sum over z of part[z][s], z = 0, 1, ... in order, at valid
+// slots; zero at the others.
+__global__ void sddmm_combine_kernel(const float* __restrict__ part,
+                                     const int* __restrict__ valid, float* __restrict__ out,
+                                     int n_slots, int n_out, int n_split) {
+  const size_t total = (size_t)n_slots * n_out;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    if (valid[e / n_out])
+      for (int z = 0; z < n_split; ++z) v += part[(size_t)z * total + e];
+    out[e] = v;
+  }
+}
+
+template <int NT, typename TY, typename TX>
+int launch_t(const void* dy, const void* x, const int* t_idx, const int* t_blk,
+             const int* t_nnz, const int* valid, float* out, float* scratch, int M, int N,
+             int K, int C, int jmax_t, int n_slots, int br, int bc, int n_split, int x_vec,
+             int y_vec, cudaStream_t st) {
+  constexpr int XS = bsr::parts<TX>(), YS = bsr::parts<TY>();
+  constexpr int SPB = kWarps / NT;
+  const size_t smem = sizeof(H) * 2 *
+      ((size_t)XS * kChunk * kStr + (size_t)YS * SPB * kChunk * dy_stride(NT));
+  auto kern = sddmm_tile_kernel<NT, TY, TX>;
+  static size_t opted = 48 * 1024;             // the limit raised so far
+  if (smem > opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted = smem;
+  }
+  const int n_kc = (bc + kK - 1) / kK, n_nc = (br + 31) / 32;
+  const int groups = std::max(1, (jmax_t + SPB - 1) / SPB);
+  // the zeros of the invalid slots: these blocks without a split of M,
+  // the combine with one
+  const int zero_blocks = n_split > 1 ? 0 : (n_slots + kZeroSlots - 1) / kZeroSlots;
+  const int rows = ((M + n_split - 1) / n_split + kChunk - 1) / kChunk * kChunk;
+  const dim3 grid(C * n_kc * n_nc + zero_blocks, groups, n_split);
+  kern<<<grid, kWarps * 32, smem, st>>>(
+      static_cast<const TY*>(dy), static_cast<const TX*>(x), t_idx, t_blk, t_nnz, valid,
+      n_split > 1 ? scratch : out, M, N, K, C, jmax_t, br, bc, n_slots, rows, x_vec, y_vec);
+  if (n_split > 1) {
+    const size_t total = (size_t)n_slots * br * bc;
+    const int blocks = static_cast<int>(std::min<size_t>((total + 255) / 256, 4096));
+    sddmm_combine_kernel<<<blocks, 256, 0, st>>>(scratch, valid, out, n_slots, br * bc,
+                                                 n_split);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TY, typename TX>
+int launch(const void* dy, const void* x, const int* t_idx, const int* t_blk,
+           const int* t_nnz, const int* valid, float* out, float* scratch, int M, int N,
+           int K, int C, int jmax_t, int n_slots, int br, int bc, int n_split, int x_vec,
+           int y_vec, cudaStream_t st) {
+#define SDDMM_ARGS dy, x, t_idx, t_blk, t_nnz, valid, out, scratch, M, N, K, C, jmax_t, \
+                   n_slots, br, bc, n_split, x_vec, y_vec, st
+  switch (bsr::n_tiles(min(br, 32))) {
+    case 1: return launch_t<1, TY, TX>(SDDMM_ARGS);
+    case 2: return launch_t<2, TY, TX>(SDDMM_ARGS);
+    case 4: return launch_t<4, TY, TX>(SDDMM_ARGS);
+  }
+#undef SDDMM_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -113,23 +261,29 @@ int launch(const void* dy, const void* x, const int* rows, const int* cols,
 extern "C" {
 
 // out (n_slots, br, bc) f32 = per-slot dY' X; dy (M, N) and x (M, K) f32 or
-// bf16, rows/cols/valid (n_slots,) int32. br * bc <= 4096 and
-// 32 * (br + bc) * 4 bytes of shared memory <= 48 KB.
+// bf16; t_idx / t_blk (C, jmax_t) and t_nnz (C,) the block-CSC tables,
+// valid (n_slots,) int32; any block (br past 32 in groups of 32 columns of
+// dY, bc in chunks of 128 columns of X). With n_split > 1,
+// scratch holds n_split * n_slots * br * bc floats of partial sums.
+// x_vec / y_vec: the rows of x / dy are 16-byte aligned (see bsr_tile.cuh).
 int bsr_sddmm(const void* dy, int dy_is_bf16, const void* x, int x_is_bf16,
-              const int* rows, const int* cols, const int* valid, float* out, int M,
-              int N, int K, int n_slots, int br, int bc, void* stream) {
-  if (br * bc > kMaxPer * kThreads || (size_t)kChunk * (br + bc) * 4 > 48 * 1024)
+              const int* t_idx, const int* t_blk, const int* t_nnz, const int* valid,
+              float* out, float* scratch, int M, int N, int K, int C, int jmax_t,
+              int n_slots, int br, int bc, int n_split, int x_vec, int y_vec,
+              void* stream) {
+  if (br < 1 || bc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_split < 1 || (n_split > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_slots == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dy_is_bf16) {
-    return x_is_bf16
-        ? launch<__nv_bfloat16, __nv_bfloat16>(dy, x, rows, cols, valid, out, M, N, K, n_slots, br, bc, st)
-        : launch<__nv_bfloat16, float>(dy, x, rows, cols, valid, out, M, N, K, n_slots, br, bc, st);
-  }
-  return x_is_bf16
-      ? launch<float, __nv_bfloat16>(dy, x, rows, cols, valid, out, M, N, K, n_slots, br, bc, st)
-      : launch<float, float>(dy, x, rows, cols, valid, out, M, N, K, n_slots, br, bc, st);
+#define SDDMM_ARGS dy, x, t_idx, t_blk, t_nnz, valid, out, scratch, M, N, K, C, jmax_t, \
+                   n_slots, br, bc, n_split, x_vec, y_vec, st
+  if (dy_is_bf16)
+    return x_is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(SDDMM_ARGS)
+                     : launch<__nv_bfloat16, float>(SDDMM_ARGS);
+  return x_is_bf16 ? launch<float, __nv_bfloat16>(SDDMM_ARGS)
+                   : launch<float, float>(SDDMM_ARGS);
+#undef SDDMM_ARGS
 }
 
 }  // extern "C"

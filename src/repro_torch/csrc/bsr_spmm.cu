@@ -18,29 +18,53 @@
 // block-CSC tables: output block-column c accumulates
 //   dY[:, t_idx[c,j]*br : +br] @ B(t_blk[c,j])   for j < t_nnz[c].
 //
-// Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s fp32 without tensor cores):
-// at decode M = 4 each stored block is used for 4 rows only, so the kernel
-// is bound by bytes: the resident blocks (4 B per entry for BlockCSR, 1 or
-// 0.5 B for the palette codes) plus X plus Y, over 3.35 TB/s. At prefill
-// and in training (M = 512) the f32 FMAs are the larger term. br must be a
-// power of two up to 32.
+// Bound on an H100 SXM (3.35 TB/s HBM; 989 TFLOP/s for bf16 x bf16 on the
+// tensor cores, 67 TFLOP/s f32): at decode (M <= 16) each stored block is
+// used for a few rows only, so the forward is bound by bytes: the resident
+// blocks (the store's element size per entry: 4 B f32, 2 B bf16, 1 or 0.5 B
+// for the palette codes) plus X plus Y. At prefill (M = 256 in the engine)
+// and in training (M = 512) the products are priced at the f32 rate when
+// an operand is f32 and at the bf16 rate when both are bf16; at these
+// sparse widths the bytes stay the larger term at the bf16 rate.
 //
-// Forward design against that bound: one thread block (8 warps) per output block-row
-// o and a tile of rows of X. Each block reads its own nnz[o], idx and blk
-// entries (the TPU's sequential grid axis becomes a loop over j < nnz[o]; a
-// padded gather entry is never read). At decode its warps split the row's
-// resident blocks, so they are fetched in parallel rather than one after
-// another; at large M they split the rows, so each block is read once per
-// 8 * 32 / br rows. A warp reads each block row as one coalesced segment,
-// with no barrier inside the loop, and keeps a (32 / br) x br tile of
-// partial sums in registers. The palette (at most 256 floats) is staged in
-// shared memory and indexed directly: the one-hot matvec of the TPU kernel
-// was a Mosaic workaround for its missing vector gather. Codes are expanded
-// in registers, so the bytes read per block are 4x / 8x fewer than for
-// BlockCSR. Reads of X past K (960 is not a multiple of 128) or past M are
-// masked to zero in the kernel; X is not padded. Every output element is
-// written exactly once, so an empty matrix (all nnz = 0) writes zeros. No
-// tensor cores, TMA or multi-stage pipelining yet.
+// The forward has two kernels, chosen by M in the wrapper (ops.spmm,
+// ops.spmm_palette; a stated threshold, never a fallback):
+//
+// * M > 16, bsr_tile_fwd: the block-tile core (bsr_tile.cuh) on the tensor
+//   cores. One thread block per output block-row o and 32 * n_warps rows
+//   of X (n_warps 4, or 2 for f32 x, whose three parts would not fit two
+//   stages of 128 rows; 1 and 2 warps were not faster even where 4 leave
+//   SMs idle, PERF.md). Each resident block j, 128 columns at a
+//   time, is one job: the X slab (rows x 128, gathered at column
+//   idx[o,j]*bc; X stays in L2) and the block (br x 128, as stored) are
+//   copied by cp.async into a ring of two stages, the next job's copies in
+//   flight while this job's block is converted into bf16 parts and its
+//   products run. The block is staged once per thread block and shared by
+//   its warps; each warp runs its 32 rows (two m-tiles) against it
+//   (mma.sync m16n8k16: n = br, one n-tile at br 8, 2 or 4 at br 16 / 32,
+//   zero-filled n at br < 8). f32 operands (the f32 store, the palette,
+//   f32 X) go as three bf16 parts that hold them exactly, and each block's
+//   products are summed from zero and added to the accumulator in f32 (see
+//   bsr_tile.cuh). Reads past K or M, and columns past the block's bc, are
+//   staged as zero; X is not padded. What holds it back: every resident
+//   block re-reads its X slab from L2, so its time grows with M well
+//   above the bound (PERF.md); sharing slabs between the block-rows of a
+//   column is the next step.
+// * M <= 16, gather_block_matmul_fwd: the decode kernel, an f32 FMA loop
+//   (a 16-row mma tile would be mostly padding, and this kernel beats its
+//   library call at M = 4). One thread block (8 warps) per output
+//   block-row o and a tile of rows of X. Each block reads its own nnz[o],
+//   idx and blk entries (the TPU's sequential grid axis becomes a loop over
+//   j < nnz[o]; a padded gather entry is never read). Its warps split the
+//   row's resident blocks, so they are fetched in parallel; a warp reads
+//   each block row as one coalesced segment, with no barrier inside the
+//   loop, and keeps a (32 / br) x br tile of partial sums in registers.
+//   The palette (at most 256 floats) is staged in shared memory and indexed
+//   directly: the one-hot matvec of the TPU kernel was a Mosaic workaround
+//   for its missing vector gather.
+//
+// Every output element of both is written exactly once, so an empty matrix
+// (all nnz = 0) writes zeros. br must be a power of two up to 32.
 //
 // Backward design: the forward's warp tile is (32 / br) x br outputs, shaped
 // for br <= 32 output columns; a backward output block-column is bc = 128
@@ -51,7 +75,7 @@
 // straight from global memory (a warp reads 32 consecutive floats) and keeps
 // kBwdRows / 2 partial sums in registers. Reads of dY past N or M and writes
 // of dX past K are masked. Every output is written once, in a fixed order:
-// no atomics, deterministic.
+// no atomics, deterministic. No tensor cores yet.
 //
 // Built with nvcc into a shared library with a plain C interface; each entry
 // launches on the caller's stream, allocates nothing and returns
@@ -60,6 +84,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "bsr_tile.cuh"
 
 namespace {
 
@@ -75,6 +103,7 @@ struct FloatBlocks {
   const S* data;
   int br, bc;
   static constexpr int kPalette = 1;   // no palette (1: a legal array size)
+  static constexpr int kUnroll = 4;    // columns a lane has in flight
   __device__ __forceinline__ void stage(float*, int, int) const {}
   __device__ __forceinline__ float load(int s, int r, int k, const float*) const {
     return to_f32(data[((size_t)s * br + r) * bc + k]);
@@ -88,6 +117,8 @@ struct PaletteBlocks {
   const float* palette;
   int br, bc;
   static constexpr int kPalette = 1 << BITS;
+  // at 4 bits the nibble selects of 4 columns in flight spilled at BR 8-16
+  static constexpr int kUnroll = BITS == 4 ? 2 : 4;
   __device__ __forceinline__ void stage(float* pal, int tid, int nt) const {
     for (int i = tid; i < kPalette; i += nt) pal[i] = palette[i];
   }
@@ -142,7 +173,7 @@ gather_block_matmul_fwd(const T* __restrict__ x, Blocks w,
   for (int j = warp / n_rw; j < n_j; j += n_jw) {
     const int c = idx[(size_t)o * jmax + j];
     const int s = blk[(size_t)o * jmax + j];
-#pragma unroll 4
+#pragma unroll Blocks::kUnroll
     for (int k = lane; k < bc; k += 32) {
       const int col = c * bc + k;             // reads past K or M give 0
       float xv[BM];
@@ -177,6 +208,120 @@ gather_block_matmul_fwd(const T* __restrict__ x, Blocks w,
     for (int q = 0; q < n_jw; ++q) v += part[q * n_rw + g][i];
     const int row = (blockIdx.y * n_rw + g) * BM + i / BR, col = o * BR + i % BR;
     if (row < M && col < N) y[(size_t)row * N + col] = v;
+  }
+}
+
+// The tile forward (M > 16). One thread block per output block-row o
+// (blockIdx.x) and 32 * n_warps rows of X (blockIdx.y, then + gridDim.y;
+// n_warps = blockDim.x / 32); warp w owns rows 32w .. 32w + 31 of them (two
+// m-tiles, so each B fragment serves two mma) and all br output columns.
+// Jobs q = (resident block j, 128-column chunk kc) run in order. Job q's X
+// slab and raw block arrive by cp.async into stage q & 1 of the ring; at
+// job q, once every warp is past job q - 1, job q + 1's copies are issued
+// into the other stage, then job q's raw block is converted into its bf16
+// parts, and its products run while job q + 1's copies are in flight.
+constexpr int kTileWarpRows = 32;          // rows of X per warp (2 m-tiles)
+
+template <int XS, typename TX, typename Blocks>
+__device__ __forceinline__ void issue_job(int q, const TX* x, const Blocks& w,
+                                          const int* idx, const int* blk, int o,
+                                          int jmax, int n_kc, int m0, int rows, int M,
+                                          int K, bool x_vec, bsr::H* xs, int xpart,
+                                          uint8_t* wraw, int wraw_stage) {
+  const int j = q / n_kc, kc = (q - j * n_kc) * bsr::kK;
+  const int c = idx[(size_t)o * jmax + j], s = blk[(size_t)o * jmax + j];
+  const int bc = w.bc;
+  bsr::stage<XS>(xs + (q & 1) * XS * xpart, bsr::kStr, xpart, x, K, m0, rows, M,
+                 c * bc + kc, min(K, c * bc + bc), bsr::kK / 8, x_vec);
+  w.raw(wraw + (q & 1) * wraw_stage, s, kc);
+}
+
+template <int NT, typename TX, typename Blocks>
+__global__ void __launch_bounds__(128, 1)
+bsr_tile_fwd(const TX* __restrict__ x, Blocks w, const int* __restrict__ idx,
+             const int* __restrict__ blk, const int* __restrict__ nnz,
+             float* __restrict__ y, int M, int K, int N, int jmax, int x_vec) {
+  using bsr::H;
+  using bsr::kStr;
+  constexpr int MT = kTileWarpRows / 16;           // m-tiles per warp
+  constexpr int XS = bsr::parts<TX>();             // parts of X
+  constexpr int WS = Blocks::PARTS;                // parts of the block
+  constexpr int NR = bsr::n_rows(NT);              // staged block rows
+  constexpr int wpart = NR * kStr;
+  constexpr int wraw_stage = NR * Blocks::kRawRow;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = (blockDim.x >> 5) * kTileWarpRows;
+  const int xpart = rows * kStr;
+  H* const xs = reinterpret_cast<H*>(smem_raw);    // [2][XS][rows][kStr]
+  H* const ws = xs + 2 * XS * xpart;               // [WS][NR][kStr]
+  H* const pal = ws + WS * wpart;                  // palette parts
+  uint8_t* const wraw = reinterpret_cast<uint8_t*>(pal + (Blocks::kHasPalette ? WS * bsr::kPalette : 0));
+
+  const int o = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bc = w.bc, br = w.br;
+  const int n_kc = (bc + bsr::kK - 1) / bsr::kK;
+  const int jobs = nnz[o] * n_kc;
+  w.stage_palette(pal);
+  for (int m0 = blockIdx.y * rows; m0 < M; m0 += gridDim.y * rows) {
+    float acc[MT][NT][4], t[MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = t[m][n][e] = 0.f;
+    if (jobs > 0)
+      issue_job<XS>(0, x, w, idx, blk, o, jmax, n_kc, m0, rows, M, K, x_vec != 0, xs, xpart,
+                    wraw, wraw_stage);
+    tc::cp_async_commit();
+    for (int q = 0; q < jobs; ++q) {
+      tc::cp_async_wait<0>();
+      __syncthreads();                // job q landed; every warp is past job q - 1
+      if (q + 1 < jobs)
+        issue_job<XS>(q + 1, x, w, idx, blk, o, jmax, n_kc, m0, rows, M, K, x_vec != 0, xs,
+                      xpart, wraw, wraw_stage);
+      tc::cp_async_commit();
+      w.convert(ws, wpart, wraw + (q & 1) * wraw_stage, pal);
+      __syncthreads();                // the block's parts are ready
+      const int kcq = q % n_kc;
+      if (kcq == 0) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) t[m][n][e] = 0.f;
+      }
+      bsr::fwd_slab<MT, NT, XS, WS>(t, xs + (q & 1) * XS * xpart + warp * kTileWarpRows * kStr,
+                                    xpart, ws, wpart);
+      if (kcq == n_kc - 1) {          // the block's sum, added in f32
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][n][e] += t[m][n][e];
+      }
+    }
+    __syncthreads();                  // the ring is free for the next rows
+
+    // thread: rows lane / 4 and lane / 4 + 8 of each m-tile, columns
+    // 8n + 2 (lane % 4) + {0, 1}
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + warp * kTileWarpRows + m * 16 + (lane >> 2) + 8 * h;
+        if (row >= M) continue;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n * 8 + (lane & 3) * 2 + e, out = o * br + col;
+            if (col < br && out < N) y[(size_t)row * N + out] = acc[m][n][2 * h + e];
+          }
+      }
   }
 }
 
@@ -264,10 +409,9 @@ void launch_br(const void* x, int x_is_bf16, Blocks w, const int* idx, const int
 }
 
 template <typename Blocks>
-int launch(const void* x, int x_is_bf16, Blocks w, const int* idx, const int* blk,
-           const int* nnz, float* y, int M, int K, int N, int O, int jmax,
-           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+int launch_decode(const void* x, int x_is_bf16, Blocks w, const int* idx, const int* blk,
+                  const int* nnz, float* y, int M, int K, int N, int O, int jmax,
+                  cudaStream_t st) {
   switch (w.br) {
     case 1: launch_br<1>(x, x_is_bf16, w, idx, blk, nnz, y, M, K, N, O, jmax, st); break;
     case 2: launch_br<2>(x, x_is_bf16, w, idx, blk, nnz, y, M, K, N, O, jmax, st); break;
@@ -280,22 +424,86 @@ int launch(const void* x, int x_is_bf16, Blocks w, const int* idx, const int* bl
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NT, typename TX, typename Blocks>
+int launch_tile_t(const void* x, Blocks w, const int* idx, const int* blk, const int* nnz,
+                  float* y, int M, int K, int N, int O, int jmax, int x_vec, cudaStream_t st) {
+  constexpr int XS = bsr::parts<TX>(), NR = bsr::n_rows(NT);
+  // f32 x takes three parts: two stages of 128 rows would not fit
+  constexpr int n_warps = XS > 1 ? 2 : 4;
+  constexpr int rows = kTileWarpRows * n_warps;
+  const size_t smem =
+      sizeof(bsr::H) * ((size_t)2 * XS * rows * bsr::kStr + (size_t)Blocks::PARTS * NR * bsr::kStr +
+                        (Blocks::kHasPalette ? Blocks::PARTS * bsr::kPalette : 0)) +
+      (size_t)2 * NR * Blocks::kRawRow;
+  auto kern = bsr_tile_fwd<NT, TX, Blocks>;
+  static size_t opted = 48 * 1024;             // the limit raised so far
+  if (smem > opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted = smem;
+  }
+  const dim3 grid(O, std::min((M + rows - 1) / rows, 65535));
+  kern<<<grid, 32 * n_warps, smem, st>>>(static_cast<const TX*>(x), w, idx, blk, nnz, y, M,
+                                         K, N, jmax, x_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Blocks>
+int launch_tile(const void* x, int x_is_bf16, Blocks w, const int* idx, const int* blk,
+                const int* nnz, float* y, int M, int K, int N, int O, int jmax, int x_vec,
+                cudaStream_t st) {
+#define BSR_TILE_ARGS x, w, idx, blk, nnz, y, M, K, N, O, jmax, x_vec, st
+  const int nt = bsr::n_tiles(w.br);
+  if (x_is_bf16) {
+    if (nt == 1) return launch_tile_t<1, __nv_bfloat16>(BSR_TILE_ARGS);
+    if (nt == 2) return launch_tile_t<2, __nv_bfloat16>(BSR_TILE_ARGS);
+    if (nt == 4) return launch_tile_t<4, __nv_bfloat16>(BSR_TILE_ARGS);
+  } else {
+    if (nt == 1) return launch_tile_t<1, float>(BSR_TILE_ARGS);
+    if (nt == 2) return launch_tile_t<2, float>(BSR_TILE_ARGS);
+    if (nt == 4) return launch_tile_t<4, float>(BSR_TILE_ARGS);
+  }
+#undef BSR_TILE_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The forward of either variant: tile (M > 16 in the wrappers) or decode.
+template <typename DecodeBlocks, typename TileBlocks>
+int launch_fwd(const void* x, int x_is_bf16, DecodeBlocks wd, TileBlocks wt, const int* idx,
+               const int* blk, const int* nnz, float* y, int M, int K, int N, int O,
+               int jmax, int tile, int x_vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wd.br != 1 && wd.br != 2 && wd.br != 4 && wd.br != 8 && wd.br != 16 && wd.br != 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tile)
+    return launch_tile(x, x_is_bf16, wt, idx, blk, nnz, y, M, K, N, O, jmax, x_vec, st);
+  return launch_decode(x, x_is_bf16, wd, idx, blk, nnz, y, M, K, N, O, jmax, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Y (M, N) f32 = X (M, K) @ W' for BlockCSR W: data (n_slots, br, bc) f32, or
 // bf16 when data_is_bf16, idx/blk (O, jmax) int32, nnz (O,) int32; br one of
-// 1, 2, 4, 8, 16, 32.
+// 1, 2, 4, 8, 16, 32. tile: the tile kernel, else the decode kernel; x_vec /
+// w_vec: the rows of X / of the store are 16-byte aligned (the tile
+// kernel's vector staging).
 int bsr_spmm_fwd(const void* x, int x_is_bf16, const void* data, int data_is_bf16,
                  const int* idx, const int* blk, const int* nnz, float* y, int M, int K,
-                 int N, int O, int jmax, int br, int bc, void* stream) {
+                 int N, int O, int jmax, int br, int bc, int tile, int x_vec, int w_vec,
+                 void* stream) {
   if (data_is_bf16) {
-    FloatBlocks<__nv_bfloat16> w{static_cast<const __nv_bfloat16*>(data), br, bc};
-    return launch(x, x_is_bf16, w, idx, blk, nnz, y, M, K, N, O, jmax, stream);
+    const auto* d = static_cast<const __nv_bfloat16*>(data);
+    return launch_fwd(x, x_is_bf16, FloatBlocks<__nv_bfloat16>{d, br, bc},
+                      bsr::FloatBlocks<__nv_bfloat16>{d, br, bc, w_vec != 0}, idx, blk, nnz,
+                      y, M, K, N, O, jmax, tile, x_vec, stream);
   }
-  FloatBlocks<float> w{static_cast<const float*>(data), br, bc};
-  return launch(x, x_is_bf16, w, idx, blk, nnz, y, M, K, N, O, jmax, stream);
+  const auto* d = static_cast<const float*>(data);
+  return launch_fwd(x, x_is_bf16, FloatBlocks<float>{d, br, bc},
+                    bsr::FloatBlocks<float>{d, br, bc, w_vec != 0}, idx, blk, nnz, y, M, K,
+                    N, O, jmax, tile, x_vec, stream);
 }
 
 // dX (M, K) f32 = dY (M, N) @ W for BlockCSR W (N, K), over the transposed
@@ -321,19 +529,20 @@ int bsr_spmm_t(const void* dy, int dy_is_bf16, const void* data, int data_is_bf1
 }
 
 // As bsr_spmm_fwd for PaletteBCSR W: codes uint8 (n_slots, br, bc) at 8 bits or
-// (n_slots, br, bc/2) at 4 bits, palette (2**bits,) f32.
+// (n_slots, br, bc/2) at 4 bits, palette (2**bits,) f32; w_vec: the codes
+// start on a 16-byte boundary and bc is a multiple of 8.
 int bsr_spmm_palette_fwd(const void* x, int x_is_bf16, const uint8_t* codes,
                          const float* palette, int bits, const int* idx, const int* blk,
                          const int* nnz, float* y, int M, int K, int N, int O, int jmax,
-                         int br, int bc, void* stream) {
-  if (bits == 8) {
-    PaletteBlocks<8> w{codes, palette, br, bc};
-    return launch(x, x_is_bf16, w, idx, blk, nnz, y, M, K, N, O, jmax, stream);
-  }
-  if (bits == 4) {
-    PaletteBlocks<4> w{codes, palette, br, bc};
-    return launch(x, x_is_bf16, w, idx, blk, nnz, y, M, K, N, O, jmax, stream);
-  }
+                         int br, int bc, int tile, int x_vec, int w_vec, void* stream) {
+  if (bits == 8)
+    return launch_fwd(x, x_is_bf16, PaletteBlocks<8>{codes, palette, br, bc},
+                      bsr::PaletteBlocks<8>{codes, palette, br, bc, w_vec != 0}, idx, blk,
+                      nnz, y, M, K, N, O, jmax, tile, x_vec, stream);
+  if (bits == 4)
+    return launch_fwd(x, x_is_bf16, PaletteBlocks<4>{codes, palette, br, bc},
+                      bsr::PaletteBlocks<4>{codes, palette, br, bc, w_vec != 0}, idx, blk,
+                      nnz, y, M, K, N, O, jmax, tile, x_vec, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

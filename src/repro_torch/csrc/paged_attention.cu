@@ -41,8 +41,9 @@
 // skipped (their -1e30 terms would be wiped exactly); otherwise the whole
 // split is walked, junk included. q is split into bf16 (f16 for f16
 // pools) hi and lo parts, so QK^T is q_hi K + q_lo K and PV is P_hi V +
-// P_lo V on the tensor cores; f32 pools also split K and V (three products
-// each) and are staged by plain loads in one stage.
+// P_lo V on the tensor cores; f32 pools split q, K, V and P into three
+// parts each (six products a product; a hi / lo pair drifted past 1e-4
+// over 8,192 keys) and are staged by plain loads in one stage.
 //
 // Built with nvcc into a shared library with a plain C interface; the entry
 // launches on the caller's stream, allocates nothing and returns
@@ -59,8 +60,10 @@ template <typename T, int HD, int RG>
 struct Paged {
   using H = typename attn::Operand<T>::H;
   static constexpr bool kF32 = sizeof(T) == 4;
-  static constexpr int QS = 2, KS = kF32 ? 2 : 1, STAGES = kF32 ? 1 : 2;
-  using Core = attn::Core<H, HD, QS, KS, 2>;
+  // f32 pools: q, K, V and P in three parts (exact), six products each
+  static constexpr int QS = kF32 ? 3 : 2, KS = kF32 ? 3 : 1, PS = kF32 ? 3 : 2;
+  static constexpr int STAGES = kF32 ? 1 : 2;
+  using Core = attn::Core<H, HD, QS, KS, PS>;
   static constexpr int SPLIT = Core::SPLIT, DC = Core::DC;
   static constexpr int THREADS = RG * SPLIT * 32, ROWS = RG * attn::kWarpRows;
   static constexpr int STR = attn::row_stride<HD>(), BK = attn::kv_tile<HD>();
@@ -116,8 +119,9 @@ __global__ void __launch_bounds__(Paged<T, HD, RG>::THREADS, 1) paged_flash_fwd_
     q_range[1] = INT_MIN;
   }
   const int r_last = min(r0 + ROWS, rows) - 1;
-  attn::stage<HD, K::THREADS, ROWS>(q_s, ROWS * STR, q + bk * rows * hd, hd, 0,
-                                    hd, [&](int j) { return r0 + j < rows ? r0 + j : -1; });
+  attn::stage<HD, K::THREADS, ROWS, K::QS>(
+      q_s, ROWS * STR, q + bk * rows * hd, hd, 0, hd,
+      [&](int j) { return r0 + j < rows ? r0 + j : -1; });
   __syncthreads();
   for (int t = r0 / g + threadIdx.x; t <= r_last / g; t += K::THREADS) {
     atomicMin(&q_range[0], pos[t]);
@@ -154,9 +158,9 @@ __global__ void __launch_bounds__(Paged<T, HD, RG>::THREADS, 1) paged_flash_fwd_
       const int page = kp / ps;
       return trow[page] * ps + (kp - page * ps);
     };
-    attn::stage<HD, K::THREADS, BK>(kd, kPart, k_pool, kv * hd, kvh * hd, hd, row);
-    attn::stage<HD, K::THREADS, BK>(kd + KS * kPart, kPart, v_pool, kv * hd,
-                                    kvh * hd, hd, row);
+    attn::stage<HD, K::THREADS, BK, KS>(kd, kPart, k_pool, kv * hd, kvh * hd, hd, row);
+    attn::stage<HD, K::THREADS, BK, KS>(kd + KS * kPart, kPart, v_pool, kv * hd,
+                                        kvh * hd, hd, row);
   };
 
   Core core;

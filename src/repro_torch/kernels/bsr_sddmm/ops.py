@@ -7,7 +7,10 @@ summed over the M rows, at the resident slots only, aligned with
 zero. No dense (N, K) gradient is formed on either path.
 
 For tensors on the CPU it runs the plain version (``ref.py``); for CUDA
-tensors it launches the kernel or raises. There is no fallback.
+tensors it launches the kernel or raises. There is no fallback. The kernel
+groups slots by block-column through the block-CSC tables and, where the
+grid would leave SMs idle, splits M into ``m_split`` ranges whose partial
+sums a second pass adds in a fixed order (bit-equal run to run).
 """
 from __future__ import annotations
 
@@ -18,14 +21,13 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._tiles import aligned16, sm_count
 from repro_torch.kernels.bsr_sddmm import ref
 from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
 
 launches = {"bsr_sddmm": 0}
-_THREADS = 256
-_MAX_OUT = 16 * _THREADS        # (br * bc) the kernel's registers hold
-_CHUNK = 32                     # rows of M staged per pass
-_SMEM = 48 * 1024
+_CHUNK = 64                     # rows of M staged per pass
+_WARPS = 4                      # warps per thread block
 # slot coordinates per gather table, newest last (see ``_coordinates``)
 _COORDS: collections.OrderedDict = collections.OrderedDict()
 _COORDS_MAX = 1024
@@ -40,7 +42,7 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bsr_sddmm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bsr_sddmm.argtypes = [p, i, p, i, p, p, p, p] + [i] * 6 + [p]
+    lib.bsr_sddmm.argtypes = [p, i, p, i, p, p, p, p, p, p] + [i] * 11 + [p]
     lib.bsr_sddmm.restype = i
     return lib
 
@@ -131,6 +133,20 @@ def bsr_weight_grad_ref(x, dy, w: BlockCSR) -> torch.Tensor:
     return out * valid[:, None, None].to(out.dtype)
 
 
+def m_split(m: int, n_slots: int, block, sms: int) -> int:
+    """Ranges of M (whole 64-row chunks) the kernel splits the rows into:
+    doubled while the thread blocks (4 / n-tiles slots each, per 128
+    columns and 32 rows of the block) would leave SMs idle."""
+    br, bc = block
+    n_tiles = 1 if br <= 8 else 2 if br <= 16 else 4
+    blocks = (-(-n_slots // (_WARPS // n_tiles)) * -(-bc // 128)
+              * -(-br // 32))
+    split = 1
+    while 2 * split <= -(-m // _CHUNK) and blocks * split < sms:
+        split *= 2
+    return split
+
+
 def _check(x, dy, w: BlockCSR):
     if x.device.type != "cuda" or dy.device != x.device:
         raise ValueError(f"bsr_sddmm takes x and dy on one CUDA device, got "
@@ -143,11 +159,13 @@ def _check(x, dy, w: BlockCSR):
     for t in (x, dy):
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"bsr_sddmm takes f32 or bf16, got {t.dtype}")
-    br, bc = w.block
-    if br * bc > _MAX_OUT or _CHUNK * (br + bc) * 4 > _SMEM:
-        raise ValueError(f"block {w.block} is too large for bsr_sddmm")
-    if w.gather_idx.device != x.device or not w.gather_idx.is_contiguous():
+    tables = (w.gather_idx, w.gather_t_idx, w.gather_t_blk, w.gather_t_nnz)
+    if any(t.device != x.device or not t.is_contiguous() for t in tables):
         raise ValueError("W's gather tables must be contiguous, on x's device")
+    if any(t.dtype != torch.int32 for t in tables):
+        raise TypeError("gather tables must be int32")
+    if w.gather_t_idx.shape[0] != w.block_grid[1]:
+        raise ValueError("block-CSC table rows do not match the block grid")
     return x.contiguous(), dy.contiguous()
 
 
@@ -158,17 +176,25 @@ def bsr_weight_grad(x, dy, w: BlockCSR) -> torch.Tensor:
     if x.device.type == "cpu":
         return bsr_weight_grad_ref(x, dy, w)
     x, dy = _check(x, dy, w)
-    rows, cols, _, valid = _coordinates(w)
+    valid = _coordinates(w)[3]
     n_slots = w.data.shape[0]
     br, bc = w.block
+    m = x.shape[0]
+    n_cols, jmax_t = w.gather_t_idx.shape
     out = torch.empty((n_slots, br, bc), dtype=torch.float32, device=x.device)
+    split = m_split(m, n_slots, w.block, sm_count(x.device.index or 0))
+    scratch = (torch.empty((split, n_slots, br, bc), dtype=torch.float32,
+                           device=x.device) if split > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().bsr_sddmm(
             dy.data_ptr(), int(dy.dtype == torch.bfloat16), x.data_ptr(),
-            int(x.dtype == torch.bfloat16), rows.data_ptr(), cols.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), x.shape[0], w.shape[0],
-            w.shape[1], n_slots, br, bc, stream)
+            int(x.dtype == torch.bfloat16), w.gather_t_idx.data_ptr(),
+            w.gather_t_blk.data_ptr(), w.gather_t_nnz.data_ptr(),
+            valid.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), m, w.shape[0],
+            w.shape[1], n_cols, jmax_t, n_slots, br, bc, split,
+            aligned16(x, w.shape[1], bc), aligned16(dy, w.shape[0], br), stream)
     if err:
         raise RuntimeError(f"bsr_sddmm launch failed: CUDA error {err}")
     launches["bsr_sddmm"] += 1

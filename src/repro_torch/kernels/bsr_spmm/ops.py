@@ -8,8 +8,14 @@ the kernels upcast it as they read. For a tensor on the CPU they run the
 plain PyTorch version (``ref.py``); for a CUDA tensor they launch the
 hand-written Hopper kernel or raise. There is no fallback between the two.
 
+The forward has two kernels, dispatched by M: the tensor-core tile kernel
+for M > ``DECODE_MAX_M`` (prefill, training) and the decode kernel, an
+f32 FMA loop, for M <= ``DECODE_MAX_M``, where a 16-row mma tile would be
+mostly padding (see ``csrc/bsr_spmm.cu``). A failure of either raises.
+
 ``launches`` counts kernel launches per wrapper, so a run can show that
-its path went through the kernels.
+its path went through the kernels; ``variant_launches`` splits the
+forward's counts by kernel (``spmm`` = ``spmm_decode`` + ``spmm_tile``).
 """
 from __future__ import annotations
 
@@ -19,30 +25,43 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._tiles import aligned16
 from repro_torch.kernels.bsr_spmm import ref
 from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
 
 launches = {"spmm": 0, "spmm_t": 0, "spmm_palette": 0}
-_TILE = 32          # outputs per warp: (32 // br) rows x br columns
+variant_launches = {"spmm_decode": 0, "spmm_tile": 0,
+                    "spmm_palette_decode": 0, "spmm_palette_tile": 0}
+# The forward runs the decode kernel up to this many rows of X (one mma
+# m-tile), the tile kernel above.
+DECODE_MAX_M = 16
+KERNELS = ("decode", "tile")
+_TILE = 32          # decode kernel: outputs per warp, (32 // br) rows x br
 _WARPS = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, variant_launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def pick_kernel(m: int) -> str:
+    """The forward kernel for M rows of X."""
+    return "decode" if m <= DECODE_MAX_M else "tile"
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bsr_spmm")
-    lib.bsr_spmm_fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 7 \
+    lib.bsr_spmm_fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 10 \
         + [_P]
     lib.bsr_spmm_t.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 7 \
         + [_P]
     lib.bsr_spmm_t.restype = _I
     lib.bsr_spmm_palette_fwd.argtypes = (
-        [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P])
+        [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P])
     lib.bsr_spmm_fwd.restype = _I
     lib.bsr_spmm_palette_fwd.restype = _I
     return lib
@@ -84,14 +103,9 @@ def _check(x: torch.Tensor, w, store: torch.Tensor, store_dtypes,
 _FP_STORE = (torch.float32, torch.bfloat16)
 
 
-def _launch_shape(x: torch.Tensor, w):
-    m = x.shape[0]
-    n_out, jmax = w.gather_idx.shape
-    br, bc = w.block
-    rows = _WARPS * _TILE // br          # rows of a thread block at large M
-    if -(-m // rows) > 65535:
-        raise ValueError(f"M = {m} exceeds the kernel's grid ({65535 * rows} rows)")
-    return m, n_out, jmax, br, bc
+def _count(wrapper: str, kernel: str) -> None:
+    launches[wrapper] += 1
+    variant_launches[f"{wrapper}_{kernel}"] += 1
 
 
 def spmm(x: torch.Tensor, w: BlockCSR) -> torch.Tensor:
@@ -99,22 +113,70 @@ def spmm(x: torch.Tensor, w: BlockCSR) -> torch.Tensor:
     block store)."""
     if x.device.type == "cpu":
         return ref.spmm_fwd_ref(x, w)
-    x = _check(x, w, w.data, _FP_STORE, w.block[1])
-    m, n_out, jmax, br, bc = _launch_shape(x, w)
+    return _fwd(x, w)
+
+
+def spmm_palette(x: torch.Tensor, w: PaletteBCSR) -> torch.Tensor:
+    """Y (M, N) f32 = X (M, K) @ dequant(W)' for W (N, K) PaletteBCSR; the
+    palette lookup (and the nibble unpack at 4 bits) happens in the kernel."""
+    if x.device.type == "cpu":
+        return ref.spmm_palette_fwd_ref(x, w)
+    return _fwd(x, w)
+
+
+def _fwd(x: torch.Tensor, w, kernel=None) -> torch.Tensor:
+    """The forward of ``spmm`` (BlockCSR w) or ``spmm_palette`` (PaletteBCSR
+    w) for a CUDA x, on the kernel ``pick_kernel`` chooses by M, or on
+    ``kernel`` ("decode" or "tile"): the GPU tests and chip_smoke.py force
+    each kernel to hold both to the plain version."""
+    palette = isinstance(w, PaletteBCSR)
+    if palette:
+        if w.bits not in (4, 8):
+            raise ValueError(f"palette bits must be 4 or 8, got {w.bits}")
+        x = _check(x, w, w.codes, (torch.uint8,),
+                   w.block[1] // 2 if w.bits == 4 else w.block[1])
+        if w.palette.shape != (1 << w.bits,) \
+                or w.palette.dtype != torch.float32 \
+                or w.palette.device != x.device:
+            raise ValueError(f"palette must be ({1 << w.bits},) f32 on "
+                             f"{x.device}")
+    else:
+        x = _check(x, w, w.data, _FP_STORE, w.block[1])
+    m = x.shape[0]
+    n_out, jmax = w.gather_idx.shape
+    br, bc = w.block
+    kernel = pick_kernel(m) if kernel is None else kernel
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    rows = _WARPS * _TILE // br          # decode kernel: rows of a thread block
+    if kernel == "decode" and -(-m // rows) > 65535:
+        raise ValueError(f"M = {m} exceeds the kernel's grid ({65535 * rows} rows)")
     y = torch.empty((m, w.shape[0]), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
+    shape = (m, x.shape[1], w.shape[0], n_out, jmax, br, bc,
+             int(kernel == "tile"), aligned16(x, x.shape[1], bc))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().bsr_spmm_fwd(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), w.data.data_ptr(),
-            int(w.data.dtype == torch.bfloat16),
-            w.gather_idx.data_ptr(), w.gather_blk.data_ptr(),
-            w.gather_nnz.data_ptr(), y.data_ptr(), m, x.shape[1], w.shape[0],
-            n_out, jmax, br, bc, stream)
+        if palette:
+            err = _lib().bsr_spmm_palette_fwd(
+                x.data_ptr(), int(x.dtype == torch.bfloat16),
+                w.codes.data_ptr(), w.palette.data_ptr(), w.bits,
+                w.gather_idx.data_ptr(), w.gather_blk.data_ptr(),
+                w.gather_nnz.data_ptr(), y.data_ptr(), *shape,
+                int(w.codes.data_ptr() % 16 == 0
+                    and bc * w.bits // 8 % 16 == 0), stream)
+        else:
+            err = _lib().bsr_spmm_fwd(
+                x.data_ptr(), int(x.dtype == torch.bfloat16),
+                w.data.data_ptr(), int(w.data.dtype == torch.bfloat16),
+                w.gather_idx.data_ptr(), w.gather_blk.data_ptr(),
+                w.gather_nnz.data_ptr(), y.data_ptr(), *shape,
+                aligned16(w.data, bc), stream)
+    wrapper = "spmm_palette" if palette else "spmm"
     if err:
-        raise RuntimeError(f"bsr_spmm_fwd launch failed: CUDA error {err}")
-    launches["spmm"] += 1
+        raise RuntimeError(f"bsr_{wrapper}_fwd launch failed: CUDA error {err}")
+    _count(wrapper, kernel)
     return y
 
 
@@ -145,32 +207,3 @@ def spmm_t(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
         raise RuntimeError(f"bsr_spmm_t launch failed: CUDA error {err}")
     launches["spmm_t"] += 1
     return dx
-
-
-def spmm_palette(x: torch.Tensor, w: PaletteBCSR) -> torch.Tensor:
-    """Y (M, N) f32 = X (M, K) @ dequant(W)' for W (N, K) PaletteBCSR; the
-    palette lookup (and the nibble unpack at 4 bits) happens in the kernel."""
-    if x.device.type == "cpu":
-        return ref.spmm_palette_fwd_ref(x, w)
-    if w.bits not in (4, 8):
-        raise ValueError(f"palette bits must be 4 or 8, got {w.bits}")
-    x = _check(x, w, w.codes, (torch.uint8,),
-               w.block[1] // 2 if w.bits == 4 else w.block[1])
-    if w.palette.shape != (1 << w.bits,) \
-            or w.palette.dtype != torch.float32 or w.palette.device != x.device:
-        raise ValueError(f"palette must be ({1 << w.bits},) f32 on {x.device}")
-    m, n_out, jmax, br, bc = _launch_shape(x, w)
-    y = torch.empty((m, w.shape[0]), dtype=torch.float32, device=x.device)
-    if m == 0:
-        return y
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().bsr_spmm_palette_fwd(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), w.codes.data_ptr(),
-            w.palette.data_ptr(), w.bits, w.gather_idx.data_ptr(),
-            w.gather_blk.data_ptr(), w.gather_nnz.data_ptr(), y.data_ptr(),
-            m, x.shape[1], w.shape[0], n_out, jmax, br, bc, stream)
-    if err:
-        raise RuntimeError(f"bsr_spmm_palette_fwd launch failed: CUDA error {err}")
-    launches["spmm_palette"] += 1
-    return y

@@ -9,7 +9,9 @@ entry point.
 For tensors on the CPU ``flash_attention_fwd`` runs the plain version
 (``ref.flash_attention_ref``); for CUDA tensors it launches the
 hand-written kernel or raises. There is no fallback between the two.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches. As the paged wrapper, it takes a head
+dim that is not a multiple of 8 (zero columns) and tensors off a 16-byte
+boundary (an aligned copy); either copies q, k and v whole on every call.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._tiles import tile_hd, tile_ready
 from repro_torch.kernels.flash_attention import ref
 
 launches = {"flash_attention_fwd": 0}
@@ -62,11 +65,9 @@ def _check(q, k, v) -> None:
             raise ValueError(f"a tensor lies on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
-    if hd > 256 or hd % 8:
-        raise ValueError(f"head_dim {hd} must be a multiple of 8, at most 256")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must start on a 16-byte boundary")
-    if _lib().flash_attention_fwd_smem_bytes(hd) > _MAX_SMEM:
+    if hd > 256:
+        raise ValueError(f"head_dim {hd} exceeds the kernel's 256")
+    if _lib().flash_attention_fwd_smem_bytes(tile_hd(hd)) > _MAX_SMEM:
         raise ValueError(f"head_dim {hd} exceeds the kernel's shared memory")
     if bh > 65535:
         raise ValueError(f"grid of {bh} q heads exceeds 65535")
@@ -90,20 +91,22 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention_fwd takes CUDA or CPU tensors, "
                          f"got {q.device}")
     _check(q, k, v)
+    hd_t = tile_hd(hd)
+    q, k, v = (tile_ready(t, hd_t) for t in (q, k, v))
     o = torch.empty_like(q)
     if bh == 0 or s == 0:
-        return o
+        return o[..., :hd]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], bh, s, hd, bh // k.shape[0], int(causal),
+            _DTYPES[q.dtype], bh, s, hd_t, bh // k.shape[0], int(causal),
             0 if window is None else int(window), hd ** -0.5, stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")
     launches["flash_attention_fwd"] += 1
-    return o
+    return o if hd_t == hd else o[..., :hd].contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -14,6 +14,16 @@ For tensors on the CPU it runs the plain version of the kernel
 (``ref.paged_flash_fwd_ref``) and the same combine; for CUDA tensors it
 launches the hand-written kernel or raises. There is no fallback between
 the two. ``launches`` counts kernel launches.
+
+The kernel stages 16-byte chunks; the wrapper takes what the reference
+takes all the same: a head dim that is not a multiple of 8 runs with q and
+the pools padded by zero columns (the tiles' own zero-fill), and q or a
+pool that starts off a 16-byte boundary is copied to an aligned tensor.
+Either is a copy of the whole K and V pools on every call: in the engine,
+of each layer's KV cache on every tick, which doubles the pools' memory
+while it lives. No config of either package has such a head dim, and the
+engine's pools start aligned; one that did would pad the pools' rows
+once, where the engine allocates them (ROADMAP).
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._tiles import tile_hd, tile_ready
 from repro_torch.kernels.paged_attention import ref
 
 launches = {"paged_flash_fwd": 0}
@@ -72,11 +83,9 @@ def _check(q, k_pool, v_pool, page_table, positions) -> None:
             raise ValueError(f"a tensor lies on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
-    if hd > 256 or hd % 8:
-        raise ValueError(f"head_dim {hd} must be a multiple of 8, at most 256")
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
-        raise ValueError("q and the pools must start on a 16-byte boundary")
-    if _lib().paged_flash_fwd_smem_bytes(ps, hd) > _MAX_SMEM:
+    if hd > 256:
+        raise ValueError(f"head_dim {hd} exceeds the kernel's 256")
+    if _lib().paged_flash_fwd_smem_bytes(ps, tile_hd(hd)) > _MAX_SMEM:
         raise ValueError(f"head_dim {hd} exceeds the kernel's shared memory")
     if b * kv > 65535:
         raise ValueError(f"grid ({b} slots x {kv} kv heads) exceeds 65535")
@@ -98,25 +107,27 @@ def paged_flash_fwd(q, k_pool, v_pool, page_table, positions, *,
         raise ValueError(f"paged_flash_fwd takes CUDA or CPU tensors, got "
                          f"{q.device}")
     _check(q, k_pool, v_pool, page_table, positions)
-    acc = torch.empty((b, kv, kv_splits, c, g, hd), dtype=torch.float32,
+    hd_t = tile_hd(hd)
+    q, k_pool, v_pool = (tile_ready(t, hd_t) for t in (q, k_pool, v_pool))
+    acc = torch.empty((b, kv, kv_splits, c, g, hd_t), dtype=torch.float32,
                       device=q.device)
     m = torch.empty((b, kv, kv_splits, c, g), dtype=torch.float32,
                     device=q.device)
     l = torch.empty_like(m)
     if b == 0 or c == 0:
-        return acc, m, l
+        return acc[..., :hd], m, l
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().paged_flash_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             _POOL_DTYPES[k_pool.dtype], page_table.data_ptr(),
             positions.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, kv, c, g, hd, k_pool.shape[1], n_logical, kv_splits,
+            b, kv, c, g, hd_t, k_pool.shape[1], n_logical, kv_splits,
             0 if window is None else int(window), hd ** -0.5, stream)
     if err:
         raise RuntimeError(f"paged_flash_fwd launch failed: CUDA error {err}")
     launches["paged_flash_fwd"] += 1
-    return acc, m, l
+    return (acc if hd_t == hd else acc[..., :hd].contiguous()), m, l
 
 
 def paged_flash_attention(q, k_pool, v_pool, page_table, positions, *,

@@ -12,16 +12,19 @@ Pallas kernels (interpret mode), at the tolerances the card's checks use:
   skipping of kv tiles that no row sees where every row sees a key of its
   split, and the three kinds of key column (a visible key, a masked key of
   a running page at -1e30, a padded slot at -inf); f32 q and P split into
-  bf16 (f16 for f16 pools) hi and lo parts, K and V too for f32 pools, the
-  products of the parts summed in f32 (a product of two 16-bit values is
-  exact in f32, so the emulation is faithful up to the order of the sums);
+  bf16 (f16 for f16 pools) hi and lo parts beside 16-bit pools; for f32
+  pools q, K, V and P in three parts (hi, mid, lo), the products whose
+  part orders sum to at most 2 kept; the products of the parts summed in
+  f32 (a product of two 16-bit values is exact in f32, so the emulation is
+  faithful up to the order of the sums);
 * flash: 64-row q tiles, kv tiles of 64 keys (32 at hd 256) between the
   window floor and the causal frontier, rows past S masked at the ragged
   edge; bf16 / f16 inputs as they are with P rounded once to their type,
   f32 inputs split into three products.
 
 A single bf16 rounding of q misses the paged tolerance, which is why the
-kernel splits it.
+kernel splits it; an 8,192-key walk over f32 pools holds it with the
+three-part split.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -45,17 +48,22 @@ def kv_tile(hd: int) -> int:
 
 
 def split(x, dtype, parts: int) -> list:
-    """f32 ``x`` as ``parts`` 16-bit parts (hi, then lo = x - hi), each
-    returned widened to f32."""
-    hi = x.to(dtype).float()
-    return [hi] if parts == 1 else [hi, (x - hi).to(dtype).float()]
+    """f32 ``x`` as ``parts`` 16-bit parts (each the rounding of what the
+    earlier ones leave: hi, lo; or hi, mid, lo), widened to f32."""
+    out, rest = [], x.float()
+    for _ in range(parts):
+        out.append(rest.to(dtype).float())
+        rest = rest - out[-1]
+    return out
 
 
 def products(a_parts, b_parts, fn):
-    """Sum in f32 of fn(a_i, b_j) over the parts with i + j <= 1 (the
-    kernel drops lo x lo)."""
+    """Sum in f32 of fn(a_i, b_j) over the parts with i + j below the larger
+    part count (the kernel drops lo x lo of two pairs, and the terms past
+    order 2 of two triples)."""
+    order = max(len(a_parts), len(b_parts))
     terms = [fn(a, b) for i, a in enumerate(a_parts)
-             for j, b in enumerate(b_parts) if i + j <= 1]
+             for j, b in enumerate(b_parts) if i + j < order]
     return sum(terms[1:], terms[0])
 
 
@@ -70,10 +78,10 @@ def _online(state, sc, v_parts, op_dtype, p_parts):
 
 
 def emulate_paged(qg, kp, vp, table, positions, *, window=None,
-                  kv_splits=1, q_parts=2):
+                  kv_splits=1, q_parts=None):
     """The paged kernel's arithmetic: partials (acc, m, l) shaped as
     ``ref.paged_flash_fwd_ref``'s. ``q_parts=1`` rounds q once instead of
-    splitting it."""
+    splitting it (2 parts beside 16-bit pools, 3 beside f32 pools)."""
     b, kv, c, g, hd = qg.shape
     ps, n_logical = kp.shape[1], table.shape[1]
     pps = paged_ref.pages_per_split(n_logical, kv_splits)
@@ -81,7 +89,9 @@ def emulate_paged(qg, kp, vp, table, positions, *, window=None,
     tile_rows = 16 if rows <= 16 else 64
     bk = kv_tile(hd)
     op = torch.float16 if kp.dtype == torch.float16 else torch.bfloat16
-    kv_parts = 2 if kp.dtype == torch.float32 else 1
+    kv_parts = 3 if kp.dtype == torch.float32 else 1
+    p_parts = 3 if kp.dtype == torch.float32 else 2
+    q_parts = q_parts or (3 if kp.dtype == torch.float32 else 2)
     scale = hd ** -0.5
     q_rows = qg.reshape(b, kv, rows, hd).float()
     acc = torch.zeros(b, kv, kv_splits, rows, hd)
@@ -126,7 +136,7 @@ def emulate_paged(qg, kp, vp, table, positions, *, window=None,
                         sc = torch.where(vis, sc, NEG_INF)
                         sc = torch.where(real[None], sc, float("-inf"))
                         state = _online(state, sc, split(vt, op, kv_parts),
-                                        op, 2)
+                                        op, p_parts)
                     m[bi, h, s, r], l[bi, h, s, r], acc[bi, h, s, r] = state
     return (acc.reshape(b, kv, kv_splits, c, g, hd),
             m.reshape(b, kv, kv_splits, c, g), l.reshape(b, kv, kv_splits, c, g))
@@ -311,6 +321,23 @@ def test_single_bf16_rounding_of_q_misses_the_tolerance(hd, seed):
 
     assert err(1) > PAGED_ATOL
     assert err(2) <= PAGED_ATOL
+
+
+def test_f32_pools_hold_over_8192_keys():
+    """A decode tick at positions 8,200 and 8,191 over f32 pools, one split
+    (a walk of 129 kv tiles): the three-part partials stay within
+    PAGED_ATOL of the plain version, as the card's F2 case asks."""
+    q, qg, kp, vp, table, positions, valid = _paged_scenario(
+        5, g=3, hd=64, kv=1, c=1, ps=64, p_log=130, starts=(8200, 8191, 0),
+        n_tok=(1, 1, 0), dtype=torch.float32)
+    got = emulate_paged(qg, kp, vp, table, positions)
+    want = paged_ref.paged_flash_fwd_ref(qg, kp, vp, table, positions,
+                                         positions[:, 0])
+    rows = valid[:, None, None, :, None]
+    for name, x, y in zip(("acc", "m", "l"), got, want):
+        mask = (rows[..., None] if x.dim() == 6 else rows).expand_as(x)
+        torch.testing.assert_close(x[mask], y[mask], atol=PAGED_ATOL,
+                                   rtol=PAGED_ATOL, msg=name)
 
 
 # -- flash ---------------------------------------------------------------

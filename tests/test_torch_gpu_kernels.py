@@ -43,7 +43,7 @@ def _block_sparse(rng, n, k, block, density):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k,block", KERNEL_SHAPES)
 @pytest.mark.parametrize("density", [0.0, 0.1, 1.0])
-@pytest.mark.parametrize("m", [1, 4, 33, 512])
+@pytest.mark.parametrize("m", [1, 4, 33, 256, 512])
 def test_cuda_spmm_matches_plain(n, k, block, density, m):
     dev = _cuda()
     rng = np.random.default_rng(11)
@@ -61,7 +61,7 @@ def test_cuda_spmm_matches_plain(n, k, block, density, m):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k,block", KERNEL_SHAPES)
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("m", [4, 512])
+@pytest.mark.parametrize("m", [4, 256, 512])
 def test_cuda_spmm_palette_matches_plain(n, k, block, bits, m):
     dev = _cuda()
     rng = np.random.default_rng(12)
@@ -76,15 +76,77 @@ def test_cuda_spmm_palette_matches_plain(n, k, block, bits, m):
                                rtol=RTOL)
 
 
+# recurrentgemma-9b's width: a 4096 x 4096 projection on (8, 128) blocks
+RG_SHAPE = (4096, 4096, (8, 128))
+
+
 @pytest.mark.gpu
-def test_cuda_spmm_takes_non_contiguous_input():
+@pytest.mark.parametrize("m", [4, 256])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_cuda_spmm_recurrentgemma_width(m, x_dtype, store):
+    dev = _cuda()
+    n, k, block = RG_SHAPE
+    rng = np.random.default_rng(14)
+    w = dense_to_bcsr(_block_sparse(rng, n, k, block, 0.1) / np.sqrt(k),
+                      block).to(dev)
+    w = dataclasses.replace(w, data=w.data.to(store))
+    x = torch.tensor(rng.normal(size=(m, k)), dtype=x_dtype, device=dev)
+    got = ops.spmm(x, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.spmm_fwd_ref(x, w), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 16, 17, 256])
+@pytest.mark.parametrize("kernel", ["decode", "tile"])
+@pytest.mark.parametrize("wrapper", ["spmm", "spmm_palette"])
+def test_cuda_spmm_variants_match_plain_and_count(m, kernel, wrapper):
+    """Both forward kernels at both sides of the M threshold, each held to
+    the plain version; the wrapper's count and the variant's count rise by
+    one, the other variant's not at all; the wrapper itself takes the
+    decode kernel up to ``DECODE_MAX_M`` rows, the tile above."""
+    dev = _cuda()
+    rng = np.random.default_rng(15)
+    w = dense_to_bcsr(_block_sparse(rng, 256, 960, (8, 128), 0.3),
+                      (8, 128)).to(dev)
+    plain = ref.spmm_fwd_ref
+    if wrapper == "spmm_palette":
+        w, plain = quantize_bcsr(w, 8), ref.spmm_palette_fwd_ref
+    x = torch.tensor(rng.normal(size=(m, 960)), dtype=torch.bfloat16, device=dev)
+    other = "tile" if kernel == "decode" else "decode"
+    for forced in (kernel, None):
+        use = kernel if forced else ("decode" if m <= ops.DECODE_MAX_M else "tile")
+        before = dict(ops.variant_launches)
+        total = ops.launches[wrapper]
+        got = (ops._fwd(x, w, forced) if forced
+               else getattr(ops, wrapper)(x, w))
+        torch.cuda.synchronize()
+        assert ops.launches[wrapper] == total + 1
+        assert ops.variant_launches[f"{wrapper}_{use}"] == \
+            before[f"{wrapper}_{use}"] + 1
+        unused = other if forced else ("tile" if use == "decode" else "decode")
+        assert ops.variant_launches[f"{wrapper}_{unused}"] == \
+            before[f"{wrapper}_{unused}"]
+        torch.testing.assert_close(got, plain(x, w), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 128])
+def test_cuda_spmm_takes_non_contiguous_input(m):
     dev = _cuda()
     rng = np.random.default_rng(13)
     w = dense_to_bcsr(_block_sparse(rng, 64, 128, (8, 128), 0.5), (8, 128)).to(dev)
-    x = torch.tensor(rng.normal(size=(128, 8)), dtype=torch.float32, device=dev).T
+    x = torch.tensor(rng.normal(size=(128, m)), dtype=torch.float32, device=dev).T
     assert not x.is_contiguous()
     torch.testing.assert_close(ops.spmm(x, w), ref.spmm_fwd_ref(x, w),
                                atol=ATOL, rtol=RTOL)
+    # a contiguous x that starts off a 16-byte boundary: plain-load staging
+    for dt in (torch.float32, torch.bfloat16):
+        xo = _off_boundary(x.to(dt))
+        torch.testing.assert_close(ops.spmm(xo, w), ref.spmm_fwd_ref(xo, w),
+                                   atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.gpu
@@ -205,21 +267,64 @@ def _off_boundary(t):
 @pytest.mark.parametrize("what", ["hd 36", "q off a 16-byte boundary",
                                   "k pool off a 16-byte boundary"])
 def test_cuda_paged_attention_rejects_what_the_tile_core_does_not_take(what):
-    """The tile core stages 16-byte chunks: head_dim must be a multiple of
-    8 and q and the pools must start on a 16-byte boundary."""
+    """The tile core stages 16-byte chunks, but the wrapper takes what the
+    reference takes: a head_dim that is not a multiple of 8 is padded with
+    zero columns, and q or a pool off a 16-byte boundary is copied to an
+    aligned tensor; the kernel runs once and matches the plain version."""
     dev = _cuda()
-    q, kp, vp, table, positions, _ = _paged_case(
+    q, kp, vp, table, positions, valid = _paged_case(
         dev, g=2, ps=16, dtype=torch.bfloat16, hd=36 if what == "hd 36" else 64)
+    if what.startswith("q "):
+        q = _off_boundary(q)
+    if what.startswith("k pool"):
+        kp = _off_boundary(kp)
     b, c, h, hd = q.shape
     qg = q.reshape(b, c, 2, 2, hd).permute(0, 2, 1, 3, 4).contiguous()
     if what.startswith("q "):
         qg = _off_boundary(qg)
-    if what.startswith("k pool"):
-        kp = _off_boundary(kp)
     before = paged_ops.launches["paged_flash_fwd"]
-    with pytest.raises(ValueError, match="multiple of 8|16-byte boundary"):
-        paged_ops.paged_flash_fwd(qg, kp, vp, table, positions)
-    assert paged_ops.launches["paged_flash_fwd"] == before
+    got = paged_ops.paged_flash_fwd(qg, kp, vp, table, positions)
+    assert paged_ops.launches["paged_flash_fwd"] == before + 1
+    torch.cuda.synchronize()
+    want = paged_ref.paged_flash_fwd_ref(qg, kp, vp, table, positions,
+                                         positions[:, 0])
+    rows = valid[:, None, None, :, None]
+    for name, x, y in zip(("acc", "m", "l"), got, want):
+        assert x.shape == y.shape, name
+        mask = (rows[..., None] if x.dim() == 6 else rows).expand_as(x)
+        torch.testing.assert_close(x[mask], y[mask], atol=1e-4, rtol=1e-4,
+                                   msg=name)
+    _check_paged(q, kp, vp, table, positions, valid, None, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 4])
+def test_cuda_paged_attention_f32_pools_8192_keys(splits):
+    """f32 pools over a walk of 8,192 keys and more (decode at positions
+    8,200 and 8,191): the partials stay within PAGED_ATOL 1e-4 of the plain
+    version (the per-tile f32 sums bound the tensor cores' own
+    accumulation). Prints the worst partial error."""
+    dev = _cuda()
+    case = _paged_case(dev, g=3, ps=16, dtype=torch.float32, c=1, p_log=520,
+                       starts=(8200, 8191, 4000, 0), n_tok=(1, 1, 1, 0))
+    q, kp, vp, table, positions, valid = case
+    b, c, h, hd = q.shape
+    qg = q.reshape(b, c, 2, 3, hd).permute(0, 2, 1, 3, 4).contiguous()
+    got = paged_ops.paged_flash_fwd(qg, kp, vp, table, positions,
+                                    kv_splits=splits)
+    torch.cuda.synchronize()
+    want = paged_ref.paged_flash_fwd_ref(qg, kp, vp, table, positions,
+                                         positions[:, 0], kv_splits=splits)
+    rows = valid[:, None, None, :, None]
+    worst = {}
+    for name, x, y in zip(("acc", "m", "l"), got, want):
+        mask = (rows[..., None] if x.dim() == 6 else rows).expand_as(x)
+        rel = (x[mask] - y[mask]).abs() / (1e-4 + 1e-4 * y[mask].abs())
+        worst[name] = float((x[mask] - y[mask]).abs().max())
+        worst[name + " as atol"] = float(rel.max()) * 1e-4
+    print(f"paged f32 pools, 8,192+ keys, {splits} split(s): worst partial "
+          f"error {worst}")
+    _check_paged(*case, None, splits)
 
 
 @pytest.mark.gpu
@@ -301,8 +406,9 @@ def test_cuda_flash_attention_matches_plain(b, s, h, kv, hd, causal, window,
 @pytest.mark.parametrize("what", ["hd 36", "q off a 16-byte boundary",
                                   "v off a 16-byte boundary"])
 def test_cuda_flash_attention_rejects_what_the_tile_core_does_not_take(what):
-    """As the paged kernel: head_dim a multiple of 8, q, k and v on a
-    16-byte boundary."""
+    """As the paged kernel: a head_dim that is not a multiple of 8 and
+    tensors off a 16-byte boundary are taken (zero columns, an aligned
+    copy); the kernel runs once and matches the plain version."""
     dev = _cuda()
     hd = 36 if what == "hd 36" else 64
     q, k, v = (torch.randn(n, 64, hd, device=dev).to(torch.bfloat16)
@@ -312,9 +418,13 @@ def test_cuda_flash_attention_rejects_what_the_tile_core_does_not_take(what):
     if what.startswith("v "):
         v = _off_boundary(v)
     before = flash_ops.launches["flash_attention_fwd"]
-    with pytest.raises(ValueError, match="multiple of 8|16-byte boundary"):
-        flash_ops.flash_attention_fwd(q, k, v, bq=64, bk=64)
-    assert flash_ops.launches["flash_attention_fwd"] == before
+    got = flash_ops.flash_attention_fwd(q, k, v, bq=64, bk=64)
+    assert flash_ops.launches["flash_attention_fwd"] == before + 1
+    torch.cuda.synchronize()
+    want = flash_ref.flash_attention_ref(q, k, v, causal=True, window=None)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=2 ** -7,
+                               rtol=2 ** -7)
 
 
 @pytest.mark.gpu
@@ -377,7 +487,7 @@ def test_cuda_spmm_t_matches_plain(n, k, block, density, m, pad):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k,block", KERNEL_SHAPES)
-@pytest.mark.parametrize("m", [4, 512])
+@pytest.mark.parametrize("m", [4, 256, 512])
 def test_cuda_spmm_bf16_store_matches_plain(n, k, block, m):
     dev = _cuda()
     rng = np.random.default_rng(22)
@@ -415,6 +525,35 @@ def test_cuda_sddmm_matches_plain(n, k, block, density, m, pad):
         assert (got[~valid] == 0).all()
         if density == 0.0:
             assert (got == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,block,density", [
+    (2048, 256, (8, 128), 0.8),       # ~200 slots share each block-column
+    (4096, 960, (8, 128), 0.5),       # recurrentgemma-like height, smollm width
+    (256, 192, (64, 64), 0.5),        # blocks the forward does not take
+    (96, 200, (12, 40), 0.5),         # br not a power of two, ragged bc
+])
+@pytest.mark.parametrize("m", [64, 512])
+def test_cuda_sddmm_shared_columns_and_other_blocks(n, k, block, density, m):
+    """Slots that share a block-column share one staged X slab; many slots
+    a column, M split across thread blocks, and blocks past (8, 128): the
+    kernel matches the plain version and is bit-equal run to run."""
+    dev = _cuda()
+    rng = np.random.default_rng(25)
+    w = _train_weight(rng, n, k, block, density, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.tensor(rng.normal(size=(m, k)), dtype=dt, device=dev)
+        dy = torch.tensor(rng.normal(size=(m, n)), dtype=dt, device=dev)
+        got = sddmm_ops.bsr_weight_grad(x, dy, w)
+        again = sddmm_ops.bsr_weight_grad(x, dy, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        want = sddmm_ops.bsr_weight_grad_ref(x, dy, w)
+        torch.testing.assert_close(got, want, atol=ATOL * max(1, m / 32),
+                                   rtol=RTOL)
+        _, _, valid = sddmm_ops.slot_coordinates(w)
+        assert (got[~valid] == 0).all()
 
 
 @pytest.mark.gpu
