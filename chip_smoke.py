@@ -16,14 +16,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      yardstick (``torch.matmul`` on the densified weight, which the port
      never calls) and the least time the card could take (at the rate of
      the operands' types and at the bf16 tensor-core rate);
-  4. model: the port's serving CLI drives full-width smollm-360m (32
+  4. decode kernel: the decode kernel at the seven smollm-360m projections
+     and M = 1, 4, 8, 16 (bf16 x; the f32 store, palette-8, palette-4),
+     each call held to its plain version and timed beside its bytes bound
+     and the floor of one launch (an empty kernel timed the same way);
+  5. model: the port's serving CLI drives full-width smollm-360m (32
      layers, random weights from seed 0, pruned at 0.9 on (8, 128) blocks)
      from BlockCSR, palette-8 and palette-4 weights, with every kernel's
      launch counter read around each run; then prefill logits (bf16, each
      kernel call also held to its plain version on its inputs) and greedy
      generate tokens (f32) of the kernel path are held against the plain
      path (``sparse_backend="ref"``) on the same card;
-  5. paged kernel: the paged flash-decode kernel at smollm-360m's width
+  6. paged kernel: the paged flash-decode kernel at smollm-360m's width
      (5 kv heads of 64, g = 3, page 16) on a decode tick, a prefill tick
      and a 4096-token decode, kv_splits 1 and 4, bf16 and f32 pools,
      against its plain versions (the split partials and the gathered
@@ -32,7 +36,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      calls) and the least time the card could take; and a check that a
      kernel-path ``attention.paged_attention`` never allocates the
      gathered context;
-  6. engine: the serving CLI's ``--engine`` path serves 16 requests of
+  7. engine: the serving CLI's ``--engine`` path serves 16 requests of
      16-200 prompt tokens and 32 new tokens each through full-width
      smollm-360m from BlockCSR, palette-8 and palette-4 weights, with the
      launch counters read around each run (32 paged launches and 7 x 32
@@ -41,27 +45,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and a prefix-cache run (shared prefix, copy-on-write boundary page)
      against the same requests without the cache; and where a bf16 engine
      run's time goes over a window of its ticks (torch.profiler);
-  7. train kernels: the training kernels at smollm-360m's seven
+  8. train kernels: the training kernels at smollm-360m's seven
      projection shapes (M = 512 rows, (8, 128) blocks at 0.9 block
      sparsity, a bf16 block store, f32 and bf16 activations): ``spmm_t``
      (dx) and the SDDMM (dw) against their plain versions, timed beside
      them, a library yardstick (dense ``dY @ W`` and ``dY' X``) and the
      least time the card could take; ``prox_adam`` at every leaf size of
      the debias tree, against its plain version and its bytes bound;
-  8. train (the training main path): ``launch/train --sparse`` trains
+  9. train (the training main path): ``launch/train --sparse`` trains
      full-width smollm-360m in bf16 on the card: SpC steps from a planted
      step-1 checkpoint whose (8, 128) blocks have a spread of norms,
      compression, and debias steps on the compressed params, with the
      launch counters of spmm, spmm_t, SDDMM and prox_adam read around the
      run; then ``launch/serve --sparse --ckpt-dir`` serves the trained
      checkpoint;
-  9. train, kernel path vs plain path: in f32, the trained compressed
+ 10. train, kernel path vs plain path: in f32, the trained compressed
      params go through debias steps with ``sparse_backend`` 'auto' (the
      spmm, spmm_t and SDDMM kernels) and 'ref' (their plain versions):
      losses, the first step's dx and dw per layer and the final block
      stores agree; a profile of one bf16 debias step gives the device busy
      share and the top kernels;
- 10. recurrentgemma-9b at full width and depth (38 layers: 12 x (RG-LRU,
+ 11. recurrentgemma-9b at full width and depth (38 layers: 12 x (RG-LRU,
      RG-LRU, local attention) + 2 RG-LRU; d 4096, 16 heads of 256 on one kv
      head, window 2048, vocab 256,000): seed-0 weights pruned at 0.9 on
      (8, 128) blocks, built into BlockCSR on the card part by part
@@ -80,17 +84,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      paged kernel at that shape against its plain versions; in f32 at a
      cut depth (one super-block and the two remainder layers), the kernel
      path against the plain path and the engine against ``generate``;
- 11. rwkv6-3b at full width and depth (32 layers, d 2560, 40 WKV heads of
+ 12. rwkv6-3b at full width and depth (32 layers, d 2560, 40 WKV heads of
      64, d_ff 8960, vocab 65,536), the same runs and checks, on a mix whose
      prompts RWKV's 64-token WKV chunks take;
- 12. flash attention: the kernel against its plain version at
+ 13. flash attention: the kernel against its plain version at
      recurrentgemma-9b's local attention (S 4096, window 2048) and
      smollm-360m's prefill, causal, not causal and windowed, bf16 and
      f32, timed beside the plain version, ``scaled_dot_product_attention``
      (which the port never calls) and its bound; then its entry point
      ``ops.flash_attention`` (no model code calls it: the serving and
      training phases launch it 0 times);
- 13. the kernel table (one JSON line: the decode spmm kernels at
+ 14. the kernel table (one JSON line: the decode spmm kernels at
      smollm-360m's decode, the tile kernels at recurrentgemma-9b's prefill
      tick (palette-4 at smollm-360m's M = 512), the paged kernel at a
      decode and a prefill tick of the smollm-360m mix and at
@@ -199,6 +203,7 @@ REPLACES = {"bsr_spmm": "src/repro/kernels/bsr_spmm/bsr_spmm.py:163",
 MATRICES = [("attn.wq", (960, 960)), ("attn.wk", (320, 960)),
             ("mlp.wi", (2560, 960)), ("mlp.wo", (960, 2560))]
 M_VALUES = (4, 512)                   # decode rows (batch 4), a prefill
+DECODE_M = (1, 4, 8, 16)              # the decode kernel's rows, per projection
 TABLE_SHAPE = ("mlp.wi", 4, torch.bfloat16)   # the row of the kernel table
 
 # Paged attention at smollm-360m's width. Kernel vs plain: the same f32
@@ -542,6 +547,45 @@ def kernel_phase(dev) -> dict:
     return rows
 
 
+def launch_floor_ms() -> float:
+    """The floor of one launch: an empty kernel (``torch.cuda._sleep(0)``)
+    timed by ``time_ms`` as the kernels are."""
+    return time_ms(lambda: torch.cuda._sleep(0), [()] * 4)
+
+
+def decode_phase(dev) -> None:
+    """The decode kernel (kernel-table rows 1 and 2) at the seven
+    smollm-360m projections and M = 1, 4, 8, 16 (bf16 x, as the serving
+    path gives it; the f32 store, palette-8 and palette-4), each call held
+    to the plain version at KERNEL_ATOL / KERNEL_RTOL and timed beside the
+    bound (bytes over HBM_BYTES_PER_S) and the floor of one launch."""
+    phase("decode kernel at the seven projections")
+    rng = np.random.default_rng(2)
+    floor = launch_floor_ms()
+    log(f"launch floor (an empty kernel, timed the same way): {floor:.6f} ms")
+    for mat_name, (n, k) in TRAIN_MATRICES:
+        w = _weight(rng, n, k, dev)
+        for name, bits, wq in (("bsr_spmm", None, w),
+                               ("bsr_spmm_palette8", 8, quantize_bcsr(w, 8)),
+                               ("bsr_spmm_palette4", 4, quantize_bcsr(w, 4))):
+            plain = ref.spmm_fwd_ref if bits is None else ref.spmm_palette_fwd_ref
+            store = wq.data if bits is None else wq.codes
+            for m_rows in DECODE_M:
+                x = torch.randn(m_rows, k, device=dev).to(torch.bfloat16)
+                fn = functools.partial(ops._fwd, kernel="decode")
+                err = _check(f"{name} decode {mat_name} M={m_rows}", fn(x, wq),
+                             plain(x, wq), KERNEL_ATOL, KERNEL_RTOL)
+                sets = copies(lambda: (x.clone(), wq.map(torch.clone)),
+                              tensor_bytes(x, store))
+                row = {"kernel": name, "matrix": mat_name, "shape": [n, k],
+                       "M": m_rows, "store": "float32" if bits is None
+                       else f"palette{bits}", "max_abs_err": err,
+                       "ms": time_ms(fn, sets), "launch_floor_ms": floor}
+                row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                               _bound(m_rows, wq, x.dtype, bits)[:4]))
+                log(json.dumps(row))
+
+
 def _serve_run(extra: list) -> dict:
     """One run of the serving CLI on the card; the launch counters are set
     to 0 just before it and read just after."""
@@ -586,6 +630,11 @@ def _device_rows(prof) -> tuple:
     return sum(r[0] for r in rows) / 1e3, rows
 
 
+# the spmm kernels of csrc/bsr_spmm.cu by the names the profiler shows
+SPMM_KERNELS = (("decode spmm", "decode_fwd"), ("tile spmm", "bsr_tile_fwd"),
+                ("spmm_t", "bsr_tile_bwd"))
+
+
 def _log_profile(what: str, wall: float, dev_s: float, rows, top: int,
                  n_tokens: int = 0) -> None:
     rate = f" ({n_tokens / wall:.1f} tok/s)" if n_tokens else ""
@@ -593,6 +642,12 @@ def _log_profile(what: str, wall: float, dev_s: float, rows, top: int,
         f"{dev_s:.4f} s, device busy share {dev_s / wall:.3f}")
     for ms, calls, key in rows[:top]:
         log(f"  {ms:9.3f} ms {calls:6d} calls  {key[:70]}")
+    sums = []
+    for label, name in SPMM_KERNELS:
+        hits = [(ms, calls) for ms, calls, key in rows if name in key]
+        sums.append(f"{label} {sum(h[0] for h in hits):.3f} ms over "
+                    f"{sum(h[1] for h in hits)} calls")
+    log(f"  spmm kernels: {', '.join(sums)}")
 
 
 def _profile(what: str, n_tokens: int, run, top: int) -> None:
@@ -2175,6 +2230,7 @@ def main() -> int:
     flash_ops.reset_launches()
     table = []
     rows = kernel_phase(dev)
+    decode_phase(dev)
     launches, formats = model_phase(dev)
     paged_rows = paged_kernel_phase(dev)
     paged_launches = engine_phase(dev, formats)

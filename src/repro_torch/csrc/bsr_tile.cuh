@@ -1,8 +1,9 @@
 // The block-tile core shared by the forward BCSR / palette spmm
-// (bsr_spmm.cu, bsr_tile_fwd) and the SDDMM (bsr_sddmm.cu): sums of
-// products of gathered slabs of a dense operand and (br, bc) blocks, on
-// the tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums; the
-// primitives of tc_ops.cuh).
+// (bsr_spmm.cu, bsr_tile_fwd), the backward dX = dY W (bsr_spmm.cu,
+// bsr_tile_bwd) and the SDDMM (bsr_sddmm.cu): sums of products of
+// gathered slabs of a dense operand and (br, bc) blocks, on the tensor
+// cores (mma.sync m16n8k16, bf16 operands, f32 sums; the primitives of
+// tc_ops.cuh).
 //
 // * Slabs are staged into shared memory 128 columns (kK) at a time, rows
 //   padded by 16 bytes (kStr): the 8 rows an ldmatrix reads fall into 8
@@ -16,7 +17,7 @@
 //   cp.async (16 bytes a thread, zero-fill for the edges) where its rows
 //   are 16-byte aligned, else by plain loads.
 // * The plain versions compute in f32 and the kernels are held to them at
-//   2e-4 + 1e-4 relative (the forward; the SDDMM at 2e-4 max(1, M / 32)),
+//   2e-4 + 1e-4 relative (the spmm; the SDDMM at 2e-4 max(1, M / 32)),
 //   on sums of hundreds to thousands of O(1) products. One bf16 rounding
 //   of an f32 operand is 2^-9 relative, and a hi + lo pair 2^-18 with lo x
 //   lo dropped: both miss that (tests/test_torch_bsr_tiles.py; the first
@@ -30,8 +31,9 @@
 //   zero.
 // * The tensor cores' own accumulation does not round to nearest, and
 //   drifts over long walks (the paged kernel's 4,096-key partials, PERF.md).
-//   So each block (forward) or each chunk of 64 rows of M (SDDMM) is summed
-//   from zero and then added to the accumulator in f32.
+//   So each block (forward), each job of 128 summed entries (backward) or
+//   each chunk of 64 rows of M (SDDMM) is summed from zero and then added
+//   to the accumulator in f32.
 
 #pragma once
 
@@ -70,6 +72,60 @@ __device__ __forceinline__ void split8(const float (&v)[8], H* d, int part) {
 #pragma unroll
   for (int q = 0; q < PARTS; ++q)
     *reinterpret_cast<uint4*>(d + q * part) = make_uint4(p[0][q], p[1][q], p[2][q], p[3][q]);
+}
+
+// Stage rows [0, rows) x chunks [0, cpr) of 8 elements of a gathered
+// operand (spmm_t's dY and block slabs; a contiguous operand takes stage
+// below: the tile forward ran slower staging through this function, PERF.md)
+// into dst (row stride str): at(r, k) is the address of element k of row
+// r, or nullptr where the operand has none (staged as zero). A 16-bit T is
+// staged as it is (PARTS 1), by cp.async where vec says that each chunk is
+// 16-byte aligned and that at(r, k) of its first element speaks for all
+// eight (the caller commits and waits; src is any valid address, never
+// read); an f32 T as its PARTS bf16 parts, part p at dst + p * part, by
+// 16-byte loads where vec says the same of each half of four.
+template <int PARTS, typename T, typename At>
+__device__ __forceinline__ void stage_at(H* dst, int str, int part, int rows, int cpr,
+                                         bool vec, const T* src, At at) {
+  for (int i = threadIdx.x; i < rows * cpr; i += blockDim.x) {
+    const int r = i / cpr, k = (i - r * cpr) * 8;
+    H* d = dst + r * str + k;
+    if constexpr (sizeof(T) == 2) {
+      static_assert(PARTS == 1, "a 16-bit operand is staged as it is");
+      if (vec) {
+        const T* s = at(r, k);
+        tc::cp_async16(d, s ? s : src, s != nullptr);
+      } else {
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const T* a = at(r, k + 2 * e);
+          const T* b = at(r, k + 2 * e + 1);
+          w[e] = (a ? __bfloat16_as_ushort(*a) : 0u) |
+                 ((b ? (uint32_t)__bfloat16_as_ushort(*b) : 0u) << 16);
+        }
+        *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    } else {
+      float v[8];
+      if (vec) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const T* s = at(r, k + 4 * h);
+          float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (s) q = __ldg(reinterpret_cast<const float4*>(s));
+          v[4 * h] = q.x; v[4 * h + 1] = q.y; v[4 * h + 2] = q.z; v[4 * h + 3] = q.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const T* s = at(r, k + e);
+          v[e] = s ? to_f32(*s) : 0.f;
+        }
+      }
+      split8<PARTS>(v, d, part);
+    }
+  }
 }
 
 // Stage rows [0, rows) x chunks [0, cpr) of 8 columns of the row-major
@@ -273,6 +329,42 @@ __device__ __forceinline__ void fwd_slab(float (&t)[MT][NT][4], const H* x, int 
           for (int i = 0; i + j < order(XS, WS) && i < XS; ++i) {
             F::mma(t[m][2 * np], a[m][i], b[0], b[1]);
             if (2 * np + 1 < NT) F::mma(t[m][2 * np + 1], a[m][i], b[2], b[3]);
+          }
+      }
+  }
+}
+
+// spmm_t: t (MT m-tiles of 16 rows x NT n-tiles of 8 columns, NT even) +=
+// the warp's 16 MT rows of a staged dY slab (XS parts, part p at a + p *
+// apart, row stride kStr; its columns are the summed axis) times a staged
+// block slab (WS parts at b + p * bpart, row stride bs; its rows are the
+// summed axis, its columns the output's) as stored, over ksteps k-steps of
+// 16. A fragments come from dY rows (ldmatrix), B fragments from block
+// rows by the transposing ldmatrix; each B fragment serves the MT m-tiles.
+template <int MT, int NT, int XS, int WS>
+__device__ __forceinline__ void bwd_slab(float (&t)[MT][NT][4], const H* a, int apart,
+                                         const H* b, int bpart, int bs, int ksteps) {
+  const int lane = threadIdx.x & 31;
+  const H* ya = a + (lane & 15) * kStr + (lane >> 4) * 8;
+  const H* wb = b + ((lane & 7) + ((lane >> 3) & 1) * 8) * bs + (lane >> 4) * 8;
+  for (int kk = 0; kk < ksteps; ++kk) {
+    uint32_t af[MT][XS][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < XS; ++i) tc::ldsm_x4(af[m][i], ya + i * apart + m * 16 * kStr + kk * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np)
+#pragma unroll
+      for (int j = 0; j < WS; ++j) {
+        uint32_t bf[4];
+        tc::ldsm_x4_t(bf, wb + j * bpart + kk * 16 * bs + np * 16);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int i = 0; i + j < order(XS, WS) && i < XS; ++i) {
+            F::mma(t[m][2 * np], af[m][i], bf[0], bf[1]);
+            F::mma(t[m][2 * np + 1], af[m][i], bf[2], bf[3]);
           }
       }
   }

@@ -10,8 +10,11 @@ hand-written Hopper kernel or raise. There is no fallback between the two.
 
 The forward has two kernels, dispatched by M: the tensor-core tile kernel
 for M > ``DECODE_MAX_M`` (prefill, training) and the decode kernel, an
-f32 FMA loop, for M <= ``DECODE_MAX_M``, where a 16-row mma tile would be
-mostly padding (see ``csrc/bsr_spmm.cu``). A failure of either raises.
+f32 FMA kernel with a warp per resident block, for M <= ``DECODE_MAX_M``,
+where a 16-row mma tile would be mostly padding. ``spmm_t`` runs on the
+tensor-core tile core too (see ``csrc/bsr_spmm.cu``). A failure of any
+raises. Each kernel's shape of grid is chosen here from shapes alone
+(``decode_warps``, ``spmm_t_rows``), with no wait for the device.
 
 ``launches`` counts kernel launches per wrapper, so a run can show that
 its path went through the kernels; ``variant_launches`` splits the
@@ -25,7 +28,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._tiles import aligned16
+from repro_torch.kernels._tiles import aligned16, sm_count
 from repro_torch.kernels.bsr_spmm import ref
 from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
 
@@ -36,8 +39,8 @@ variant_launches = {"spmm_decode": 0, "spmm_tile": 0,
 # m-tile), the tile kernel above.
 DECODE_MAX_M = 16
 KERNELS = ("decode", "tile")
-_TILE = 32          # decode kernel: outputs per warp, (32 // br) rows x br
-_WARPS = 8
+_DECODE_WARPS = 8   # decode kernel: warps per thread block
+_T_COLS = 64        # spmm_t: columns of dX per thread block
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -52,16 +55,36 @@ def pick_kernel(m: int) -> str:
     return "decode" if m <= DECODE_MAX_M else "tile"
 
 
+def decode_warps(jmax: int) -> int:
+    """Warps the decode kernel gives each block-row: one per resident block
+    up to the gather tables' width ``jmax`` (a power of two, at most the 8
+    warps of a thread block, which then takes 8 / that many block-rows)."""
+    warps = 1
+    while warps < min(jmax, _DECODE_WARPS):
+        warps *= 2
+    return warps
+
+
+def spmm_t_rows(m: int, k_blocks: int, bc: int, sms: int, dy_f32: bool) -> int:
+    """Rows of dX a ``spmm_t`` thread block takes (64 or 32). f32 dY: 32,
+    whose three parts make a slab of 64 rows cost more than SMs left idle
+    (PERF.md); bf16 dY: 64 where the thread blocks of 64 rows (one per 64
+    columns of each of the ``k_blocks`` block-columns) fill the SMs, else
+    32."""
+    blocks = k_blocks * -(-bc // _T_COLS)
+    return 64 if not dy_f32 and blocks * -(-m // 64) >= sms else 32
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bsr_spmm")
-    lib.bsr_spmm_fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 10 \
+    lib.bsr_spmm_fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 11 \
         + [_P]
-    lib.bsr_spmm_t.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 7 \
+    lib.bsr_spmm_t.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 10 \
         + [_P]
     lib.bsr_spmm_t.restype = _I
     lib.bsr_spmm_palette_fwd.argtypes = (
-        [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P])
+        [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 11 + [_P])
     lib.bsr_spmm_fwd.restype = _I
     lib.bsr_spmm_palette_fwd.restype = _I
     return lib
@@ -92,8 +115,8 @@ def _check(x: torch.Tensor, w, store: torch.Tensor, store_dtypes,
     if any(t.dtype != torch.int32 for t in tables):
         raise TypeError("gather tables must be int32")
     if w.block[0] not in (1, 2, 4, 8, 16, 32):
-        raise ValueError(f"block rows must be a power of two up to {_TILE}, "
-                         f"got {w.block}")
+        raise ValueError(f"block rows must be a power of two up to 32, got "
+                         f"{w.block}")
     if w.gather_idx.shape[0] != w.block_grid[0] \
             or w.gather_t_idx.shape[0] != w.block_grid[1]:
         raise ValueError("gather table rows do not match the block grid")
@@ -148,14 +171,12 @@ def _fwd(x: torch.Tensor, w, kernel=None) -> torch.Tensor:
     kernel = pick_kernel(m) if kernel is None else kernel
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-    rows = _WARPS * _TILE // br          # decode kernel: rows of a thread block
-    if kernel == "decode" and -(-m // rows) > 65535:
-        raise ValueError(f"M = {m} exceeds the kernel's grid ({65535 * rows} rows)")
     y = torch.empty((m, w.shape[0]), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
     shape = (m, x.shape[1], w.shape[0], n_out, jmax, br, bc,
-             int(kernel == "tile"), aligned16(x, x.shape[1], bc))
+             int(kernel == "tile"), decode_warps(jmax),
+             aligned16(x, x.shape[1], bc))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if palette:
@@ -190,8 +211,8 @@ def spmm_t(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
     m = dy.shape[0]
     n_cols, jmax_t = w.gather_t_idx.shape
     br, bc = w.block
-    if -(-m // 32) > 65535:
-        raise ValueError(f"M = {m} exceeds the backward kernel's grid")
+    rows = spmm_t_rows(m, n_cols, bc, sm_count(dy.device.index or 0),
+                       dy.dtype == torch.float32)
     dx = torch.empty((m, w.shape[1]), dtype=torch.float32, device=dy.device)
     if m == 0:
         return dx
@@ -202,6 +223,7 @@ def spmm_t(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
             int(w.data.dtype == torch.bfloat16), w.gather_t_idx.data_ptr(),
             w.gather_t_blk.data_ptr(), w.gather_t_nnz.data_ptr(),
             dx.data_ptr(), m, w.shape[0], w.shape[1], n_cols, jmax_t, br, bc,
+            rows // 32, aligned16(dy, w.shape[0], br), aligned16(w.data, bc),
             stream)
     if err:
         raise RuntimeError(f"bsr_spmm_t launch failed: CUDA error {err}")

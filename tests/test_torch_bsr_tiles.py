@@ -16,15 +16,25 @@ tolerances the card's checks use:
   from zero and added to the accumulator in f32;
 * SDDMM: per slot, chunks of 64 rows of M with the same parts, each
   chunk's sum added in f32, over the M ranges the wrapper splits M into,
-  combined in order.
+  combined in order;
+* spmm_t: per block-column, jobs of 128 / br resident blocks (their dY
+  slabs side by side, their blocks stacked: two blocks a k-step of 16 at br
+  8, 16 / br below), with the same parts, each job's sum added in f32; the
+  wrapper splits only the outputs (64-column chunks, row tiles), so no
+  output has partial sums to combine;
+* the decode kernel (f32 FMAs, no tensor cores): each warp's resident
+  blocks in turn, lane l's columns 4 l .. 4 l + 3 (+ 128 ...), the lanes'
+  partial sums added by the transposing butterfly, then the block-row's
+  warps in order.
 
 A product of two bf16 values is exact in f32, so the emulation is faithful
 up to the order of the f32 sums. A single bf16 rounding of the f32 store
 misses the tolerance, and so does a hi + lo pair (the first chip run of
 that scheme missed it too), which is why the kernels split an f32 operand
 into three parts. The wrappers' shape rules (which forward kernel by M,
-the SDDMM's split of M, the tile kernels' 16-byte staging and padded head
-dims) are plain Python and are checked here too.
+the SDDMM's split of M, spmm_t's row tiles, the decode kernel's warps per
+block-row, the tile kernels' 16-byte staging and padded head dims) are
+plain Python and are checked here too.
 """
 import dataclasses
 
@@ -136,6 +146,72 @@ def emulate_sddmm(x: torch.Tensor, dy: torch.Tensor, w, sms=SMS):
         total = total + out[z]
     _, _, valid = sddmm.slot_coordinates(w)
     return total * valid[:, None, None]
+
+
+def emulate_spmm_t(dy: torch.Tensor, w) -> torch.Tensor:
+    """spmm_t's arithmetic: dX (M, K) f32. Each block-column's resident
+    blocks in jobs of 128 / br (128 summed entries): the job's dY slabs side
+    by side times its blocks stacked, over the parts, summed from zero and
+    added to the column's accumulator in f32."""
+    m = dy.shape[0]
+    br, bc = w.block
+    r_grid, c_grid = w.block_grid
+    yp = torch.nn.functional.pad(dy, (0, r_grid * br - dy.shape[1]))
+    y_parts = split(yp)
+    per_job = K_SLAB // br
+    out = torch.zeros(m, c_grid * bc)
+    for c in range(c_grid):
+        n_j = int(w.gather_t_nnz[c])
+        acc = torch.zeros(m, bc)
+        for j0 in range(0, n_j, per_job):
+            js = range(j0, min(j0 + per_job, n_j))
+            rows = [int(w.gather_t_idx[c, j]) for j in js]
+            a = [torch.cat([p[:, r * br:(r + 1) * br] for r in rows], 1)
+                 for p in y_parts]
+            b = split(torch.cat([w.data[int(w.gather_t_blk[c, j])] for j in js]))
+            acc = acc + products(a, b, lambda u, v: u @ v)
+        out[:, c * bc:(c + 1) * bc] = acc
+    return out[:, :w.shape[1]]
+
+
+LANES = 32
+
+
+def emulate_decode(x: torch.Tensor, w) -> torch.Tensor:
+    """The decode kernel's order of sums: Y (M, N) f32. Warp jw of a
+    block-row takes its resident blocks j = jw, jw + J, ... in turn (J =
+    ``ops.decode_warps(jmax)``); lane l adds x * w over its columns 4 l ..
+    4 l + 3 (then + 128, ...); the butterfly adds lanes l and l + 16, then
+    l + 8, ... down to one; the warps are added in the order of jw."""
+    m, k = x.shape
+    br, bc = w.block
+    r_grid, c_grid = w.block_grid
+    data = _blocks(w).float()
+    xp = torch.nn.functional.pad(x.float(), (0, c_grid * bc - k))
+    n_warps = ops.decode_warps(w.gather_idx.shape[1])
+    lane = torch.arange(LANES)
+    y = torch.zeros(m, r_grid * br)
+    for o in range(r_grid):
+        total = None
+        for jw in range(n_warps):
+            part = torch.zeros(LANES, m, br)
+            for j in range(jw, int(w.gather_nnz[o]), n_warps):
+                c, s = int(w.gather_idx[o, j]), int(w.gather_blk[o, j])
+                for col0 in range(0, bc, 4 * LANES):
+                    for e in range(4):
+                        cols = col0 + 4 * lane + e
+                        ok = cols < bc
+                        cols = cols.clamp(max=bc - 1)
+                        xv = xp[:, c * bc + cols] * ok      # (m, lanes)
+                        wv = data[s][:, cols] * ok          # (br, lanes)
+                        part = part + torch.einsum("ml,rl->lmr", xv, wv)
+            h = LANES // 2
+            while h >= 1:
+                part = part[:h] + part[h:2 * h]
+                h //= 2
+            total = part[0] if total is None else total + part[0]
+        y[:, o * br:(o + 1) * br] = total
+    return y[:, :w.shape[0]]
 
 
 SHAPES = [(64, 128, (8, 128)), (96, 160, (32, 32)), (128, 320, (16, 64)),
@@ -267,3 +343,82 @@ def test_tile_ready_pads_and_aligns(hd, offset):
 ])
 def test_sddmm_m_split(m, n_slots, block, want):
     assert sddmm.m_split(m, n_slots, block, SMS) == want
+
+
+@pytest.mark.parametrize("n,k,block", SHAPES)
+@pytest.mark.parametrize("m", [1, 33, 512])
+@pytest.mark.parametrize("dy_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_spmm_t_emulation_matches_plain_and_pallas(n, k, block, m, dy_dtype,
+                                                   store):
+    rng = np.random.default_rng(35)
+    w, wd = _weight(rng, n, k, block, 0.5, store)
+    dyj = jnp.asarray(rng.normal(size=(m, n)), getattr(jnp, dy_dtype))
+    dy = torch.tensor(np.asarray(dyj.astype(jnp.float32))).to(
+        getattr(torch, dy_dtype))
+    got = emulate_spmm_t(dy, w)
+    torch.testing.assert_close(got, ref.spmm_bwd_ref(dy, w), atol=ATOL,
+                               rtol=RTOL)
+    if store == torch.float32:
+        want = np.asarray(jops.spmm_t(dyj, jax_dense_to_bcsr(wd, block),
+                                      bm=min(m, 128) if m % 8 == 0 else 8,
+                                      interpret=True), np.float32)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("n,k,block", SHAPES)
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_decode_emulation_matches_plain_and_pallas(n, k, block, m, x_dtype,
+                                                   store):
+    rng = np.random.default_rng(36)
+    w, wd = _weight(rng, n, k, block, 0.5, store)
+    xj = jnp.asarray(rng.normal(size=(m, k)), getattr(jnp, x_dtype))
+    x = torch.tensor(np.asarray(xj.astype(jnp.float32))).to(
+        getattr(torch, x_dtype))
+    got = emulate_decode(x, w)
+    torch.testing.assert_close(got, ref.spmm_fwd_ref(x, w), atol=ATOL,
+                               rtol=RTOL)
+    if store == torch.float32:
+        want = np.asarray(jops.spmm(xj, jax_dense_to_bcsr(wd, block), bm=8),
+                          np.float32)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("n,k,block", SHAPES[:3])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [1, 16])
+def test_decode_palette_emulation_matches_plain_and_pallas(n, k, block, bits,
+                                                           m):
+    rng = np.random.default_rng(37)
+    jq = jax_quantize_bcsr(jax_dense_to_bcsr(
+        block_sparse(rng, n, k, block, 0.5), block), bits)
+    q = port_format(jq)
+    xj = jnp.asarray(rng.normal(size=(m, k)), jnp.bfloat16)
+    x = torch.tensor(np.asarray(xj.astype(jnp.float32))).to(torch.bfloat16)
+    got = emulate_decode(x, q)
+    torch.testing.assert_close(got, ref.spmm_palette_fwd_ref(x, q),
+                               atol=ATOL, rtol=RTOL)
+    want = np.asarray(jops.spmm_palette(xj, jq, bm=8), np.float32)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("m,k_blocks,bc,dy_f32,want", [
+    (512, 8, 128, False, 32),   # smollm-360m K = 960: 128 blocks of 64 rows
+    (512, 20, 128, False, 64),  # K = 2560: 320 blocks of 64 rows
+    (512, 32, 128, False, 64),  # recurrentgemma-9b's K = 4096
+    (4096, 8, 128, False, 64),  # many rows
+    (1, 20, 128, False, 32),    # one row
+    (512, 8, 256, False, 64),   # two 64-column chunks a block-column more
+    (512, 20, 128, True, 32),   # f32 dY: always 32
+    (4096, 8, 128, True, 32),
+])
+def test_spmm_t_rows(m, k_blocks, bc, dy_f32, want):
+    assert ops.spmm_t_rows(m, k_blocks, bc, SMS, dy_f32) == want
+
+
+@pytest.mark.parametrize("jmax,want", [(0, 1), (1, 1), (2, 2), (3, 4),
+                                       (4, 4), (5, 8), (8, 8), (20, 8)])
+def test_decode_warps(jmax, want):
+    assert ops.decode_warps(jmax) == want

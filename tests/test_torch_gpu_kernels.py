@@ -467,7 +467,7 @@ def _train_weight(rng, n, k, block, density, dev, pad=False):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k,block", KERNEL_SHAPES)
 @pytest.mark.parametrize("density", [0.0, 0.1, 1.0])
-@pytest.mark.parametrize("m", [1, 33, 512])
+@pytest.mark.parametrize("m", [1, 17, 33, 512, 1000])
 @pytest.mark.parametrize("pad", [False, True])
 def test_cuda_spmm_t_matches_plain(n, k, block, density, m, pad):
     dev = _cuda()
@@ -480,9 +480,95 @@ def test_cuda_spmm_t_matches_plain(n, k, block, density, m, pad):
         before = ops.launches["spmm_t"]
         got = ops.spmm_t(dy, wd)
         assert ops.launches["spmm_t"] == before + 1
+        again = ops.spmm_t(dy, wd)
         torch.cuda.synchronize()
+        assert torch.equal(got, again)            # deterministic: bit-equal
         torch.testing.assert_close(got, ref.spmm_bwd_ref(dy, wd), atol=ATOL,
                                    rtol=RTOL)
+
+
+def _with_empty_column(rng, n, k, block, density, col):
+    """``_block_sparse`` with block-column ``col`` all zero."""
+    wd = _block_sparse(rng, n, k, block, density)
+    wd[:, col * block[1]:(col + 1) * block[1]] = 0.0
+    return wd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("br", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("bc", [32, 128])
+@pytest.mark.parametrize("m", [1, 17, 33, 512, 1000])
+def test_cuda_spmm_t_every_block_height(br, bc, m):
+    """Every br the tables take (16 / br blocks a k-step below 16, two
+    k-steps a block at 32), ragged N and K, an all-empty block-column
+    (zeros), dY on and off a 16-byte boundary, every pairing of f32 and
+    bf16 dY and store; two calls give equal bits."""
+    dev = _cuda()
+    rng = np.random.default_rng(26)
+    n, k = 37 * br + br // 2 + 1, 5 * bc - 3
+    wd = _with_empty_column(rng, n, k, (br, bc), 0.4, 2)
+    w = dense_to_bcsr(wd, (br, bc)).to(dev)
+    assert int(w.gather_t_nnz[2]) == 0
+    for dt in (torch.float32, torch.bfloat16):
+        for st in (torch.float32, torch.bfloat16):
+            wt = dataclasses.replace(w, data=w.data.to(st))
+            dy = torch.tensor(rng.normal(size=(m, n)), dtype=dt, device=dev)
+            for d in (dy, _off_boundary(dy)):
+                got = ops.spmm_t(d, wt)
+                again = ops.spmm_t(d, wt)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again)
+                torch.testing.assert_close(got, ref.spmm_bwd_ref(d, wt),
+                                           atol=ATOL, rtol=RTOL)
+                assert (got[:, 2 * bc:3 * bc] == 0).all()
+
+
+def _decode_weight(rng, br, bc, dev, pad):
+    """(7 br + 3, 5 bc - 3) at 0.3 block density with block-row 1 fully
+    resident (a row of jmax blocks), ragged N and K; with ``pad``, the
+    tables are padded past every row's count."""
+    n, k = 7 * br + 3, 5 * bc - 3
+    wd = _block_sparse(rng, n, k, (br, bc), 0.3)
+    wd[br:2 * br] = rng.normal(size=(br, k))
+    w = dense_to_bcsr(wd, (br, bc))
+    if pad:
+        w = pad_bcsr(w, w.data.shape[0] + 3, w.gather_idx.shape[1] + 2,
+                     w.gather_t_idx.shape[1] + 1)
+    return w.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("br", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("bc", [64, 128])
+@pytest.mark.parametrize("store", ["float32", "bfloat16", "palette8",
+                                   "palette4"])
+@pytest.mark.parametrize("pad", [False, True])
+def test_cuda_decode_kernel_matches_plain(br, bc, store, pad):
+    """The decode kernel, forced through ``ops._fwd(x, w, "decode")``, at
+    every M from 1 to 16 and every br, for each store, f32 and bf16 x, a
+    block-row of jmax resident blocks beside rows with fewer, and padded
+    tables (nnz < jmax everywhere)."""
+    dev = _cuda()
+    rng = np.random.default_rng(27)
+    w = _decode_weight(rng, br, bc, dev, pad)
+    if store.startswith("palette"):
+        w, plain = quantize_bcsr(w, int(store[7:])), ref.spmm_palette_fwd_ref
+    else:
+        w = dataclasses.replace(w, data=w.data.to(getattr(torch, store)))
+        plain = ref.spmm_fwd_ref
+    assert int(w.gather_nnz[1]) == w.block_grid[1]
+    key = ("spmm_palette" if store.startswith("palette") else "spmm") \
+        + "_decode"
+    for m in range(1, ops.DECODE_MAX_M + 1):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.tensor(rng.normal(size=(m, w.shape[1])), dtype=dt,
+                             device=dev)
+            before = ops.variant_launches[key]
+            got = ops._fwd(x, w, "decode")
+            torch.cuda.synchronize()
+            assert ops.variant_launches[key] == before + 1
+            torch.testing.assert_close(got, plain(x, w), atol=ATOL,
+                                       rtol=RTOL)
 
 
 @pytest.mark.gpu
