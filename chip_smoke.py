@@ -87,20 +87,40 @@ Phases, in order; any failure ends the run with a non-zero exit:
  12. rwkv6-3b at full width and depth (32 layers, d 2560, 40 WKV heads of
      64, d_ff 8960, vocab 65,536), the same runs and checks, on a mix whose
      prompts RWKV's 64-token WKV chunks take;
- 13. flash attention: the kernel against its plain version at
+ 13. olmoe-1b-7b at full width and depth (16 layers, d 2048, 16 heads of
+     128 with QK-norm, 64 experts of d_ff 1024, top-8, vocab 50,304): seed-0
+     weights pruned at 0.9 on (8, 128) blocks, built on the card by
+     ``init_compressed``, then palette-8 and palette-4; the expert launch
+     (``ops.spmm_experts`` / ``spmm_palette_experts``: the forward kernels
+     with the expert on the grid's z axis) on layer 0's three projections
+     at M = 1, 8, 16 (decode kernel) and 40 (tile kernel), bf16 and f32 x,
+     each held to its plain version and timed beside it, ``torch.bmm`` on
+     the densified weight, 64 single-expert launches and its bound;
+     ``generate`` and the engine through the serving CLI from BlockCSR,
+     palette-8 and palette-4 in bf16, with 113 spmm launches a forward (4
+     attention projections and 3 expert launches per layer, and the head)
+     and none per expert; where the engine's time goes; the bf16 prefill
+     at full depth held call by call, and in its logits unless a router
+     flipped at a near tie (flips counted and printed); in f32 at 2 of 16
+     layers, the kernel path against the plain path (each store) and the
+     engine (capacity factor E / top_k, so nothing is dropped; BlockCSR)
+     against ``generate``; and a ``launch/serve --profile`` run whose
+     counts equal the launch counters;
+ 14. flash attention: the kernel against its plain version at
      recurrentgemma-9b's local attention (S 4096, window 2048) and
      smollm-360m's prefill, causal, not causal and windowed, bf16 and
      f32, timed beside the plain version, ``scaled_dot_product_attention``
      (which the port never calls) and its bound; then its entry point
      ``ops.flash_attention`` (no model code calls it: the serving and
      training phases launch it 0 times);
- 14. the kernel table (one JSON line: the decode spmm kernels at
+ 15. the kernel table (one JSON line: the decode spmm kernels at
      smollm-360m's decode, the tile kernels at recurrentgemma-9b's prefill
      tick (palette-4 at smollm-360m's M = 512), the paged kernel at a
      decode and a prefill tick of the smollm-360m mix and at
      recurrentgemma-9b's prefill tick, flash at recurrentgemma-9b's local
-     attention and smollm-360m's prefill, with the spmm and paged bounds
-     also at the bf16 tensor-core rate) and the contract line.
+     attention and smollm-360m's prefill, the expert launch at
+     olmoe-1b-7b's ewi (rows 1e / 2e), with the spmm and paged bounds also
+     at the bf16 tensor-core rate) and the contract line.
 
 It imports nothing of JAX or of the JAX package, and exits with an error
 when no CUDA device is visible.
@@ -187,9 +207,9 @@ BF16_LOGITS_RTOL = 2e-2
 F32_LOGITS_ATOL = 1e-4
 EXPECTED_LAUNCHES = 7 * 32 * GEN      # 7 projections x 32 layers x 32 passes
 # The f32 agreement checks of the smollm-360m serving and engine phases run
-# the first 8 of the 32 layers (the same weights), to keep the whole script
+# the first 4 of the 32 layers (the same weights), to keep the whole script
 # within its time limit; the bf16 main-path runs keep all 32.
-SMOLLM_F32_LAYERS = 8
+SMOLLM_F32_LAYERS = 4
 
 # (name in the kernel table, wrapper, palette bits, x dtype)
 VARIANTS = [("bsr_spmm", "spmm", None, torch.float32),
@@ -345,10 +365,26 @@ HYBRID_PAGED_CASES = [
 # ticks each), and the tokens of their profiled generate
 RECURRENT_PROFILE_TICKS = (20, 30)
 PROFILE_GEN = 8
-# rwkv6-3b's f32 checks run its first 8 of 32 layers (the same weights),
+# rwkv6-3b's f32 checks run its first 4 of 32 layers (the same weights),
 # to keep the whole script within its time limit
-RWKV_F32_LAYERS = 8
+RWKV_F32_LAYERS = 4
 
+# The MoE family at full width and depth: olmoe-1b-7b (16 layers, d 2048,
+# 16 heads of 128 with QK-norm, 64 experts of d_ff 1024, top-8, vocab
+# 50,304). The expert launch's rows: a generate decode step's capacity (8
+# rows an expert at batch 4), an engine decode tick's (8), a prefill's of
+# 64 tokens (16), and an engine prefill tick's of 256 tokens (40: the tile
+# kernel); M = 1 for a single sequence.
+MOE = "olmoe-1b-7b"
+MOE_M = (1, 8, 16, 40)
+MOE_TIMED_CALLS = 30
+MOE_YARDSTICK_CALLS = 5
+# its f32 checks run the first 2 of 16 layers (the same weights)
+MOE_F32_LAYERS = 2
+# a router near tie: the k-th minus the (k+1)-th prob of some token below
+# this, in some layer; past it a greedy token may differ in f32
+MOE_ROUTER_TIE = 1e-5
+MOE_PROFILE_TICKS = (20, 26)
 
 def log(*a):
     print(*a, flush=True)
@@ -586,10 +622,11 @@ def decode_phase(dev) -> None:
                 log(json.dumps(row))
 
 
-def _serve_run(extra: list) -> dict:
+def _serve_run(extra: list, arch: str = ARCH, lines=None) -> dict:
     """One run of the serving CLI on the card; the launch counters are set
-    to 0 just before it and read just after."""
-    argv = ["--arch", ARCH, "--sparse", "--batch", str(BATCH), "--prompt-len",
+    to 0 just before it and read just after. ``lines``, where given, takes
+    the run's printed lines."""
+    argv = ["--arch", arch, "--sparse", "--batch", str(BATCH), "--prompt-len",
             str(PROMPT), "--gen", str(GEN), "--block", *map(str, BLOCK),
             "--sparsity", str(SPARSITY), *extra]
     buf = io.StringIO()
@@ -601,6 +638,8 @@ def _serve_run(extra: list) -> dict:
     torch.cuda.synchronize()
     counts = {**ops.launches, **ops.variant_launches}
     text = buf.getvalue().splitlines()
+    if lines is not None:
+        lines.extend(text)
     log(f"serve {' '.join(argv)}")
     for line in text[-3:]:
         log(f"  {line}")
@@ -619,10 +658,14 @@ def _top2_margin(logits: torch.Tensor) -> float:
 
 def _device_rows(prof) -> tuple:
     """(device kernel seconds, [(device ms, calls, kernel name)] largest
-    first) of a finished ``torch.profiler`` run."""
+    first) of a finished ``torch.profiler`` run. The runs record device
+    activity only: no row here reads the host's operator events, and they
+    would add several events a kernel to the trace the profiler parses."""
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.key.startswith("ProfilerStep")]   # step annotations
+    if not rows:
+        raise SystemExit("the profiler recorded no device kernel")
     attr = ("self_device_time_total" if rows and hasattr(rows[0], "self_device_time_total")
             else "self_cuda_time_total")
     rows = sorted(((getattr(e, attr) / 1e3, e.count, e.key) for e in rows),
@@ -659,7 +702,7 @@ def _profile(what: str, n_tokens: int, run, top: int) -> None:
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     dev_s, rows = _device_rows(prof)
@@ -678,8 +721,13 @@ def _held_calls(what: str):
     def held(x, w, backend):
         y = forward(x, w, backend)
         if backend == "cuda":
-            plain = (ref.spmm_palette_fwd_ref if isinstance(w, PaletteBCSR)
-                     else ref.spmm_fwd_ref)
+            palette = isinstance(w, PaletteBCSR)
+            if x.dim() == 3:                 # an MoE layer's experts
+                plain = (ref.spmm_palette_experts_fwd_ref if palette
+                         else ref.spmm_experts_fwd_ref)
+            else:
+                plain = (ref.spmm_palette_fwd_ref if palette
+                         else ref.spmm_fwd_ref)
             want = plain(x, w)
             errs.append(float((y - want).abs().max()))
             if not torch.allclose(y, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
@@ -1025,10 +1073,11 @@ def _prefix_requests(vocab: int) -> list:
             max_new_tokens=ENGINE_GEN) for i in range(8)]
 
 
-def _engine_cli_run(tag: str, extra: list, req_file: Path) -> tuple:
+def _engine_cli_run(tag: str, extra: list, req_file: Path,
+                    arch: str = ARCH) -> tuple:
     """One run of ``launch/serve --engine`` on the card; the launch counters
     are set to 0 just before it and read just after."""
-    argv = ["--arch", ARCH, "--sparse", "--engine", "--requests",
+    argv = ["--arch", arch, "--sparse", "--engine", "--requests",
             str(req_file), *ENGINE_FLAGS, "--block", *map(str, BLOCK),
             "--sparsity", str(SPARSITY), "--metrics-out",
             str(OUT_DIR / f"engine_{tag}.prom"), "--trace-out",
@@ -1041,7 +1090,7 @@ def _engine_cli_run(tag: str, extra: list, req_file: Path) -> tuple:
     with contextlib.redirect_stdout(buf):
         out = serve.main(argv)
     torch.cuda.synchronize()
-    counts = {**ops.launches, **paged_ops.launches}
+    counts = {**ops.launches, **ops.variant_launches, **paged_ops.launches}
     peak = torch.cuda.max_memory_allocated()
     log(f"serve {' '.join(argv)}")
     for line in buf.getvalue().splitlines()[-6:]:
@@ -1136,7 +1185,7 @@ def _profile_engine_window(make_engine, requests, ticks=PROFILE_TICKS) -> None:
     ends = {}
     drive(make_engine(), lambda i: ends.__setitem__(i, time.perf_counter()))
     wall = ends[last - 1] - ends[first - 1]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=first - 1, warmup=1,
                                    active=last - first, repeat=1)) as prof:
         drive(make_engine(), lambda i: prof.step())
@@ -2092,6 +2141,473 @@ def recurrent_phase(dev, arch: str, prompts, f32_layers=None,
     return result
 
 
+# ---------------------------------------------------------------------------
+# the MoE family: olmoe-1b-7b at full width and depth
+# ---------------------------------------------------------------------------
+
+def _moe_bound(m_rows, w, x_dtype, bits):
+    """``_bound`` for one expert launch: E problems of m_rows rows each,
+    every expert's X and Y and palette, the resident blocks of all E
+    slices, each multiplied by its own expert's rows only."""
+    e = w.gather_nnz.shape[0]
+    br, bc = w.block
+    n_res = int(w.gather_nnz.sum())
+    k_in, n_out = w.shape[1], w.shape[0]
+    x_b = e * m_rows * k_in * torch.finfo(x_dtype).bits // 8
+    blk_b = n_res * br * bc * (w.data.element_size() if bits is None
+                               else bits / 8)
+    pal_b = 0 if bits is None else e * (1 << bits) * 4
+    tab_b = n_res * 8 + w.gather_nnz.numel() * 4
+    nbytes = x_b + blk_b + pal_b + tab_b + e * m_rows * n_out * 4
+    flops = 2 * m_rows * n_res * br * bc
+    store = w.data.dtype if bits is None else torch.float32
+    bound = _ops_bound(nbytes, flops, x_dtype, store)
+    return bound + (_ops_bound(nbytes, flops, torch.bfloat16)[0],)
+
+
+def _moe_expert_rows(dev, formats) -> dict:
+    """Kernel-table rows 1e / 2e: the expert launch (``spmm_experts`` /
+    ``spmm_palette_experts``, the kernel M picks) on layer 0's ewi, ewg and
+    ewo, all 64 experts, at M = 1, 8, 16 (decode kernel) and 40 (the
+    engine's prefill tick's capacity; tile kernel), bf16 and f32 x, the
+    f32 store, palette-8 and palette-4. Each call held to the plain
+    version (a loop of the single-matrix plain version over the experts)
+    at KERNEL_ATOL / KERNEL_RTOL, and timed beside the plain version,
+    ``torch.bmm`` of x in f32 on the densified f32 (E, K, N) weight (the
+    library yardstick, which the port never calls), for information the
+    bf16 ``torch.bmm`` on the bf16-rounded weight, the same work as 64
+    single-expert launches, and the bound. The two ``torch.bmm`` take x
+    in f32 and in bf16 whatever its dtype, so they are timed once for
+    each M and serve both x dtypes' rows."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = {}
+    for fmt, bits in (("bcsr", None), ("pal8", 8), ("pal4", 4)):
+        name = {"bcsr": "bsr_spmm_experts", "pal8": "bsr_spmm_palette8_experts",
+                "pal4": "bsr_spmm_palette4_experts"}[fmt]
+        plain = (ref.spmm_experts_fwd_ref if bits is None
+                 else ref.spmm_palette_experts_fwd_ref)
+        for proj in ("ewi", "ewg", "ewo"):
+            w = formats[fmt].sparse["layers"]["b0_attn"]["moe"][proj][0]
+            store = w.data if bits is None else w.codes
+            e, (n, k) = w.gather_nnz.shape[0], w.shape
+            wd = torch.stack([bcsr_to_dense(w[i] if bits is None
+                                            else w[i].dequantize())[:n, :k]
+                              for i in range(e)]).float().transpose(1, 2) \
+                .contiguous()                          # (E, K, N)
+            wb = wd.bfloat16()
+            for m_rows in MOE_M:
+                bmm_ms = {}
+                for x_dtype in (torch.bfloat16, torch.float32):
+                    x = torch.randn(e, m_rows, k, generator=gen,
+                                    device=dev).to(x_dtype)
+                    kern = ops.pick_kernel(m_rows)
+                    fn = functools.partial(ops._fwd, kernel=kern)
+                    err = _check(f"{name} {proj} M={m_rows} {x_dtype}",
+                                 fn(x, w), plain(x, w), KERNEL_ATOL,
+                                 KERNEL_RTOL)
+                    sets = copies(lambda: (x.clone(), w.map(torch.clone)),
+                                  tensor_bytes(x, store))
+
+                    def singles(xs, ws, kern=kern):
+                        for i in range(xs.shape[0]):
+                            ops._fwd(xs[i], ws[i], kern)
+
+                    if not bmm_ms:
+                        bmm_ms = {
+                            "library_ms": time_ms(torch.bmm, copies(
+                                lambda: (x.float(), wd.clone()),
+                                tensor_bytes(x, wd) * 2), MOE_YARDSTICK_CALLS),
+                            "bf16_matmul_ms": time_ms(torch.bmm, copies(
+                                lambda: (x.bfloat16(), wb.clone()),
+                                tensor_bytes(x, wb) * 2), MOE_YARDSTICK_CALLS)}
+
+                    row = {"kernel": name, "matrix": f"layer 0 moe.{proj}",
+                           "experts": e, "matrix_shape": [n, k], "M": m_rows,
+                           "x": str(x_dtype).split(".")[-1], "picked": kern,
+                           "resident_blocks": int(w.gather_nnz.sum()),
+                           "max_abs_err": err, "atol": KERNEL_ATOL,
+                           "rtol": KERNEL_RTOL,
+                           "ms": time_ms(fn, sets, MOE_TIMED_CALLS),
+                           "singles_ms": time_ms(singles, sets,
+                                                 MOE_YARDSTICK_CALLS),
+                           "plain_ms": time_ms(plain, sets[:1], 1),
+                           **bmm_ms}
+                    row.update(zip(("bound_ms", "bound_by", "bytes", "flops",
+                                    "bound_bf16_ms"),
+                                   _moe_bound(m_rows, w, x_dtype, bits)))
+                    log(json.dumps(row))
+                    rows[(fmt, proj, m_rows, x_dtype)] = row
+                    del sets
+            del wd, wb
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _moe_per_pass(cp) -> tuple:
+    """(spmm, expert spmm) launches of one forward pass: a compressed
+    matrix of the stacked layers once per layer, an expert stack once per
+    layer for all its experts, the head once."""
+    single = experts = 0
+    for path, m in iter_bcsr(cp):
+        n_layers = m.gather_nnz.shape[0] if path.startswith("layers/") else 1
+        if "/moe/" in path:
+            experts += n_layers
+        else:
+            single += n_layers
+    return single, experts
+
+
+@contextlib.contextmanager
+def _router_probs(inputs=None):
+    """Within the block, the f32 router probs of every MoE layer call, in
+    order (appended to the yielded list); ``inputs``, where given, takes
+    each call's router input (the normed hidden state) in f32."""
+    from repro_torch.models import moe as moe_lib
+    inner = moe_lib._router_and_aux
+    seen = []
+
+    def record(router_w, xt, e):
+        seen.append(torch.softmax(xt.float() @ router_w.float(), dim=-1))
+        if inputs is not None:
+            inputs.append(xt.float())
+        return inner(router_w, xt, e)
+
+    moe_lib._router_and_aux = record
+    try:
+        yield seen
+    finally:
+        moe_lib._router_and_aux = inner
+
+
+def _router_margin(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Per token: the k-th largest prob minus the (k+1)-th."""
+    top = torch.topk(probs, k + 1, dim=-1).values
+    return top[:, k - 1] - top[:, k]
+
+
+def _router_flips(what: str, k: int, runs_a: tuple, runs_b: tuple) -> tuple:
+    """(flips, first) between two runs' routers, each run given as (router
+    probs, router inputs) layer by layer: flips counts the (token, layer)
+    pairs whose top-k expert set differs; first describes the first layer
+    with one: its index, its flips, the two runs' largest prob difference
+    there and the smallest top-k margin (k-th minus (k+1)-th prob, run b)
+    among its flipped tokens.
+
+    Raises where the runs part otherwise than a near tie explains. Up to
+    and including the first layer with a flip, no token has taken another
+    expert yet, so the two runs' router inputs must agree within
+    BF16_LOGITS_RTOL of run b's largest |input| in that layer. And in that
+    layer a token's set can differ only where its margin is at most twice
+    its own largest prob difference (an expert in one set and not the
+    other lies at or below the k-th prob of one run and at or above the
+    (k+1)-th of the other), up to f32 rounding. Past the first flip the
+    runs' inputs differ by a whole expert's output."""
+    flips, first = 0, None
+    for layer, (pa, xa, pb, xb) in enumerate(zip(*runs_a, *runs_b)):
+        if first is None:
+            x_err = float((xa - xb).abs().max())
+            x_bound = BF16_LOGITS_RTOL * float(xb.abs().max())
+            if x_err > x_bound:
+                raise SystemExit(
+                    f"{what}: layer {layer}'s router inputs differ by "
+                    f"{x_err:.3e} (bound {x_bound:.3e}) before any router "
+                    "flip")
+        sa = torch.topk(pa, k, dim=-1).indices.sort(-1).values
+        sb = torch.topk(pb, k, dim=-1).indices.sort(-1).values
+        differ = (sa != sb).any(-1)
+        n = int(differ.sum())
+        if n and first is None:
+            diff = (pa - pb).abs().amax(-1)[differ]
+            margin = _router_margin(pb, k)[differ]
+            slack = 4 * torch.finfo(torch.float32).eps
+            if bool((margin > 2 * diff + slack).any()):
+                raise SystemExit(
+                    f"{what}: layer {layer} routes a token elsewhere at a "
+                    f"top-{k} margin above twice its prob difference "
+                    f"(margins {margin.tolist()}, differences {diff.tolist()})")
+            first = {"layer": layer, "flips": n,
+                     "router_input_err": x_err, "router_input_bound": x_bound,
+                     "max_prob_diff": float((pa - pb).abs().max()),
+                     "min_margin": float(margin.min())}
+        flips += n
+    return flips, first
+
+
+def _moe_bf16_check(what, kernel_model, plain_model, params, prompt) -> int:
+    """The bf16 prefill at full depth: each kernel call held to its plain
+    version on its inputs (``_held_calls``), then the logits within
+    BF16_LOGITS_RTOL of the plain path's largest |logit| unless some
+    router sent a token elsewhere on the two paths (two correct bf16 paths
+    round one output a bf16 step apart, and where a router's k-th and
+    (k+1)-th probs lie closer than that, the token takes another expert
+    and its hidden state moves by a whole expert's output). Such a flip is
+    accepted only as ``_router_flips`` holds it: the router inputs agree
+    up to the first flip and the flipped tokens' margins are within what
+    the prob difference explains. Flips are counted and printed, with the
+    first layer where one happens. Returns the flips."""
+    k = kernel_model.cfg.moe.top_k
+    xk, xp = [], []
+    with _held_calls(what) as errs, _router_probs(xk) as pk:
+        lk = _prefill_logits(kernel_model, params, prompt)
+    with _router_probs(xp) as pp:
+        lr = _prefill_logits(plain_model, params, prompt)
+    if not errs or not (torch.isfinite(lk).all()
+                        and lk.shape == (prompt.shape[0],
+                                         kernel_model.cfg.vocab)):
+        raise SystemExit(f"{what}: no kernel call, or logits not finite or "
+                         "misshapen")
+    flips, first = _router_flips(what, k, (pk, xk), (pp, xp))
+    err = float((lk - lr).abs().max())
+    bound = BF16_LOGITS_RTOL * float(lr.abs().max())
+    log(f"{what}: {len(errs)} kernel calls of the bf16 prefill held to their "
+        f"plain versions, max |diff| {max(errs):.3e}; router top-{k} flips "
+        f"between kernel and plain path: {flips} of {len(pk) * pk[0].shape[0]}"
+        f" (token, layer) pairs, first {first}; bf16 prefill logits max "
+        f"|kernel - plain| = {err:.3e} (bound {bound:.3e}; max |logit| "
+        f"{float(lr.abs().max()):.3e})" + (
+            "; the logits are held" if not flips else
+            "; the logits are not held: a flipped token took other experts"))
+    if not flips and err > bound:
+        raise SystemExit(f"{what}: bf16 prefill logits disagree")
+    return flips
+
+
+def _moe_divergence_ok(model, params, prompt, ref_tokens, got_tokens,
+                       what: str) -> int:
+    """``_divergence_ok`` for an MoE model: a first difference is also
+    accepted after a router near tie (some token's k-th minus (k+1)-th
+    prob in some layer below MOE_ROUTER_TIE on the reference's sequence)."""
+    ref_tokens = [int(t) for t in ref_tokens]
+    got_tokens = [int(t) for t in got_tokens]
+    if ref_tokens == got_tokens:
+        return len(ref_tokens)
+    t = next(i for i, (a, b) in enumerate(zip(ref_tokens, got_tokens))
+             if a != b)
+    with _router_probs() as probs:
+        margin = _top2_margin(_logits_after(model, params,
+                                            [int(x) for x in prompt],
+                                            ref_tokens[:t]))
+    router = min(float(_router_margin(p, model.cfg.moe.top_k).min())
+                 for p in probs)
+    log(f"{what}: first differs at step {t}, top-2 logit margin "
+        f"{margin:.3e}, smallest router top-k margin {router:.3e}")
+    if margin >= F32_LOGITS_ATOL and router >= MOE_ROUTER_TIE:
+        raise SystemExit(f"{what}: greedy tokens differ away from a near-tie")
+    return t
+
+
+def _profile_counts(lines) -> dict:
+    """{name: calls} from the ``--profile`` summary lines."""
+    out = {}
+    for line in lines:
+        parts = line.split()
+        if line.startswith("  ") and len(parts) > 2 and parts[2] == "calls":
+            out[parts[0]] = int(parts[1])
+    return out
+
+
+def moe_phase(dev) -> dict:
+    """olmoe-1b-7b at full width and depth (16 layers, d 2048, 16 heads of
+    128 with QK-norm, 64 experts of d_ff 1024, top-8, vocab 50,304): seed-0
+    weights pruned at 0.9 on (8, 128) blocks of every (out, in) view and
+    built on the card by ``init_compressed``, then palette-8 and -4; the
+    expert launch at its shapes (rows 1e / 2e); ``generate`` and the
+    engine through the serving CLI from BlockCSR, palette-8 and palette-4
+    in bf16, 113 spmm launches per forward (4 attention projections and 3
+    expert launches per layer, and the head) and none per expert; where
+    the engine's time goes; the bf16 prefill held call by call and, where
+    no router flips, in its logits; in f32 at a cut depth, the kernel
+    path against the plain path and the engine against ``generate``; and
+    one ``--profile`` run whose counts equal the launch counters."""
+    cfg = get_config(MOE)
+    phase(f"{MOE}: the compressed model, built on the card")
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev)
+    cp = init_compressed(model, CompressionPlan(block=BLOCK), SPARSITY,
+                         torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    formats = {"bcsr": cp, "pal8": quantize_compressed(cp, 8),
+               "pal4": quantize_compressed(cp, 4)}
+    torch.cuda.synchronize()
+    single, experts = _moe_per_pass(cp)
+    dense_b = model_size_bytes(model.init(device="meta"))
+    sizes = {"dense": dense_b, "bcsr": bcsr_equiv_size_bytes(cp),
+             "pal8": compressed_size_bytes(formats["pal8"]),
+             "pal4": compressed_size_bytes(formats["pal4"])}
+    log(f"{MOE}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.moe.n_experts} "
+        f"experts top-{cfg.moe.top_k}, {cfg.n_params():,} params; "
+        f"{len(list(iter_bcsr(cp)))} compressed weights, {single} spmm and "
+        f"{experts} expert spmm launches per pass; build {t1 - t0:.1f} s, "
+        f"palette-8 and -4 {time.perf_counter() - t1:.1f} s; bytes "
+        + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in sizes.items()))
+    if (single, experts) != (4 * cfg.n_layers + 1, 3 * cfg.n_layers):
+        raise SystemExit(f"{MOE}: expected {4 * cfg.n_layers + 1} spmm and "
+                         f"{3 * cfg.n_layers} expert launches a pass")
+    result = {"arch": MOE, "sizes": sizes, "per_pass": single + experts}
+
+    phase(f"{MOE}: the expert launch against its plain version "
+          f"(rows 1e / 2e)")
+    result["expert_rows"] = _moe_expert_rows(dev, formats)
+
+    phase(f"{MOE}: generate and the engine through the serving CLI "
+          "(the main path)")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    requests = _engine_requests(cfg.vocab)
+    req_file = OUT_DIR / "moe_requests.json"
+    req_file.write_text(json.dumps(
+        [{"prompt": list(map(int, r.prompt)), "gen": r.max_new_tokens}
+         for r in requests]))
+    for fmt, extra, wrapper in (("bcsr", [], "spmm"),
+                                ("pal8", ["--quantize-bits", "8"], "spmm_palette"),
+                                ("pal4", ["--quantize-bits", "4"], "spmm_palette")):
+        counts = _serve_run(extra, arch=MOE)
+        ew = f"{wrapper}_experts"
+        want = {wrapper: single * GEN, ew: experts * GEN}
+        _check_counts(f"{MOE} {fmt} generate", counts, want)
+        if sum(counts[k] for k in ops.FORWARD) != (single + experts) * GEN:
+            raise SystemExit(f"{MOE} {fmt} generate: launches {counts}")
+        result[f"generate_{fmt}"] = {
+            "launches": {k: counts[k] for k in (wrapper, ew)},
+            **{k: counts[f"{ew}_{k}"] for k in ops.KERNELS}}
+        counts, s, peak = _engine_cli_run(f"moe_{fmt}", extra, req_file,
+                                          arch=MOE)
+        ticks = s["n_ticks"]
+        _check_counts(f"{MOE} {fmt} engine", counts,
+                      {wrapper: single * ticks, ew: experts * ticks,
+                       "paged_flash_fwd": cfg.n_layers * ticks})
+        if sum(counts[k] for k in ops.FORWARD) != (single + experts) * ticks:
+            raise SystemExit(f"{MOE} {fmt} engine: launches {counts}")
+        log(f"{MOE} engine {fmt} bf16: {s['tok_s']:.1f} tok/s, ttft p50/p95 "
+            f"{s['ttft_p50_s'] * 1e3:.1f}/{s['ttft_p95_s'] * 1e3:.1f} ms, "
+            f"{ticks} ticks, {s['n_prefill_chunks']} prefill chunks, model "
+            f"{sizes[fmt] / 1e6:.2f} MB, kv pool {s['kv_page_bytes']} bytes, "
+            f"peak memory {peak / 2**30:.2f} GiB; {single + experts} spmm "
+            "launches a tick")
+        result[f"engine_{fmt}"] = {
+            "tok_s": s["tok_s"], "ttft_p50_s": s["ttft_p50_s"],
+            "ttft_p95_s": s["ttft_p95_s"], "ticks": ticks,
+            "spmm": counts[wrapper], "experts": counts[ew],
+            **{k: counts[f"{ew}_{k}"] for k in ops.KERNELS}}
+
+    phase(f"{MOE}: where the engine's time goes (bf16)")
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                           generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    _profile_engine_window(lambda: _engine(model, cp, requests), requests,
+                           MOE_PROFILE_TICKS)
+
+    phase(f"{MOE}: kernel path vs plain path, bf16, all {cfg.n_layers} "
+          "layers")
+    plain = build(cfg, device=dev, sparse_backend="ref")
+    result["bf16_router_flips"] = {
+        fmt: _moe_bf16_check(f"{MOE} {fmt}", model, plain, params, prompt)
+        for fmt, params in formats.items()}
+    del plain
+    torch.cuda.empty_cache()
+
+    phase(f"{MOE}: f32 at a cut depth, kernel path vs plain path and "
+          "engine vs generate")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              n_layers=MOE_F32_LAYERS)
+    log(f"{MOE}: the f32 checks run the first {MOE_F32_LAYERS} of "
+        f"{cfg.n_layers} layers; the bf16 runs above run all of them")
+    kernel_f32 = build(f32, device=dev)
+    plain_f32 = build(f32, device=dev, sparse_backend="ref")
+    # The engine against generate runs with capacity_factor E / top_k, so
+    # that every expert has a slot for every token: which tokens overflow
+    # depends on which tokens share a forward (an engine tick is not a
+    # generate batch), so the two agree only where none is dropped, as in
+    # the reference's own engine test (tests/test_serve_engine.py:132).
+    # The drop path is held against the JAX package on the CPU
+    # (tests/test_torch_moe.py).
+    no_drop = build(dataclasses.replace(f32, moe=dataclasses.replace(
+        f32.moe, capacity_factor=f32.moe.n_experts / f32.moe.top_k)),
+        device=dev)
+    for fmt, params in formats.items():
+        p32 = _cut_depth(params, f32.n_super_blocks)
+        out_k = generate(kernel_f32, p32, prompt, GEN)
+        out_r = generate(plain_f32, p32, prompt, GEN)
+        matched = sum(_moe_divergence_ok(
+            plain_f32, p32, prompt[row].tolist(), out_r[row], out_k[row],
+            f"{MOE} {fmt} f32 generate kernel vs plain row {row}")
+            for row in range(BATCH))
+        log(f"{MOE} {fmt}: f32 generate {matched}/{BATCH * GEN} tokens of the "
+            "kernel path match the plain path")
+        if fmt != "bcsr":               # the dispatch does not see the store
+            continue
+        ops.reset_launches()
+        paged_ops.reset_launches()
+        out = _engine(no_drop, p32, requests, attn_backend="cuda").run(requests)
+        counts = {**ops.launches, **paged_ops.launches}
+        engine_matched = sum(_moe_divergence_ok(
+            no_drop, p32, r.prompt,
+            generate(no_drop, p32, torch.tensor(r.prompt_ids, device=dev)[None],
+                     ENGINE_GEN)[0],
+            out["results"][rid], f"{MOE} {fmt} f32 engine vs generate rid {rid}")
+            for rid, r in enumerate(requests))
+        log(f"{MOE} {fmt}: f32 engine (capacity factor "
+            f"{no_drop.cfg.moe.capacity_factor}) {engine_matched}/"
+            f"{len(requests) * ENGINE_GEN} tokens match generate "
+            f"({out['stats']['n_ticks']} ticks, launches {counts})")
+    del no_drop, kernel_f32, plain_f32
+    torch.cuda.empty_cache()
+
+    phase(f"{MOE}: launch/serve --profile")
+    lines = []
+    counts = _serve_run(["--profile"], arch=MOE, lines=lines)
+    prof = _profile_counts(lines)
+    for name, key in (("bsr_spmm/spmm", "spmm"),
+                      ("bsr_spmm/spmm_experts", "spmm_experts")):
+        log(f"  --profile {name}: {prof.get(name)} calls, launch counter "
+            f"{counts[key]}")
+        if prof.get(name) != counts[key] or not counts[key]:
+            raise SystemExit(f"--profile: {name} counted {prof.get(name)}, "
+                             f"the launch counter {counts[key]}")
+    for line in lines:
+        if line.startswith("  ") and "calls" in line:
+            log(f"  {line.strip()}")
+    result["profile_counts"] = prof
+    del formats, cp, model
+    torch.cuda.empty_cache()
+    return result
+
+
+def _moe_table_rows(table, moe, card) -> None:
+    """Rows 1e / 2e: the expert launch at olmoe-1b-7b's ewi (64 experts,
+    bf16 x): the decode kernel at M = 8 (a generate decode step's capacity,
+    and an engine decode tick's) for the f32 store, palette-8 and
+    palette-4, and the tile kernel at M = 40 (an engine prefill tick's) for
+    the f32 store; launches are the engine run's of that kernel (and
+    ``generate``'s beside them)."""
+    rows = moe["expert_rows"]
+    for name, fmt, m_rows, kern in (
+            ("bsr_spmm_experts", "bcsr", 8, "decode"),
+            ("bsr_spmm_experts_tile", "bcsr", 40, "tile"),
+            ("bsr_spmm_palette8_experts", "pal8", 8, "decode"),
+            ("bsr_spmm_palette4_experts", "pal4", 8, "decode")):
+        r = rows[(fmt, "ewi", m_rows, torch.bfloat16)]
+        wrapper = "spmm_experts" if fmt == "bcsr" else "spmm_palette_experts"
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/bsr_spmm_experts.cu",
+            "replaces": REPLACES["bsr_spmm" if fmt == "bcsr"
+                                 else "bsr_spmm_palette8"],
+            "launches": moe[f"engine_{fmt}"][kern],
+            "generate_launches": moe[f"generate_{fmt}"][kern],
+            "max_abs_err": max(v["max_abs_err"] for k, v in rows.items()
+                               if k[0] == fmt),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_bf16_ms": r["bound_bf16_ms"], "library_ms": r["library_ms"],
+            "bf16_matmul_ms": r["bf16_matmul_ms"],
+            "singles_ms": r["singles_ms"],
+            "shape": f"{kern} kernel, {wrapper}, {MOE} layer 0 ewi, "
+                     f"{r['experts']} experts of {r['matrix_shape']}, "
+                     f"M={m_rows} x=bfloat16",
+            "card": card})
+
+
 def _spmm_rows(table, rows, launches, hybrid, card) -> None:
     """The forward spmm's rows: the decode kernel at smollm-360m's decode
     (rows 1-2, M = 4), launched by ``launch/serve --sparse``'s decode
@@ -2258,6 +2774,9 @@ def main() -> int:
     _spmm_rows(table, rows, launches, hybrid, card)
     rwkv = recurrent_phase(dev, RWKV, RWKV_PROMPTS, f32_layers=RWKV_F32_LAYERS)
     log(f"{RWKV}: {json.dumps(rwkv, default=str)}")
+    moe = moe_phase(dev)
+    log(f"{MOE}: {json.dumps({k: v for k, v in moe.items() if k != 'expert_rows'}, default=str)}")
+    _moe_table_rows(table, moe, card)
     flash_rows, flash_launches, model_launches = flash_phase(dev)
     flash_err = max(v["max_abs_err"] for v in flash_rows)
     _flash_row(table, "flash_attention", flash_rows[FLASH_TABLE_ROW],

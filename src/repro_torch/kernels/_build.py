@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 with a plain C interface, under ``build/kernels/`` at the root of the
-checkout. The file name carries a hash of the sources and the flags, so a
-changed source or flag rebuilds and an unchanged one is loaded as it is.
+checkout. The file name carries a hash of the files its build reads (the
+source, the ``.cu`` files it includes and the ``.cuh`` headers) and the
+flags, so a changed source or flag rebuilds and an unchanged one is loaded
+as it is.
 ``build_all`` starts one nvcc per source, all at once, and waits for them.
 No CUDA toolkit is needed to import this module.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -21,8 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("bsr_spmm", "paged_attention", "bsr_sddmm", "prox_adam",
-           "flash_attention")
+SOURCES = ("bsr_spmm", "bsr_spmm_experts", "paged_attention", "bsr_sddmm",
+           "prox_adam", "flash_attention")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -39,12 +42,20 @@ def nvcc_path() -> str:
                        "CUDA kernels of repro_torch need the CUDA toolkit")
 
 
+def _inputs(name: str) -> list[Path]:
+    """The files the build of ``name`` reads: its source, the ``.cu`` files
+    that source includes (``bsr_spmm_experts.cu`` includes
+    ``bsr_spmm.cu``), and the shared ``.cuh`` headers."""
+    src = CSRC / f"{name}.cu"
+    included = re.findall(r'^#include "([^"]+\.cu)"', src.read_text(), re.M)
+    return sorted({src, *(CSRC / f for f in included), *CSRC.glob("*.cuh")})
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):     # .cu and shared .cuh headers
-        if src.suffix == ".cuh" or src.stem == name:
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
+    for src in _inputs(name):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 

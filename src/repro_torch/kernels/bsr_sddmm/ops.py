@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._tiles import aligned16, sm_count
 from repro_torch.kernels.bsr_sddmm import ref
+from repro_torch.obs.profile import kernel_call
 from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
 
 launches = {"bsr_sddmm": 0}
@@ -172,6 +173,11 @@ def _check(x, dy, w: BlockCSR):
 def bsr_weight_grad(x, dy, w: BlockCSR) -> torch.Tensor:
     """x: (M, K) activations; dy: (M, N) output cotangent; w: (N, K)
     BlockCSR. Returns (n_slots, br, bc) f32 gradient blocks for w.data."""
+    return kernel_call("bsr_sddmm/bsr_weight_grad", _bsr_weight_grad, x, dy,
+                       w)
+
+
+def _bsr_weight_grad(x, dy, w: BlockCSR) -> torch.Tensor:
     _reject_palette(w)
     if x.device.type == "cpu":
         return bsr_weight_grad_ref(x, dy, w)

@@ -2,7 +2,12 @@
 
 ``spmm(x, w)`` and ``spmm_palette(x, w)`` compute ``Y (M, N) f32 = X (M, K)
 @ W'`` for a compressed W (N, K); ``spmm_t(dy, w)`` computes the backward
-``dX (M, K) f32 = dY (M, N) @ W`` over the transposed tables. A BlockCSR
+``dX (M, K) f32 = dY (M, N) @ W`` over the transposed tables.
+``spmm_experts(x, w)`` and ``spmm_palette_experts(x, w)`` take E problems
+at once, X (E, M, K) against an E-stacked W (one slice per expert, the MoE
+FFN's (E, out, in) weights): ``Y (E, M, N) f32``, in one launch of the same
+forward kernels with the expert on the grid's z axis (the reference maps
+one ``sparse_matmul`` per expert). A BlockCSR
 block store may be f32 or bf16 (training casts it to the compute dtype);
 the kernels upcast it as they read. For a tensor on the CPU they run the
 plain PyTorch version (``ref.py``); for a CUDA tensor they launch the
@@ -18,7 +23,9 @@ raises. Each kernel's shape of grid is chosen here from shapes alone
 
 ``launches`` counts kernel launches per wrapper, so a run can show that
 its path went through the kernels; ``variant_launches`` splits the
-forward's counts by kernel (``spmm`` = ``spmm_decode`` + ``spmm_tile``).
+forward's counts by kernel (``spmm`` = ``spmm_decode`` + ``spmm_tile``,
+``spmm_experts`` = ``spmm_experts_decode`` + ``spmm_experts_tile``). Every
+public entry routes through ``obs.profile.kernel_call`` (``bsr_spmm/...``).
 """
 from __future__ import annotations
 
@@ -30,15 +37,17 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._tiles import aligned16, sm_count
 from repro_torch.kernels.bsr_spmm import ref
+from repro_torch.obs.profile import kernel_call
 from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
 
-launches = {"spmm": 0, "spmm_t": 0, "spmm_palette": 0}
-variant_launches = {"spmm_decode": 0, "spmm_tile": 0,
-                    "spmm_palette_decode": 0, "spmm_palette_tile": 0}
+FORWARD = ("spmm", "spmm_palette", "spmm_experts", "spmm_palette_experts")
+launches = {"spmm": 0, "spmm_t": 0, "spmm_palette": 0, "spmm_experts": 0,
+            "spmm_palette_experts": 0}
 # The forward runs the decode kernel up to this many rows of X (one mma
 # m-tile), the tile kernel above.
 DECODE_MAX_M = 16
 KERNELS = ("decode", "tile")
+variant_launches = {f"{w}_{k}": 0 for w in FORWARD for k in KERNELS}
 _DECODE_WARPS = 8   # decode kernel: warps per thread block
 _T_COLS = 64        # spmm_t: columns of dX per thread block
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -58,7 +67,11 @@ def pick_kernel(m: int) -> str:
 def decode_warps(jmax: int) -> int:
     """Warps the decode kernel gives each block-row: one per resident block
     up to the gather tables' width ``jmax`` (a power of two, at most the 8
-    warps of a thread block, which then takes 8 / that many block-rows)."""
+    warps of a thread block, which then takes 8 / that many block-rows).
+    An expert stack passes its mean resident blocks a block-row instead:
+    its tables are padded to the widest row of all its experts (8,192 rows
+    at olmoe-1b-7b's ewi), so the width would leave most warps idle; a
+    warp takes every J-th block of a longer row."""
     warps = 1
     while warps < min(jmax, _DECODE_WARPS):
         warps *= 2
@@ -76,37 +89,53 @@ def spmm_t_rows(m: int, k_blocks: int, bc: int, sms: int, dy_f32: bool) -> int:
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("bsr_spmm")
-    lib.bsr_spmm_fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 11 \
-        + [_P]
-    lib.bsr_spmm_t.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 10 \
-        + [_P]
-    lib.bsr_spmm_t.restype = _I
-    lib.bsr_spmm_palette_fwd.argtypes = (
-        [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 11 + [_P])
-    lib.bsr_spmm_fwd.restype = _I
-    lib.bsr_spmm_palette_fwd.restype = _I
+def _lib(experts: bool = False) -> ctypes.CDLL:
+    """``csrc/bsr_spmm.cu``'s library, or with ``experts`` the expert
+    instantiations of its forward (``csrc/bsr_spmm_experts.cu``)."""
+    lib = _build.load("bsr_spmm_experts" if experts else "bsr_spmm")
+    tag = "_experts" if experts else ""
+    fwd = getattr(lib, f"bsr_spmm{tag}_fwd")
+    fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 13 + [_P]
+    pal = getattr(lib, f"bsr_spmm_palette{tag}_fwd")
+    pal.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 13 + [_P]
+    fwd.restype = pal.restype = _I
+    if not experts:
+        lib.bsr_spmm_t.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] \
+            + [_I] * 10 + [_P]
+        lib.bsr_spmm_t.restype = _I
     return lib
 
 
 def _check(x: torch.Tensor, w, store: torch.Tensor, store_dtypes,
-           store_cols: int, tables=None, in_dim: int = 1) -> torch.Tensor:
+           store_cols: int, tables=None, in_dim: int = 1,
+           experts: int = 0) -> torch.Tensor:
     """Validate what the kernel takes; returns x made contiguous. ``in_dim``
-    is the axis of W that x's columns run along (1 forward, 0 backward)."""
+    is the axis of W that x's columns run along (1 forward, 0 backward);
+    ``experts``: x is (E, M, K) and W an E-stacked store of as many slices
+    (0: one matrix)."""
+    lead = 1 if experts else 0
     if x.device.type != "cuda":
         raise ValueError(f"spmm kernels take CUDA or CPU tensors, got {x.device}")
-    if x.dim() != 2 or x.shape[1] != w.shape[in_dim]:
+    if x.dim() != 2 + lead or x.shape[-1] != w.shape[in_dim]:
         raise ValueError(f"x {tuple(x.shape)} does not match W {w.shape}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"spmm kernels take f32 or bf16 x, got {x.dtype}")
     if store.dtype not in store_dtypes:
         raise TypeError(f"block store must be one of {store_dtypes}, got "
                         f"{store.dtype}")
-    if store.dim() != 3 or tuple(store.shape[1:]) != (w.block[0], store_cols):
+    if store.dim() != 3 + lead \
+            or tuple(store.shape[lead + 1:]) != (w.block[0], store_cols):
         raise ValueError(f"block store {tuple(store.shape)} does not match "
-                         f"block {w.block}")
+                         f"block {w.block}" + (f" and {experts} experts"
+                                               if experts else ""))
     tables = tables or (w.gather_idx, w.gather_blk, w.gather_nnz)
+    if w.gather_nnz.dim() != 1 + lead or \
+            any(t.shape[:lead] != store.shape[:lead] for t in tables) or \
+            (experts and store.shape[0] != experts):
+        raise ValueError(
+            f"W's stack {tuple(store.shape[:-3])} does not match x "
+            f"{tuple(x.shape)}: spmm / spmm_palette take one matrix, "
+            "spmm_experts / spmm_palette_experts one slice per expert")
     for t in (store,) + tables:
         if t.device != x.device:
             raise ValueError(f"W lies on {t.device}, x on {x.device}")
@@ -117,8 +146,8 @@ def _check(x: torch.Tensor, w, store: torch.Tensor, store_dtypes,
     if w.block[0] not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"block rows must be a power of two up to 32, got "
                          f"{w.block}")
-    if w.gather_idx.shape[0] != w.block_grid[0] \
-            or w.gather_t_idx.shape[0] != w.block_grid[1]:
+    if w.gather_idx.shape[lead] != w.block_grid[0] \
+            or w.gather_t_idx.shape[lead] != w.block_grid[1]:
         raise ValueError("gather table rows do not match the block grid")
     return x.contiguous()
 
@@ -134,67 +163,100 @@ def _count(wrapper: str, kernel: str) -> None:
 def spmm(x: torch.Tensor, w: BlockCSR) -> torch.Tensor:
     """Y (M, N) f32 = X (M, K) @ W' for W (N, K) BlockCSR (f32 or bf16
     block store)."""
-    if x.device.type == "cpu":
-        return ref.spmm_fwd_ref(x, w)
-    return _fwd(x, w)
+    return kernel_call("bsr_spmm/spmm", _spmm, x, w, False)
 
 
 def spmm_palette(x: torch.Tensor, w: PaletteBCSR) -> torch.Tensor:
     """Y (M, N) f32 = X (M, K) @ dequant(W)' for W (N, K) PaletteBCSR; the
     palette lookup (and the nibble unpack at 4 bits) happens in the kernel."""
+    return kernel_call("bsr_spmm/spmm_palette", _spmm, x, w, False)
+
+
+def spmm_experts(x: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+    """Y (E, M, N) f32, Y[e] = X[e] @ W[e]' for X (E, M, K) and an E-stacked
+    BlockCSR W (every array field with a leading expert axis; ``w[e]`` is
+    expert e's (N, K) matrix): one launch for all E."""
+    return kernel_call("bsr_spmm/spmm_experts", _spmm, x, w, True)
+
+
+def spmm_palette_experts(x: torch.Tensor, w: PaletteBCSR) -> torch.Tensor:
+    """``spmm_experts`` for an E-stacked PaletteBCSR (one palette per
+    expert, (E, 2**bits))."""
+    return kernel_call("bsr_spmm/spmm_palette_experts", _spmm, x, w, True)
+
+
+def _spmm(x: torch.Tensor, w, experts: bool) -> torch.Tensor:
+    if x.dim() != (3 if experts else 2):
+        raise ValueError(f"x {tuple(x.shape)}: spmm / spmm_palette take a 2-D "
+                         "x, spmm_experts / spmm_palette_experts a 3-D one")
     if x.device.type == "cpu":
-        return ref.spmm_palette_fwd_ref(x, w)
+        palette = isinstance(w, PaletteBCSR)
+        if x.dim() == 3:
+            return (ref.spmm_palette_experts_fwd_ref(x, w) if palette
+                    else ref.spmm_experts_fwd_ref(x, w))
+        return (ref.spmm_palette_fwd_ref(x, w) if palette
+                else ref.spmm_fwd_ref(x, w))
     return _fwd(x, w)
 
 
 def _fwd(x: torch.Tensor, w, kernel=None) -> torch.Tensor:
     """The forward of ``spmm`` (BlockCSR w) or ``spmm_palette`` (PaletteBCSR
-    w) for a CUDA x, on the kernel ``pick_kernel`` chooses by M, or on
-    ``kernel`` ("decode" or "tile"): the GPU tests and chip_smoke.py force
-    each kernel to hold both to the plain version."""
+    w), or of their expert forms for a 3-D x, for a CUDA x, on the kernel
+    ``pick_kernel`` chooses by M, or on ``kernel`` ("decode" or "tile"):
+    the GPU tests and chip_smoke.py force each kernel to hold both to the
+    plain version."""
     palette = isinstance(w, PaletteBCSR)
+    experts = x.shape[0] if x.dim() == 3 else 0
     if palette:
         if w.bits not in (4, 8):
             raise ValueError(f"palette bits must be 4 or 8, got {w.bits}")
         x = _check(x, w, w.codes, (torch.uint8,),
-                   w.block[1] // 2 if w.bits == 4 else w.block[1])
-        if w.palette.shape != (1 << w.bits,) \
+                   w.block[1] // 2 if w.bits == 4 else w.block[1],
+                   experts=experts)
+        want = (experts, 1 << w.bits) if experts else (1 << w.bits,)
+        if tuple(w.palette.shape) != want \
                 or w.palette.dtype != torch.float32 \
-                or w.palette.device != x.device:
-            raise ValueError(f"palette must be ({1 << w.bits},) f32 on "
-                             f"{x.device}")
+                or w.palette.device != x.device \
+                or not w.palette.is_contiguous():
+            raise ValueError(f"palette must be {want} f32 on {x.device}")
     else:
-        x = _check(x, w, w.data, _FP_STORE, w.block[1])
-    m = x.shape[0]
-    n_out, jmax = w.gather_idx.shape
+        x = _check(x, w, w.data, _FP_STORE, w.block[1], experts=experts)
+    m = x.shape[-2]
+    n_out, jmax = w.gather_idx.shape[-2:]
     br, bc = w.block
     kernel = pick_kernel(m) if kernel is None else kernel
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-    y = torch.empty((m, w.shape[0]), dtype=torch.float32, device=x.device)
-    if m == 0:
+    y = torch.empty(x.shape[:-1] + (w.shape[0],), dtype=torch.float32,
+                    device=x.device)
+    if y.numel() == 0:
         return y
-    shape = (m, x.shape[1], w.shape[0], n_out, jmax, br, bc,
-             int(kernel == "tile"), decode_warps(jmax),
-             aligned16(x, x.shape[1], bc))
+    store = w.codes if palette else w.data
+    warps = decode_warps(min(jmax, -(-(store.shape[-3] - 1) // n_out))
+                         if experts > 1 else jmax)
+    shape = (m, x.shape[-1], w.shape[0], n_out, jmax, br, bc,
+             int(kernel == "tile"), warps, aligned16(x, x.shape[-1], bc))
+    stack = (max(experts, 1), store.shape[-3])
+    lib, tag = _lib(experts > 1), "_experts" if experts > 1 else ""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if palette:
-            err = _lib().bsr_spmm_palette_fwd(
+            err = getattr(lib, f"bsr_spmm_palette{tag}_fwd")(
                 x.data_ptr(), int(x.dtype == torch.bfloat16),
                 w.codes.data_ptr(), w.palette.data_ptr(), w.bits,
                 w.gather_idx.data_ptr(), w.gather_blk.data_ptr(),
                 w.gather_nnz.data_ptr(), y.data_ptr(), *shape,
                 int(w.codes.data_ptr() % 16 == 0
-                    and bc * w.bits // 8 % 16 == 0), stream)
+                    and bc * w.bits // 8 % 16 == 0), *stack, stream)
         else:
-            err = _lib().bsr_spmm_fwd(
+            err = getattr(lib, f"bsr_spmm{tag}_fwd")(
                 x.data_ptr(), int(x.dtype == torch.bfloat16),
                 w.data.data_ptr(), int(w.data.dtype == torch.bfloat16),
                 w.gather_idx.data_ptr(), w.gather_blk.data_ptr(),
                 w.gather_nnz.data_ptr(), y.data_ptr(), *shape,
-                aligned16(w.data, bc), stream)
-    wrapper = "spmm_palette" if palette else "spmm"
+                aligned16(w.data, bc), *stack, stream)
+    wrapper = ("spmm_palette" if palette else "spmm") + (
+        "_experts" if experts else "")
     if err:
         raise RuntimeError(f"bsr_{wrapper}_fwd launch failed: CUDA error {err}")
     _count(wrapper, kernel)
@@ -204,6 +266,10 @@ def _fwd(x: torch.Tensor, w, kernel=None) -> torch.Tensor:
 def spmm_t(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
     """dX (M, K) f32 = dY (M, N) @ W for W (N, K) BlockCSR, over the
     block-CSC tables ``gather_t_*`` (the backward of ``spmm`` in x)."""
+    return kernel_call("bsr_spmm/spmm_t", _spmm_t, dy, w)
+
+
+def _spmm_t(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
     if dy.device.type == "cpu":
         return ref.spmm_bwd_ref(dy, w)
     tables = (w.gather_t_idx, w.gather_t_blk, w.gather_t_nnz)

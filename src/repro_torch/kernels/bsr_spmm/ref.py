@@ -29,6 +29,20 @@ def spmm_palette_fwd_ref(x: torch.Tensor, w) -> torch.Tensor:
     return spmm_fwd_ref(x, w.dequantize())
 
 
+def spmm_experts_fwd_ref(x: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+    """Y (E, M, N) f32, Y[e] = X[e] @ W[e]' for X (E, M, K) and an E-stacked
+    BlockCSR: ``spmm_fwd_ref`` on each expert's slice, as the reference
+    maps one ``sparse_matmul`` per expert."""
+    return torch.stack([spmm_fwd_ref(x[e], w[e]) for e in range(x.shape[0])])
+
+
+def spmm_palette_experts_fwd_ref(x: torch.Tensor, w) -> torch.Tensor:
+    """``spmm_experts_fwd_ref`` for an E-stacked ``PaletteBCSR`` (one
+    palette per expert)."""
+    return torch.stack([spmm_palette_fwd_ref(x[e], w[e])
+                        for e in range(x.shape[0])])
+
+
 def gather_block_matmul_ref(dense, data, idx, blk, nnz, *, out_cols: int,
                             transpose_block: bool) -> torch.Tensor:
     """Direct oracle of the gather-matmul-accumulate schedule: output

@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._tiles import tile_hd, tile_ready
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.obs.profile import kernel_call
 
 launches = {"flash_attention_fwd": 0}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -113,6 +114,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, bq: int = 128,
                     bk: int = 128) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
+    return kernel_call("flash_attention/flash_attention", _flash_attention,
+                       q, k, v, causal=causal, window=window, bq=bq, bk=bk)
+
+
+def _flash_attention(q, k, v, *, causal, window, bq, bk) -> torch.Tensor:
     b, s, h, hd = q.shape
     kv = k.shape[2]
     bq, bk = min(bq, s), min(bk, s)

@@ -36,6 +36,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._tiles import tile_hd, tile_ready
 from repro_torch.kernels.paged_attention import ref
+from repro_torch.obs.profile import kernel_call
 
 launches = {"paged_flash_fwd": 0}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -140,6 +141,13 @@ def paged_flash_attention(q, k_pool, v_pool, page_table, positions, *,
 
     Returns (B, C, H, hd) f32; invalid query rows carry finite garbage,
     as on the ref path."""
+    return kernel_call("paged_attention/paged_flash_attention",
+                       _paged_flash_attention, q, k_pool, v_pool, page_table,
+                       positions, window=window, kv_splits=kv_splits)
+
+
+def _paged_flash_attention(q, k_pool, v_pool, page_table, positions, *,
+                           window, kv_splits) -> torch.Tensor:
     b, c, h, hd = q.shape
     kv = k_pool.shape[2]
     g = h // kv

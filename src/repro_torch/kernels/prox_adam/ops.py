@@ -24,6 +24,7 @@ from repro_torch.core.prox import default_regularized_predicate
 from repro_torch.core.tree import flatten_with_path, keystr
 from repro_torch.kernels import _build
 from repro_torch.kernels.prox_adam import ref
+from repro_torch.obs.profile import kernel_call
 
 launches = {"prox_adam": 0}
 _RULES = {"adam": 0, "rmsprop": 1}
@@ -74,6 +75,11 @@ def fused_update_leaf(w, g, m, v, scalars, *, rule: str = "adam",
                       apply_prox: bool = True):
     """Update (w, m, v) in place; returns them. ``scalars`` is
     ``make_scalars(...)`` (8 host f32 values)."""
+    return kernel_call("prox_adam/fused_update_leaf", _fused_update_leaf, w,
+                       g, m, v, scalars, rule=rule, apply_prox=apply_prox)
+
+
+def _fused_update_leaf(w, g, m, v, scalars, *, rule: str, apply_prox: bool):
     if rule not in _RULES:
         raise ValueError(rule)
     if w.device.type == "cpu":

@@ -18,6 +18,14 @@ compressed checkpoint written by the JAX package's ``launch/train
 --sparse``. Either way the per-matrix size table and the dense / bcsr /
 palette byte line are printed. The model runs on ``--device`` (``cuda``).
 
+``--arch`` also takes the MoE architectures (olmoe-1b-7b: 64 experts,
+top-8; llama4-scout-17b-a16e: 16 experts, top-1, a shared expert): with
+``--sparse`` their expert stacks compress to E-stacked BlockCSR and each
+expert projection runs one spmm launch over all experts.
+``--profile [DIR]`` times every kernel entry (CUDA events on the stream)
+and the engine tick (host clock) and prints the summary; with DIR it also
+writes a ``torch.profiler`` Chrome trace there.
+
 ``--engine`` serves a ``--requests`` mix through the continuous-batching
 engine (``serve/engine.py``): slot resource pools (paged KV for attention
 layers, slot-indexed state for recurrent ones), chunked prefill
@@ -30,6 +38,7 @@ the metrics registry and a Chrome trace of the run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -41,6 +50,7 @@ import torch
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core.metrics import model_size_bytes
 from repro_torch.models.model_zoo import build
+from repro_torch.obs.profile import Profiler
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve import api
 from repro_torch.serve.api import SamplingParams
@@ -53,7 +63,6 @@ from repro_torch.sparse.compress import (CompressionPlan, bcsr_equiv_size_bytes,
 from repro_torch.sparse.formats import PaletteBCSR
 
 _NOT_PORTED = {
-    "--profile": "the kernel profiler (ROADMAP Queue 1 item 8b)",
     "--replicas": "the router slice (ROADMAP Queue 1 item 11)",
     "--route": "the router slice (ROADMAP Queue 1 item 11)",
     "--mesh": "the multi-device slice (ROADMAP Queue 1 item 12)",
@@ -159,7 +168,22 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-out", default="",
                     help="with --engine: write a Chrome trace-event / "
                          "Perfetto JSON of the run")
+    ap.add_argument("--profile", nargs="?", const="", default=None,
+                    metavar="TRACE_DIR",
+                    help="time the engine tick and every kernel entry "
+                         "point (CUDA events on the stream for tensors on "
+                         "the card) and print the summary; pass a "
+                         "directory to also write a torch.profiler Chrome "
+                         "trace there")
     return ap
+
+
+def _profiler(args):
+    """--profile as a ``Profiler`` (None when the flag is off: the kernel
+    hooks then take their free path)."""
+    if args.profile is None:
+        return None
+    return Profiler(trace_dir=args.profile or None)
 
 
 def main(argv=None):
@@ -210,16 +234,20 @@ def main(argv=None):
                            generator=gen, device=dev)
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p)
+    profiler = _profiler(args)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    out = generate(model, params, prompt, args.gen, sampling=sampling,
-                   generator=gen)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with profiler or contextlib.nullcontext():
+        out = generate(model, params, prompt, args.gen, sampling=sampling,
+                       generator=gen)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s)")
+    if profiler is not None:
+        print(profiler.format_summary())
     print("sample:", out[0, :16].tolist())
     return out
 
@@ -304,14 +332,16 @@ def _run_engine(model, params, args) -> dict:
     tracer = Tracer() if args.trace_out else None
     gen = (torch.Generator(device=model.device).manual_seed(1)
            if args.temperature > 0 else None)
+    profiler = _profiler(args)
     engine = ServeEngine(model, params, _engine_config(args, max_seq),
-                         generator=gen, tracer=tracer)
+                         generator=gen, tracer=tracer, profiler=profiler)
     pb = engine.pool_bytes
     print(f"engine pools: kv_pages={pb['kv_page_bytes'] / 2**20:.2f} MiB "
           f"recurrent_state={pb['state_slot_bytes'] / 2**20:.2f} MiB "
           f"({engine.config.max_batch} slots)")
     try:
-        out = engine.run(requests)
+        with profiler or contextlib.nullcontext():
+            out = engine.run(requests)
     except api.ApiValidationError as e:
         raise SystemExit(f"--engine: {e}")
     s = out["stats"]
@@ -341,6 +371,8 @@ def _run_engine(model, params, args) -> dict:
     if tracer is not None:
         tracer.save(args.trace_out)
         print(f"trace -> {args.trace_out} ({len(tracer.events)} events)")
+    if profiler is not None:
+        print(profiler.format_summary())
     print("sample:", [int(t) for t in out["results"][0][:16]])
     if args.parity_check:
         _check_parity(model, params, args, requests, out["results"])

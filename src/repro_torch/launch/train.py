@@ -5,7 +5,11 @@
         --ckpt-dir /tmp/ckpt --device cpu
 
 Runs compressed training (the paper's SpC pipeline) on an attention-only
-zoo architecture, on ``--device`` (``cuda`` unless told otherwise).
+zoo architecture, on ``--device`` (``cuda`` unless told otherwise). The
+frontend architectures (paligemma-3b, musicgen-medium) train on synthetic
+(B, S, d) patch / frame embeddings in place of token ids, as in the
+reference; MoE and recurrent architectures are refused, naming the ROADMAP
+item that ports their training.
 
 ``--sparse`` switches to SpC-Retrain, training *into* BlockCSR: the prox is
 the plan-aligned block group-l1 (exact zero blocks on the serving (out, in)
@@ -39,6 +43,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.optimizers import prox_adam, prox_rmsprop, prox_sgd
 from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+from repro_torch.models import frontends
 from repro_torch.models.model_zoo import build
 from repro_torch.models.transformer import RECURRENT_KINDS, layer_kinds
 from repro_torch.sparse.compress import (CompressionPlan, compressed_size_bytes,
@@ -111,9 +116,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     model = build(args.arch, reduced=args.reduced, device=device)
     cfg = model.cfg
-    if cfg.frontend != "none":
-        raise SystemExit(f"{cfg.name}: frontend embeddings are not ported yet "
-                         "(ROADMAP Queue 1 item 8b)")
+    if cfg.moe is not None:
+        raise SystemExit(f"{cfg.name}: training an MoE model is not ported "
+                         "yet; it comes with MoE training (ROADMAP Queue 1 "
+                         "item 8c)")
     recurrent = sorted(set(RECURRENT_KINDS) & set(layer_kinds(cfg)))
     if recurrent:
         raise SystemExit(f"{cfg.name}: training layer kinds {recurrent} is "
@@ -144,7 +150,14 @@ def main(argv=None):
                                  global_batch=args.batch)
 
     def batch_fn(step):
-        return token_batch(data_cfg, step, device=device)
+        b = token_batch(data_cfg, step, device=device)
+        if cfg.frontend != "none":
+            # precomputed patch / frame embeddings in place of token ids
+            emb = frontends.synthetic_embeddings(
+                torch.Generator(device=device).manual_seed(step), cfg,
+                args.batch, args.seq)
+            b = {"inputs": emb, "labels": b["labels"]}
+        return b
 
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if ckpt is not None and ckpt.latest_step() is not None:

@@ -1,8 +1,11 @@
-"""Decoder stack for attention, RG-LRU and RWKV layers.
+"""Decoder stack for attention, RG-LRU and RWKV layers, with an MLP or an
+MoE FFN.
 
 Port of ``repro.models.transformer`` for the layer kinds ``attn``,
 ``rglru`` (Griffin: temporal conv + RG-LRU, then an MLP) and ``rwkv``
-(time mix, then channel mix). The params keep
+(time mix, then channel mix). A config with ``moe`` replaces the MLP of
+attention and RG-LRU layers by the top-k MoE of ``models/moe.py`` in every
+mode; ``apply_hidden`` sums its aux losses over the layers. The params keep
 the reference's layout: the layers of the repeated block pattern are
 stacked under ``params["layers"]`` with a leading ``n_super`` axis, the
 remainder under ``params["rem"]``. A Python loop over the layer axis takes
@@ -19,12 +22,11 @@ Entry points, each taking raw params or ``CompressedParams``:
     paged_step(params, tokens, pools, page_table, start_pos, n_tokens)
                                            -> last-valid-token logits, pools
 
-Compressed projections (attention q/k/v/o, MLP, the RG-LRU and RWKV
-projections, head) run ``sparse_matmul`` with the model's
+Compressed projections (attention q/k/v/o, MLP, the MoE experts, the
+RG-LRU and RWKV projections, head) run ``sparse_matmul`` with the model's
 ``sparse_backend`` ('auto': the CUDA kernels for tensors on the card).
 Caches and engine pools are updated in place: attention writes its K/V
 into them, and a recurrent layer copies its new state over the old one.
-MoE layers are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, rglru, rwkv6
+from repro_torch.models import attention, moe as moe_lib, rglru, rwkv6
 from repro_torch.models.layers import (apply_embed, apply_head, apply_mlp,
                                        apply_norm, init_embed, init_mlp,
                                        init_norm, truncated_normal_init)
@@ -47,7 +49,6 @@ PyTree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-_LATER = ("not ported yet: MoE layers come with ROADMAP Queue 1 item 8b")
 # the layer kinds the port runs, and those of them that carry recurrent
 # state (the serving engine's slot pools, launch/train's refusal)
 KINDS = ("attn", "rglru", "rwkv")
@@ -122,8 +123,8 @@ def _write_state(cache: dict, new: dict) -> None:
 
 
 class Model:
-    """A decoder of config ``cfg`` (layer kinds attn / rglru / rwkv) on
-    ``device``.
+    """A decoder of config ``cfg`` (layer kinds attn / rglru / rwkv, MLP or
+    MoE FFN) on ``device``.
 
     ``sparse_backend`` is handed to every ``sparse_matmul``: 'auto' (the
     kernels on a CUDA device, the plain version on the CPU) or 'ref' (the
@@ -132,10 +133,6 @@ class Model:
     def __init__(self, cfg: ModelConfig, device=None,
                  sparse_backend: str = "auto"):
         kinds = set(layer_kinds(cfg))
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kinds {sorted(kinds)} with MoE are "
-                f"{_LATER}")
         if not kinds <= set(KINDS):
             raise ValueError(f"{cfg.name}: unknown layer kinds "
                              f"{sorted(kinds - set(KINDS))}")
@@ -158,6 +155,8 @@ class Model:
         p["ffn_norm"] = init_norm(cfg.d_model, cfg.norm, device)
         if kind == "rwkv":
             p["cm"] = rwkv6.init_channel_mix(cfg, gen, device)
+        elif cfg.moe is not None:
+            p["moe"] = moe_lib.init_moe(cfg, gen, device)
         else:
             p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gated, gen,
                                 device)
@@ -225,12 +224,14 @@ class Model:
     def _layer(self, kind: str, p: dict, x: Tensor, sp: dict, mode: str,
                cache: Optional[dict] = None, positions=None, pos=None,
                page_table=None, n_tokens=None, backend: str = "auto",
-               kv_splits: int = 1) -> Tensor:
+               kv_splits: int = 1, aux: Optional[dict] = None) -> Tensor:
         """One layer, mixer then FFN, pre-norm residuals. ``mode``: 'train'
         (full sequence, no cache), 'prefill' (full sequence from a fresh
         state, filling ``cache``), 'decode' (one token at ``pos``) or
         'paged' (the engine's mixed step against the slot pools). The new
-        recurrent state is written into ``cache`` in place."""
+        recurrent state is written into ``cache`` in place; an MoE FFN's
+        aux losses are added into ``aux`` where given (the other modes
+        drop them, as the reference does)."""
         cfg, sb = self.cfg, self.sparse_backend
         state = cache
         if mode == "paged" and kind != "attn":
@@ -285,6 +286,14 @@ class Model:
                 f, new["cm"] = rwkv6.apply_channel_mix(
                     p["cm"], h, state["cm"] if carried else None,
                     sp.get("cm"), sb)
+        elif cfg.moe is not None:
+            # the whole (B, S) block is routed, padding of the engine's
+            # tick included, as in the reference: its capacity counts them
+            f, a = moe_lib.apply_moe(p["moe"], h, cfg, sparse=sp.get("moe"),
+                                     backend=sb)
+            if aux is not None:
+                for key in aux:
+                    aux[key] = aux[key] + a[key]
         else:
             f = apply_mlp(p["mlp"], h, cfg.act, cfg.mlp_gated,
                           sparse_weights=sp.get("mlp"), backend=sb)
@@ -298,9 +307,11 @@ class Model:
         b, s = x.shape[0], x.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+        aux = _zero_aux(x.device)
         for kind, p, sp, _ in self._layers(dense, sparse):
-            x = self._layer(kind, p, x, sp, "train", positions=positions)
-        return x, _zero_aux(x.device)
+            x = self._layer(kind, p, x, sp, "train", positions=positions,
+                            aux=aux)
+        return x, aux
 
     def head(self, params, x: Tensor) -> Tensor:
         dense, sparse = _split_params(params)

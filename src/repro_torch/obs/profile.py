@@ -1,14 +1,168 @@
-"""Training telemetry: the phase-tagged JSONL stream and the block-sparsity
-measurements on the serving grid (the training half of
-``repro.obs.profile``). Everything here runs on the host. The kernel
-profiler of the reference comes with ROADMAP Queue 1 item 8b.
+"""Profiling hooks: kernel and engine-tick timers, and the training
+telemetry stream (port of ``repro.obs.profile``).
+
+* ``Profiler``: every public kernel entry of ``repro_torch.kernels``
+  routes through ``kernel_call(name, fn, ...)``, under the reference's
+  names (``bsr_spmm/spmm``, ...), and the engine wraps its step as
+  ``engine/tick_step``. With a profiler active, a kernel call on CUDA
+  tensors is bracketed by two CUDA events recorded on the current stream,
+  read only when the summary is asked for, so the hook never waits for the
+  device; a call on CPU tensors (the plain versions) and the engine tick
+  are timed on the host clock. With no profiler active the hook is one
+  module-global load and a ``None`` check. ``trace_dir`` also records a
+  ``torch.profiler`` run and writes its Chrome trace there.
+* ``TrainTelemetry``: the phase-tagged JSONL stream of training records.
+* The block-sparsity measurements on the serving grid (host side).
 """
 from __future__ import annotations
 
 import json
+import os
+import time
+from typing import Callable, Optional
 
 import numpy as np
+import torch
 
+# the active profiler the kernel hooks consult; None is the free path
+_ACTIVE: Optional["Profiler"] = None
+
+
+def active() -> Optional["Profiler"]:
+    return _ACTIVE
+
+
+def kernel_call(name: str, fn: Callable, *args, **kwargs):
+    """The kernel entry hook: each ``ops.py`` wrapper routes its call
+    through this. With no profiler active it costs one global load and a
+    ``None`` check."""
+    p = _ACTIVE
+    if p is None:
+        return fn(*args, **kwargs)
+    return p.call(name, fn, *args, **kwargs)
+
+
+def _on_cuda(args, kwargs) -> bool:
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, torch.Tensor):
+            return a.is_cuda
+    return False
+
+
+class Profiler:
+    """Kernel-call and tick timers.
+
+    Use as a context manager (``with Profiler() as p: ...; p.summary()``)
+    or by ``start()`` / ``stop()``. One profiler is active at a time (the
+    kernel hooks consult a module global)."""
+
+    def __init__(self, trace_dir: Optional[str] = None):
+        self.records: dict[str, dict] = {}
+        self.trace_dir = trace_dir
+        self._events: list = []          # (name, start, end), read lazily
+        self._torch_prof = None
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> "Profiler":
+        global _ACTIVE
+        _ACTIVE = self
+        if self.trace_dir:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            self._torch_prof = profile(activities=acts)
+            self._torch_prof.__enter__()
+        return self
+
+    def stop(self) -> None:
+        global _ACTIVE
+        if _ACTIVE is self:
+            _ACTIVE = None
+        if self._torch_prof is not None:
+            prof, self._torch_prof = self._torch_prof, None
+            prof.__exit__(None, None, None)
+            os.makedirs(self.trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(self.trace_dir,
+                                                  "trace.json"))
+
+    def __enter__(self) -> "Profiler":
+        return self.start()
+
+    def __exit__(self, *a) -> bool:
+        self.stop()
+        return False
+
+    # -- measurement --------------------------------------------------------
+
+    def _rec(self, name: str) -> dict:
+        r = self.records.get(name)
+        if r is None:
+            r = self.records[name] = {"n_calls": 0, "total_ms": 0.0,
+                                      "max_ms": 0.0, "n_traced": 0}
+        return r
+
+    def _add(self, name: str, dt_ms: float) -> None:
+        r = self._rec(name)
+        r["total_ms"] += dt_ms
+        if dt_ms > r["max_ms"]:
+            r["max_ms"] = dt_ms
+
+    def call(self, name: str, fn: Callable, *args, **kwargs):
+        """Run ``fn(*args, **kwargs)``, timed by CUDA events on the current
+        stream when its first tensor argument lies on a card (read later,
+        by ``summary``), else on the host clock. ``n_traced`` stays 0:
+        PyTorch runs eagerly, there is no trace to count."""
+        if not _on_cuda(args, kwargs):
+            return self.wall(name, fn, *args, **kwargs)
+        self._rec(name)["n_calls"] += 1
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        self._events.append((name, start, end))
+        return out
+
+    def wall(self, name: str, fn: Callable, *args, **kwargs):
+        """Run ``fn`` timed on the host clock (the engine tick, which ends
+        in its own device sync)."""
+        self._rec(name)["n_calls"] += 1
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        self._add(name, (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _drain(self) -> None:
+        for name, start, end in self._events:
+            end.synchronize()
+            self._add(name, start.elapsed_time(end))
+        self._events.clear()
+
+    def summary(self) -> dict:
+        """``{name: {n_calls, total_ms, mean_ms, max_ms, n_traced}}``."""
+        self._drain()
+        out = {}
+        for name, r in self.records.items():
+            out[name] = dict(r, mean_ms=(r["total_ms"] / r["n_calls"]
+                                         if r["n_calls"] else 0.0))
+        return out
+
+    def format_summary(self) -> str:
+        lines = ["profile (kernels: CUDA events on the stream; engine tick: "
+                 "host clock):"]
+        for name, r in sorted(self.summary().items(),
+                              key=lambda kv: -kv[1]["total_ms"]):
+            lines.append(
+                f"  {name:<36} {r['n_calls']:>6} calls "
+                f"{r['total_ms']:>9.1f} ms total {r['mean_ms']:>8.3f} ms/call")
+        return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# training telemetry stream
+# ---------------------------------------------------------------------------
 
 class TrainTelemetry:
     """Append-only JSONL stream of training records: ``emit`` writes one

@@ -149,7 +149,7 @@ class ServeEngine:
     def __init__(self, model, params, config: EngineConfig,
                  sampler: Optional[Callable] = None,
                  generator: Optional[torch.Generator] = None, *,
-                 metrics=None, tracer=None):
+                 metrics=None, tracer=None, profiler=None):
         bad = unsupported_kinds(model)
         if bad:
             raise NotImplementedError(
@@ -169,6 +169,7 @@ class ServeEngine:
         # Prometheus exposition read the same numbers
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.profiler = profiler
         self.pools = init_paged_cache(model, config.total_pages,
                                       config.page_size,
                                       capacity=config.max_batch)
@@ -267,6 +268,19 @@ class ServeEngine:
     def _device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _tick_step(self, plan) -> np.ndarray:
+        """The mixed step of one tick and its sampling: the sampled tokens
+        on the host (the tick's one device sync)."""
+        with torch.inference_mode():
+            logits, self.pools = self.model.paged_step(
+                self.params, self._device(plan.tokens), self.pools,
+                self._device(self.scheduler.page_table()),
+                self._device(plan.start_pos), self._device(plan.n_tokens),
+                backend=self.config.attn_backend,
+                kv_splits=self.config.kv_splits)
+            sampled = self._sampler(logits, self._generator)
+        return sampled.cpu().numpy()
+
     def step(self) -> list[dict]:
         """Run one tick; returns the requests that finished during it."""
         tracer = self.tracer
@@ -285,16 +299,11 @@ class ServeEngine:
         self.tick_widths.add(plan.width)
         n_tok = int(plan.n_tokens.sum())
         with tracer.span("step", width=plan.width, tokens=n_tok):
-            with torch.inference_mode():
-                logits, self.pools = self.model.paged_step(
-                    self.params, self._device(plan.tokens), self.pools,
-                    self._device(self.scheduler.page_table()),
-                    self._device(plan.start_pos),
-                    self._device(plan.n_tokens),
-                    backend=self.config.attn_backend,
-                    kv_splits=self.config.kv_splits)
-                sampled = self._sampler(logits, self._generator)
-            sampled = sampled.cpu().numpy()  # the tick's one device sync
+            if self.profiler is not None:
+                sampled = self.profiler.wall("engine/tick_step",
+                                             self._tick_step, plan)
+            else:
+                sampled = self._tick_step(plan)
         self._m_ticks.inc(width=str(plan.width))
         self._m_tick_tokens.observe(n_tok)
         self._m_sampler_batch.observe(len(plan.samples))

@@ -301,33 +301,43 @@ def _out_in_view(path: str, t: torch.Tensor) -> Optional[torch.Tensor]:
     return None
 
 
-def _prune_to_bcsr(view: torch.Tensor, block: tuple[int, int],
-                   sparsity: float) -> BlockCSR:
-    """``dense_to_bcsr(_prune_blocks_2d(view, block, sparsity), block)`` in
-    torch on ``view``'s device: the same float64 block norms and stable
-    sort (the masks agree up to ties closer than float64 rounding), the
-    index tables built on the host from the (R, C) block occupancy alone,
-    and only the kept blocks copied."""
+def _prune_to_bcsr(views: torch.Tensor, block: tuple[int, int],
+                   sparsity: float) -> list:
+    """``dense_to_bcsr(_prune_blocks_2d(v, block, sparsity), block)`` for
+    each (out, in) view v of the stack ``views`` (n, out, in), in torch on
+    their device: the same float64 block norms and stable sort (the masks
+    agree up to ties closer than float64 rounding), one transfer of the
+    (n, R, C) block occupancy to the host, where the index tables are
+    built from it alone, and only the kept blocks copied. A stack is one
+    layer's experts, or a single matrix."""
     br, bc = block
-    r, c = view.shape
+    n, r, c = views.shape
     n_r, n_c = -(-r // br), -(-c // bc)
-    padded = torch.nn.functional.pad(view, (0, n_c * bc - c, 0, n_r * br - r))
-    blocks = padded.reshape(n_r, br, n_c, bc).permute(0, 2, 1, 3)
+    padded = torch.nn.functional.pad(views, (0, n_c * bc - c, 0, n_r * br - r))
+    blocks = padded.reshape(n, n_r, br, n_c, bc).permute(0, 1, 3, 2, 4)
     sq = blocks.double()
     sq.square_()
-    norms = sq.sum((2, 3)).sqrt_().reshape(-1)
+    norms = sq.sum((3, 4)).sqrt_().reshape(n, -1)
     del sq
-    keep = torch.ones(norms.numel(), dtype=torch.bool, device=view.device)
-    k = int(round(sparsity * norms.numel()))
+    keep = torch.ones(norms.shape, dtype=torch.bool, device=views.device)
+    k = int(round(sparsity * norms.shape[1]))
     if k > 0:
-        keep[torch.argsort(norms, stable=True)[:k]] = False
+        keep.scatter_(1, torch.argsort(norms, dim=1, stable=True)[:, :k],
+                      False)
     # dense_to_bcsr keeps the blocks with any nonzero
-    occupied = keep.reshape(n_r, n_c) & blocks.ne(0).flatten(2).any(2)
-    tables = dense_to_bcsr(occupied.cpu().numpy(), (1, 1))
-    rows, cols = occupied.nonzero(as_tuple=True)     # row-major, as np.nonzero
-    data = torch.cat([view.new_zeros(1, br, bc), blocks[rows, cols]])
-    return dataclasses.replace(tables.to(view.device), data=data,
-                               shape=(r, c), block=(br, bc))
+    occupied = keep.reshape(n, n_r, n_c) & blocks.ne(0).flatten(3).any(3)
+    host = occupied.cpu().numpy()
+    # (slice, row, col) in row-major order within each slice, as np.nonzero
+    kept = blocks[occupied.nonzero(as_tuple=True)]
+    out, start = [], 0
+    for occ in host:
+        tables = dense_to_bcsr(occ, (1, 1))
+        end = start + tables.n_blocks
+        data = torch.cat([views.new_zeros(1, br, bc), kept[start:end]])
+        start = end
+        out.append(dataclasses.replace(tables.to(views.device), data=data,
+                                       shape=(r, c), block=(br, bc)))
+    return out
 
 
 def init_compressed(model, plan: Optional[CompressionPlan] = None,
@@ -342,7 +352,8 @@ def init_compressed(model, plan: Optional[CompressionPlan] = None,
     slot_multiple, quantize_bits); a matrix that stays dense is rebuilt,
     pruned, from its slices. At recurrentgemma-9b (8.5B parameters) one
     super-block is dense at a time, where the host path holds the f32
-    model (34 GB) and walks it in numpy."""
+    model (34 GB) and walks it in numpy; an MoE layer's expert stacks are
+    pruned as one batch each (olmoe-1b-7b: 64 slices of 1024 x 2048)."""
     plan = plan or CompressionPlan()
     slices: dict = {}        # path -> (stored shape of a slice, [BlockCSR])
 
@@ -353,7 +364,7 @@ def init_compressed(model, plan: Optional[CompressionPlan] = None,
             return t
         block = plan.block_for(path)
         slices.setdefault(path, (flat.shape[1:], []))[1].extend(
-            _prune_to_bcsr(v, block, sparsity) for v in views)
+            _prune_to_bcsr(torch.stack(views), block, sparsity))
         return _placeholder(t, lead)
 
     def part(group: str, tree):
@@ -403,8 +414,9 @@ def quantize_bcsr(m: BlockCSR, bits: int, iters: int = 25) -> PaletteBCSR:
     Each leading-axis slice (layer, expert) gets its own palette: the
     nonzero entries are clustered to 2**bits - 1 values and code 0 is kept
     for exact zero, so intra-block zeros, the pad slot and padding slots
-    reproduce exactly and the index tables are shared unchanged. At 4 bits
-    the codes are nibble-packed two per byte."""
+    reproduce exactly and the index tables are shared unchanged. All slices
+    are clustered at once (``kmeans_palettes``). At 4 bits the codes are
+    nibble-packed two per byte."""
     if bits not in (4, 8):
         raise ValueError(f"palette bits must be 4 or 8, got {bits}")
     if bits == 4 and m.block[1] % 2:
@@ -413,16 +425,12 @@ def quantize_bcsr(m: BlockCSR, bits: int, iters: int = 25) -> PaletteBCSR:
     lead = tuple(data.shape[:-3])
     slices = data.reshape((-1,) + tuple(data.shape[-3:])) if lead else data[None]
     n_levels = (1 << bits) - 1                  # code 0 is reserved for 0.0
-    codes_l, pal_l = [], []
-    for sl in slices:
-        palette, _, assign = quantize_lib.kmeans_palette(sl, n_levels,
-                                                         iters=iters)
-        codes = torch.where(sl.reshape(-1) != 0, assign.long() + 1,
-                            torch.zeros_like(assign, dtype=torch.long))
-        codes_l.append(codes.to(torch.uint8).reshape(sl.shape))
-        pal_l.append(torch.cat([palette.new_zeros(1), palette]))
-    codes = torch.stack(codes_l).reshape(data.shape)
-    pal = torch.stack(pal_l).reshape(lead + (1 << bits,))
+    palettes, assign = quantize_lib.kmeans_palettes(slices, n_levels,
+                                                    iters=iters)
+    codes = torch.where(slices.reshape(assign.shape) != 0, assign + 1, 0)
+    codes = codes.to(torch.uint8).reshape(data.shape)
+    pal = torch.cat([palettes.new_zeros(palettes.shape[0], 1), palettes], 1)
+    pal = pal.reshape(lead + (1 << bits,))
     if bits == 4:
         codes = pack_uint4(codes)
     return PaletteBCSR(

@@ -27,6 +27,13 @@ allowed so the two can be compared on the card.
 
 A ``PaletteBCSR`` is serving-only: dx goes through ``w.dequantize()`` and
 the weight gets no gradient.
+
+A 3-D x (E, M, K) with an E-stacked w (one (out, in) slice per expert, the
+MoE FFN's compressed experts) gives ``y[e] = x[e] @ w[e].T``: one launch of
+``spmm_experts`` / ``spmm_palette_experts`` for all E on the kernel path,
+the reference's ``lax.map`` over experts on the plain path. It is
+forward-only: MoE training through compressed experts (the expert-axis
+``spmm_t`` and SDDMM) is ROADMAP Queue 1 item 8c.
 """
 from __future__ import annotations
 
@@ -52,6 +59,13 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
 
 def _forward(x: torch.Tensor, w, backend: str) -> torch.Tensor:
     quantized = isinstance(w, PaletteBCSR)
+    if x.dim() == 3:
+        if backend == "cuda":
+            return (kops.spmm_palette_experts(x, w) if quantized
+                    else kops.spmm_experts(x, w))
+        y = (kref.spmm_palette_experts_fwd_ref(x, w) if quantized
+             else kref.spmm_experts_fwd_ref(x, w))
+        return y.to(x.dtype)
     if backend == "cuda":
         return kops.spmm_palette(x, w) if quantized else kops.spmm(x, w)
     y = kref.spmm_palette_fwd_ref(x, w) if quantized else kref.spmm_fwd_ref(x, w)
@@ -111,8 +125,17 @@ class _PaletteMatmul(torch.autograd.Function):
 
 def sparse_matmul(x: torch.Tensor, w, backend: str = "auto") -> torch.Tensor:
     """y = x @ w.T for a compressed w (the paper's dense x compressed').
-    Differentiable in x and, for a BlockCSR, in ``w.data``."""
+    Differentiable in x and, for a BlockCSR, in ``w.data``; a 3-D x against
+    E-stacked experts is forward-only."""
     backend = resolve_backend(backend, x)
+    if x.dim() == 3:
+        store = w.codes if isinstance(w, PaletteBCSR) else w.data
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or store.requires_grad):
+            raise NotImplementedError(
+                "gradients through compressed MoE experts are not ported "
+                "yet: they come with MoE training (ROADMAP Queue 1 item 8c)")
+        return _forward(x, w, backend)
     if torch.is_grad_enabled():
         if isinstance(w, PaletteBCSR):
             if x.requires_grad:

@@ -37,7 +37,7 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "minitron-8b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "minitron-8b", "olmoe-1b-7b"])
 @pytest.mark.parametrize("plan_i", [0, 1])
 def test_prune_and_compress_identical(arch, plan_i):
     plan = PLANS[plan_i]
@@ -119,3 +119,40 @@ def test_kmeans_edge_cases():
     pal, q, a = kmeans_palette(w, 7)
     assert torch.equal(q, w)
     assert {float(v) for v in pal[a[w != 0].long()]} == {1.0, 2.0}
+
+
+@pytest.mark.parametrize("chunk", [5, 64, 1 << 15])
+def test_kmeans_palette_chunked_matches_reference(chunk):
+    """The final assignment (zeros included) is taken chunk by chunk, as
+    in the reference: every chunk size gives the reference's palette,
+    quantized weight and assignment (palette within 1e-6, the rest
+    exact)."""
+    from repro.core.quantize import kmeans_palette as jax_kmeans_palette
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((24, 40)).astype(np.float32)
+    w[rng.random(w.shape) < 0.6] = 0.0
+    pal, q, a = kmeans_palette(torch.from_numpy(w), 16, chunk=chunk)
+    jp, jq, ja = (np.asarray(v) for v in
+                  jax_kmeans_palette(jax.numpy.asarray(w), 16, chunk=chunk))
+    np.testing.assert_allclose(pal.numpy(), jp, atol=1e-6)
+    np.testing.assert_array_equal(a.numpy(), ja.reshape(-1))
+    np.testing.assert_allclose(q.numpy(), jq, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_nearest_sorted_is_the_full_argmin(seed):
+    """The card's k-means assignment (a binary search in each sorted
+    palette) picks what the full argmin picks, first index on ties: values
+    on palette entries, on midpoints, past both ends, and runs of equal
+    entries (a cluster left empty keeps its value)."""
+    from repro_torch.core.quantize import nearest_sorted
+    g = torch.Generator().manual_seed(seed)
+    for p in (2, 15, 255):
+        pal = torch.sort(torch.randn(3, p, generator=g), dim=1).values
+        if p > 4:
+            pal[:, 2:5] = pal[:, 2:3]
+        v = torch.randn(3, 600, generator=g) * 2
+        v[:, :p] = pal
+        v[:, p:2 * p - 1] = (pal[:, 1:] + pal[:, :-1]) / 2
+        want = torch.argmin((v[..., None] - pal[:, None, :]).abs(), dim=-1)
+        assert torch.equal(nearest_sorted(v, pal), want)

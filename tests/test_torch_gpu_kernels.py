@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels.bsr_spmm import ops, ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
-from repro_torch.sparse.compress import quantize_bcsr
+from repro_torch.sparse.compress import CompressionPlan, _pad_stack, quantize_bcsr
 from repro_torch.sparse.formats import dense_to_bcsr
 
 # f32 accumulation of the same products in another order
@@ -682,3 +682,118 @@ def test_cuda_prox_adam_unaligned_view():
     adam_ops.fused_update_leaf(w, g, m, v, sc)
     torch.cuda.synchronize()
     torch.testing.assert_close(w, want[0], atol=1e-6, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The expert axis: one launch of the forward kernels over E stacked
+# matrices (the MoE FFN's compressed experts)
+# ---------------------------------------------------------------------------
+
+def _expert_stack(rng, e, n, k, block, dev, store="float32"):
+    """E BlockCSR slices of (n, k) at block densities 0.05-0.5 (expert 0
+    all zero), padded to common widths and stacked as the compression
+    stacks them; ``store`` "float32", "bfloat16", "palette8", "palette4"."""
+    ms = [dense_to_bcsr(_block_sparse(rng, n, k, block, 0.0 if i == 0 else
+                                      0.05 + 0.45 * i / e), block)
+          for i in range(e)]
+    w = _pad_stack(ms, CompressionPlan(min_sparsity=0.0), (e,),
+                   1 << 40).to(dev)
+    if store.startswith("palette"):
+        return quantize_bcsr(w, int(store[7:]))
+    return dataclasses.replace(w, data=w.data.to(getattr(torch, store)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16", "palette8",
+                                   "palette4"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 40])
+@pytest.mark.parametrize("n,k,block", [(256, 384, (8, 128)),
+                                       (100, 70, (8, 64)), (96, 160, (32, 32))])
+def test_cuda_spmm_experts_matches_plain_and_singles(store, x_dtype, m, n, k,
+                                                     block):
+    """``spmm_experts`` / ``spmm_palette_experts`` over 5 experts on the
+    kernel M picks: one launch, counted under the expert wrapper and its
+    variant; within tolerance of the plain version (a loop of the
+    single-matrix plain version) and of the single-matrix wrapper on each
+    expert's slice (bit-equal for the tile kernel; the decode kernel gives
+    a stack's block-rows as many warps as its mean row holds, a single
+    matrix as many as its widest, so their sums are grouped apart)."""
+    dev = _cuda()
+    rng = np.random.default_rng(31)
+    e = 5
+    w = _expert_stack(rng, e, n, k, block, dev, store)
+    palette = store.startswith("palette")
+    wrapper = "spmm_palette_experts" if palette else "spmm_experts"
+    plain = (ref.spmm_palette_experts_fwd_ref if palette
+             else ref.spmm_experts_fwd_ref)
+    x = torch.tensor(rng.normal(size=(e, m, k)), dtype=x_dtype, device=dev)
+    kern = ops.pick_kernel(m)
+    before, var = ops.launches[wrapper], ops.variant_launches[f"{wrapper}_{kern}"]
+    got = getattr(ops, wrapper)(x, w)
+    torch.cuda.synchronize()
+    assert ops.launches[wrapper] == before + 1
+    assert ops.variant_launches[f"{wrapper}_{kern}"] == var + 1
+    assert got.shape == (e, m, n) and got.dtype == torch.float32
+    torch.testing.assert_close(got, plain(x, w), atol=ATOL, rtol=RTOL)
+    single = ops.spmm_palette if palette else ops.spmm
+    for i in range(e):
+        if kern == "tile":
+            assert torch.equal(got[i], single(x[i], w[i]))
+        else:
+            torch.testing.assert_close(got[i], single(x[i], w[i]), atol=ATOL,
+                                       rtol=RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["decode", "tile"])
+@pytest.mark.parametrize("store", ["float32", "bfloat16", "palette8",
+                                   "palette4"])
+def test_cuda_spmm_experts_one_expert_is_the_single_call(kernel, store):
+    """E = 1, forced onto each kernel: bit-equal to the single-matrix call
+    on the same slice, f32 and bf16 x."""
+    dev = _cuda()
+    rng = np.random.default_rng(32)
+    w = _expert_stack(rng, 2, 2048, 1024, (8, 128), dev, store)
+    w1 = w.map(lambda t: t[1:2].contiguous())
+    for dt in (torch.float32, torch.bfloat16):
+        for m in (4, 40):
+            x = torch.tensor(rng.normal(size=(1, m, 1024)), dtype=dt,
+                             device=dev)
+            got = ops._fwd(x, w1, kernel)
+            want = ops._fwd(x[0], w1[0], kernel)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want)
+
+
+@pytest.mark.gpu
+def test_cuda_spmm_experts_rejects_mismatched_stacks():
+    dev = _cuda()
+    rng = np.random.default_rng(33)
+    w = _expert_stack(rng, 3, 64, 128, (8, 64), dev)
+    with pytest.raises(ValueError):
+        ops.spmm_experts(torch.ones(2, 4, 128, device=dev), w)   # 2 != 3
+    with pytest.raises(ValueError):
+        ops.spmm(torch.ones(4, 128, device=dev), w)              # a stack
+    with pytest.raises(ValueError):
+        ops.spmm_experts(torch.ones(4, 128, device=dev), w)      # 2-D x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_palettes_match_the_cpu(bits):
+    """``quantize_bcsr`` of an expert stack on the card (atomic sums, the
+    assignment by ``nearest_sorted``) against the same on the CPU (ordered
+    sums, the full argmin): palettes within 1e-3 (the weights are O(1),
+    8-bit palette entries about 0.03 apart, clusters of about 100 values:
+    a value the two sums' rounding moves across a boundary shifts its two
+    clusters' means by about 3e-4), codes equal but for a few such
+    entries."""
+    dev = _cuda()
+    rng = np.random.default_rng(34)
+    w = _expert_stack(rng, 6, 256, 384, (8, 128), "cpu")
+    q_cpu, q_dev = quantize_bcsr(w, bits), quantize_bcsr(w.to(dev), bits)
+    torch.testing.assert_close(q_dev.palette.cpu(), q_cpu.palette,
+                               atol=1e-3, rtol=0)
+    same = (q_dev.codes.cpu() == q_cpu.codes).float().mean()
+    assert float(same) > 0.999

@@ -4,7 +4,8 @@ part on the params' device, the path of ``launch/serve --sparse``) against
 host numpy path, which tests/test_torch_compress.py holds against the JAX
 package) on reduced models: the same dense residue, masks, tables and
 block data, leaf for leaf, under plans that compress, that fall back to
-dense, that pad slot counts and that quantize."""
+dense, that pad slot counts and that quantize; the MoE family's expert
+stacks as (L, E) stacks of slices, one palette per (layer, expert)."""
 import dataclasses
 
 import pytest
@@ -14,7 +15,8 @@ from repro_torch.models.model_zoo import build
 from repro_torch.sparse import compress as tc
 from repro_torch.sparse.formats import is_bcsr
 
-ARCHS = ["smollm-360m", "rwkv6-3b", "recurrentgemma-9b"]
+ARCHS = ["smollm-360m", "rwkv6-3b", "recurrentgemma-9b", "olmoe-1b-7b",
+         "llama4-scout-17b-a16e"]
 PLANS = {
     "bcsr": (tc.CompressionPlan(), 0.8),
     "block_8x64": (tc.CompressionPlan(block=(8, 64), min_sparsity=0.3), 0.5),

@@ -1,8 +1,10 @@
 """Reduced-model logits of repro_torch against repro: the full-sequence
 forward, prefill and a decode step agree within 1e-4 (reduced configs run
-in f32), for dense and BlockCSR weights carried across, and for the
-recurrent families (rwkv6-3b, recurrentgemma-9b) also PaletteBCSR at 8 and
-4 bits (smollm-360m's PaletteBCSR in test_torch_model_palette.py)."""
+in f32), for dense and BlockCSR weights carried across, for the recurrent
+families (rwkv6-3b, recurrentgemma-9b) also PaletteBCSR at 8 and 4 bits
+(smollm-360m's PaletteBCSR in test_torch_model_palette.py), for the MoE
+family with dense, BlockCSR and PaletteBCSR-8 experts, and for the
+frontend architectures fed (B, S, d) embeddings."""
 import jax  # noqa: F401  (both packages in one process, JAX on the CPU)
 import pytest
 import torch
@@ -19,7 +21,17 @@ CASES = [  # (arch, weights, block)
 ] + [(arch, weights, block)                    # the recurrent families
      for arch in ("rwkv6-3b", "recurrentgemma-9b")
      for weights, block in (("dense", None), ("bcsr", (8, 64)),
-                            ("pal8", (8, 64)), ("pal4", (8, 64)))]
+                            ("pal8", (8, 64)), ("pal4", (8, 64)))] + [
+    ("olmoe-1b-7b", "dense", None),            # 4 experts, top-2
+    ("olmoe-1b-7b", "bcsr", (8, 64)),          # E-stacked expert BCSR
+    ("olmoe-1b-7b", "pal8", (8, 64)),          # a palette per expert
+    ("llama4-scout-17b-a16e", "dense", None),  # top-1, shared expert
+    ("llama4-scout-17b-a16e", "bcsr", (8, 64)),
+    ("paligemma-3b", "dense", None),           # (B, S, d) embeddings
+    ("paligemma-3b", "bcsr", (8, 64)),
+    ("musicgen-medium", "dense", None),
+    ("musicgen-medium", "bcsr", (8, 64)),
+]
 
 
 @pytest.mark.parametrize("arch,weights,block", CASES)
@@ -27,10 +39,17 @@ def test_logits_match_jax(arch, weights, block):
     check_logits_match(arch, weights, block)
 
 
-def test_unported_layer_kinds_raise():
-    for arch in ("olmoe-1b-7b",):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-            build(arch, reduced=True, device="cpu")
+def test_train_cli_refuses_moe_naming_item_8c():
+    """Every layer kind builds now; what is left of MoE is training, which
+    ``launch/train`` refuses (compressed or not) with the ROADMAP item
+    that ports it."""
+    from repro_torch.launch import train
+    for arch in ("olmoe-1b-7b", "llama4-scout-17b-a16e"):
+        build(arch, reduced=True, device="cpu")
+        for extra in ([], ["--sparse", "--compress", "group_l1:0.1"]):
+            with pytest.raises(SystemExit, match="Queue 1 item 8c"):
+                train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                            "--steps", "1", *extra])
 
 
 def test_cuda_default_without_card_raises():

@@ -85,8 +85,6 @@ def test_cli_serves_jax_checkpoint(tmp_path, capsys):
 
 
 def test_cli_rejects_what_is_not_ported(tmp_path):
-    with pytest.raises(SystemExit, match="Queue 1 item 8"):
-        serve.main(BASE + ["--engine", "--profile"])
     with pytest.raises(SystemExit, match="Queue 1 item 11"):
         serve.main(BASE + ["--engine", "--replicas=2"])
     with pytest.raises(SystemExit, match="Queue 1 item 12"):

@@ -85,14 +85,24 @@ def jax_reduced_params(model, weights: str, block, seed: int, sparsity=0.8):
 
 def check_logits_match(arch: str, weights: str, block, tol: float = 1e-4):
     """apply_train, prefill and one decode step of the reduced ``arch``
-    agree with the JAX package within ``tol`` on the same weights."""
+    agree with the JAX package within ``tol`` on the same weights. An arch
+    with a frontend (paligemma-3b, musicgen-medium) is fed (B, S, d)
+    embeddings drawn with numpy in place of token ids, as its frontend
+    stand-in provides them."""
     jm = jax_build(arch, reduced=True)
     tm = build(arch, reduced=True, device="cpu")
     jp = jax_reduced_params(jm, weights, block, seed=1)
     tp = to_port(jp)
     rng = np.random.default_rng(2)
     b, s = 2, 8
-    prompt = rng.integers(0, jm.cfg.vocab, size=(b, s)).astype(np.int32)
+
+    def inputs(n):
+        if jm.cfg.frontend != "none":
+            return (0.02 * rng.normal(size=(b, n, jm.cfg.d_model))).astype(
+                np.float32)
+        return rng.integers(0, jm.cfg.vocab, size=(b, n)).astype(np.int32)
+
+    prompt = inputs(s)
     tprompt = torch.tensor(prompt)
 
     j_train, _ = jm.apply_train(jp, {"inputs": jnp.asarray(prompt)})
@@ -104,7 +114,7 @@ def check_logits_match(arch: str, weights: str, block, tol: float = 1e-4):
     assert tl.dtype == torch.float32 and tl.shape == (b, jm.cfg.vocab)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=tol)
 
-    tok = rng.integers(0, jm.cfg.vocab, size=(b, 1)).astype(np.int32)
+    tok = inputs(1)
     jd, _ = jm.decode_step(jp, jnp.asarray(tok), jcache, jnp.int32(s))
     td, _ = tm.decode_step(tp, torch.tensor(tok), tcache, s)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=tol)
