@@ -45,6 +45,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and a prefix-cache run (shared prefix, copy-on-write boundary page)
      against the same requests without the cache; and where a bf16 engine
      run's time goes over a window of its ticks (torch.profiler);
+ 7b. router: the same mix through ``launch/serve --engine --replicas N
+     --route least-loaded`` (N engine replicas, each a worker thread on
+     its own CUDA stream, one copy of the weights) for N = 2 and 4 in bf16
+     at full depth, beside the single engine, with the launch counters
+     held to the replicas' ticks; the mix through ``Router.build`` for N =
+     1, 2 and 4 unprofiled (at N = 1 in turn with one engine, for the
+     router's own cost; allocated device memory while serving held to N
+     ticks' activations), the live allocations at the N = 4 peak by stream and
+     by allocating line (the allocator's trace), and a run with two
+     windows: the device busy share (the union of the device events'
+     intervals, torch.profiler alone) and the launch counters held to the
+     kernel-call profiler's counts (``--profile``'s); ``Router.build``
+     growing device memory by the replicas' pools only; in f32 at 4
+     layers, a 2-replica
+     fleet whose replica 0 fails after 4 tokens streams ``generate``'s
+     tokens with contiguous indices, and the prefix route puts requests
+     sharing a 4-page prefix on one replica, which hits its cache;
   8. train kernels: the training kernels at smollm-360m's seven
      projection shapes (M = 512 rows, (8, 128) blocks at 0.9 block
      sparsity, a bf16 block store, f32 and bf16 activations): ``spmm_t``
@@ -127,9 +144,11 @@ when no CUDA device is visible.
 """
 from __future__ import annotations
 
+import asyncio
 import collections
 import contextlib
 import dataclasses
+import faulthandler
 import functools
 import io
 import json
@@ -161,8 +180,10 @@ from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.model_zoo import build  # noqa: E402
+from repro_torch.obs.profile import Profiler  # noqa: E402
 from repro_torch.serve import api  # noqa: E402
-from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import HOST_LOCK, EngineConfig, ServeEngine  # noqa: E402
+from repro_torch.serve.router import Router  # noqa: E402
 from repro_torch.serve.step import generate  # noqa: E402
 from repro_torch.sparse import ops as sparse_ops  # noqa: E402
 from repro_torch.core.metrics import model_size_bytes  # noqa: E402
@@ -255,6 +276,23 @@ PREFIX_LEN = 64           # shared by the prefix-cache run's 8 requests
 # The engine profile's window: ticks 30-41 of the mix's 94, 7 prefill
 # ticks (width 32) and 5 decode ticks (width 1), near the run's 50 to 44.
 PROFILE_TICKS = (30, 42)
+# The router phase: the engine mix through N replicas (one worker thread
+# and CUDA stream each) at full depth in bf16. The fleet's streamed tokens
+# (of 512) mark two windows: ROUTER_BUSY_WINDOW, where torch.profiler alone
+# records the device (the busy share), and ROUTER_COUNT_WINDOW, where the
+# kernel-call profiler's counts are held to the launch counters.
+# Router.build may grow device memory by the replicas' pools and at most
+# ROUTER_MEM_SLACK more (the allocator rounds each of a replica's 64 pool
+# tensors up to 512 bytes; 4 MiB is far above that); serving N replicas
+# may add at most N times what one replica's serving adds, and
+# ROUTER_MEM_SLACK. Failover fails replica 0 once it has streamed
+# ROUTER_FAIL_AFTER tokens.
+ROUTER_REPLICAS = (2, 4)
+ROUTER_BUSY_WINDOW = (128, 192)
+ROUTER_COUNT_WINDOW = (256, 320)
+ROUTER_MEM_SLACK = 4 * 2**20
+ROUTER_TRACE_ENTRIES = 3_000_000     # the allocator trace of the N = 4 run
+ROUTER_FAIL_AFTER = 4
 # Training at smollm-360m's width: M = 512 rows (batch 8 x seq 64).
 TRAIN_BATCH, TRAIN_SEQ = 8, 64
 TRAIN_M = TRAIN_BATCH * TRAIN_SEQ
@@ -1083,6 +1121,8 @@ def _engine_cli_run(tag: str, extra: list, req_file: Path,
             str(OUT_DIR / f"engine_{tag}.prom"), "--trace-out",
             str(OUT_DIR / f"engine_{tag}.trace.json"), *extra]
     buf = io.StringIO()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     paged_ops.reset_launches()
@@ -1096,7 +1136,8 @@ def _engine_cli_run(tag: str, extra: list, req_file: Path,
     for line in buf.getvalue().splitlines()[-6:]:
         log(f"  {line}")
     s = out["stats"]
-    log(f"  launches {counts}, peak memory {peak / 2**30:.2f} GiB, run "
+    log(f"  launches {counts}, peak memory {peak / 2**30:.2f} GiB ("
+        f"{before} bytes allocated before the run), run "
         f"{time.perf_counter() - t0:.1f} s")
     if s["n_requests"] != len(ENGINE_PROMPTS) or \
             s["n_generated"] != len(ENGINE_PROMPTS) * ENGINE_GEN:
@@ -1156,12 +1197,15 @@ def _divergence_ok(model, params, prompt, ref_tokens, got_tokens,
     return t
 
 
+def _engine_config(requests, **kw) -> EngineConfig:
+    return EngineConfig(max_batch=MAX_BATCH, prefill_chunk=CHUNK,
+                        page_size=PAGE, max_seq_len=max(
+                            len(r.prompt) + r.max_new_tokens
+                            for r in requests), **kw)
+
+
 def _engine(model, params, requests, **kw) -> ServeEngine:
-    max_seq = max(len(r.prompt) + r.max_new_tokens for r in requests)
-    return ServeEngine(model, params, EngineConfig(
-        max_batch=MAX_BATCH, prefill_chunk=CHUNK, page_size=PAGE,
-        max_seq_len=max_seq,
-        **kw))
+    return ServeEngine(model, params, _engine_config(requests, **kw))
 
 
 def _profile_engine_window(make_engine, requests, ticks=PROFILE_TICKS) -> None:
@@ -1221,6 +1265,8 @@ def engine_phase(dev, formats) -> dict:
             f"pool {s['kv_page_bytes']} bytes, peak memory "
             f"{peak / 2**30:.2f} GiB")
         main_counts[fmt] = counts["paged_flash_fwd"]
+        if fmt == "bcsr":
+            single = {"stats": s, "peak": peak}
 
     phase("engine: bf16 profile")
     model = build(cfg, device=dev)
@@ -1251,6 +1297,8 @@ def engine_phase(dev, formats) -> dict:
             matched += _divergence_ok(kernel_f32, params, r.prompt, ref_toks,
                                       out["results"][rid],
                                       f"{fmt} engine vs generate rid {rid}")
+            if fmt == "bcsr":
+                single.setdefault("generate", {})[rid] = ref_toks.tolist()
         log(f"{fmt}: f32 engine {matched}/{len(requests) * ENGINE_GEN} tokens "
             f"match generate on the kernel path ({ticks} ticks, "
             f"{out['stats']['tok_s']:.1f} tok/s)")
@@ -1288,7 +1336,424 @@ def engine_phase(dev, formats) -> dict:
     log(f"bcsr: f32 engine with prefix cache ({hit} prompt tokens hit, {cow} "
         f"copy-on-write pages): {matched}/{len(prefix_reqs) * ENGINE_GEN} "
         "tokens match the run without it")
-    return main_counts
+    return main_counts, single
+
+
+# ---------------------------------------------------------------------------
+# router
+# ---------------------------------------------------------------------------
+
+def _router_cli_run(n: int) -> dict:
+    """The engine mix through ``launch/serve --engine --replicas n --route
+    least-loaded`` (bf16 BCSR, full depth): the fleet's stats, launch
+    counters held to the replicas' ticks, peak memory."""
+    counts, s, peak = _engine_cli_run(
+        f"router{n}", ["--replicas", str(n), "--route", "least-loaded"],
+        OUT_DIR / "engine_requests.json")
+    ticks = [r["n_ticks"] for r in s["per_replica"]]
+    layers = get_config(ARCH).n_layers
+    if s["n_replicas"] != n or s["n_failed_replicas"] or \
+            counts["paged_flash_fwd"] != layers * sum(ticks) or \
+            counts["spmm"] != 7 * layers * sum(ticks) or \
+            counts["spmm_palette"]:
+        raise SystemExit(f"router {n}: launches {counts} over ticks {ticks}, "
+                         f"expected {layers * sum(ticks)} paged and "
+                         f"{7 * layers * sum(ticks)} spmm; stats {s}")
+    return {"stats": s, "ticks": ticks, "peak": peak, "counts": counts}
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _device_busy(prof, path: Path) -> tuple:
+    """(summed device seconds, seconds the device ran any kernel, copy or
+    memset, {kernel name: count}) of a finished ``torch.profiler`` run,
+    read from its Chrome trace (written to ``path``: kineto writes it
+    natively, faster than Python builds an event for each). Replicas' work
+    overlaps on their streams, so the busy time is the union of the
+    events' intervals, not their sum."""
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    if not events:
+        raise SystemExit("the profiler recorded no device kernel")
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events)
+    total = sum(b - a for a, b in spans)
+    union, (lo, hi) = 0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            union, lo = union + hi - lo, a
+        hi = max(hi, b)
+    kernels = collections.Counter(e["name"] for e in events
+                                  if e["cat"] == "kernel")
+    return total / 1e6, (union + hi - lo) / 1e6, kernels
+
+
+class _Marks:
+    """Marks on a fleet's streamed tokens: ``stream``, the router's stream
+    callback (it runs in the event loop thread), counts every token of
+    the fleet; ``await reached(k)`` returns once the k-th has streamed, and
+    ``at[k]`` is the host clock then."""
+
+    def __init__(self, *ks):
+        self.n = 0
+        self.at = {}
+        self._reached = {k: asyncio.Event() for k in ks}
+
+    def stream(self, event) -> None:
+        self.n += 1
+        if self.n in self._reached:
+            self.at[self.n] = time.perf_counter()
+            self._reached[self.n].set()
+
+    async def reached(self, k: int) -> None:
+        await self._reached[k].wait()
+
+
+def _router_flow(fleet, waves, stream=None, fail=None, during=None) -> tuple:
+    """Serve ``waves`` (lists of requests, each awaited before the next)
+    through ``fleet``: (completions, the wall time from the first submit
+    to the last completion). ``stream`` gets every ``StreamEvent``;
+    ``fail`` = (replica, tokens) arms a failure; ``during`` (a coroutine
+    function) runs beside the first wave."""
+    async def flow():
+        await fleet.start()
+        if fail is not None:
+            fleet.fail_replica_after(*fail)
+        t0 = time.perf_counter()
+        comps = []
+        for i, wave in enumerate(waves):
+            futs = [await fleet.submit(r, stream=stream) for r in wave]
+            if i == 0 and during is not None:
+                await during()
+            comps += await asyncio.gather(*futs)
+        wall = time.perf_counter() - t0
+        await fleet.stop()
+        return comps, wall
+
+    return asyncio.run(flow())
+
+
+def _router_run(model, params, requests, n: int) -> dict:
+    """The engine mix through ``Router.build(..., n)`` (least-loaded),
+    unprofiled: the fleet's stats, the host clock at the busy window's
+    marks, and how far allocated device memory rose while serving above
+    what it was after the build (weights, head memo, pools)."""
+    fleet = Router.build(model, params, _engine_config(requests), n,
+                         policy="least-loaded")
+    marks = _Marks(*ROUTER_BUSY_WINDOW)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    comps, wall = _router_flow(fleet, [requests], marks.stream)
+    s = fleet.fleet_stats(wall, comps)
+    first, last = ROUTER_BUSY_WINDOW
+    return {"stats": s, "ticks": [r["n_ticks"] for r in s["per_replica"]],
+            "base": base, "rise": torch.cuda.max_memory_allocated() - base,
+            "busy_wall": marks.at[last] - marks.at[first]}
+
+
+def _live_at_peak(trace) -> tuple:
+    """(peak bytes, live allocations at the peak) of a caching-allocator
+    trace (``torch.cuda.memory._snapshot()["device_traces"][0]``), counting
+    only the blocks allocated while it recorded. A block stops counting
+    as allocated when its free is requested."""
+    cur = peak = 0
+    at = -1
+    live = {}
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            cur += e["size"]
+            if cur > peak:
+                peak, at = cur, i
+        elif e["action"] in ("free_requested", "free_completed"):
+            cur -= live.pop(e["addr"], 0)
+    live = {}
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] in ("free_requested", "free_completed"):
+            live.pop(e["addr"], None)
+    return peak, list(live.values())
+
+
+def _alloc_site(e) -> str:
+    """The innermost line of the port that asked for allocation ``e``."""
+    for f in e.get("frames", ()):
+        if "repro_torch" in f["filename"]:
+            return (f"{f['filename'].split('repro_torch/')[-1]}:{f['line']} "
+                    f"{f['name']}")
+    return "outside the port"
+
+
+def _router_memory(model, params, requests, n: int) -> dict:
+    """The engine mix through ``Router.build(..., n)`` with the caching
+    allocator's trace on from after the build: the live allocations at
+    the serving peak, by stream (a replica's, or the default) and by the
+    line of the port that allocated them."""
+    fleet = Router.build(model, params, _engine_config(requests), n,
+                         policy="least-loaded")
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python",
+        max_entries=ROUTER_TRACE_ENTRIES)
+    try:
+        _router_flow(fleet, [requests])
+        trace = torch.cuda.memory._snapshot()["device_traces"][0]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    if len(trace) >= ROUTER_TRACE_ENTRIES:
+        raise SystemExit(f"router {n}x memory: the allocator's trace "
+                         f"filled its {ROUTER_TRACE_ENTRIES} entries")
+    peak, live = _live_at_peak(trace)
+    names = {0: "default"}
+    names.update({rep.stream.cuda_stream: f"replica {rep.idx}"
+                  for rep in fleet.replicas})
+    by_stream = collections.Counter()
+    by_site = collections.Counter()
+    n_site = collections.Counter()
+    for e in live:
+        by_stream[names.get(e["stream"], str(e["stream"]))] += e["size"]
+        by_site[_alloc_site(e)] += e["size"]
+        n_site[_alloc_site(e)] += 1
+    log(f"router {n}x memory: {len(trace)} allocator events; at the "
+        f"serving peak {peak} bytes live above the build, in {len(live)} "
+        f"blocks; by stream {dict(by_stream.most_common())}; by line:")
+    for site, nbytes in by_site.most_common(8):
+        log(f"  {nbytes} bytes in {n_site[site]} blocks: {site}")
+    return {"peak": peak, "by_stream": dict(by_stream),
+            "by_site": dict(by_site)}
+
+
+def _router_window(model, params, requests, n: int) -> dict:
+    """The engine mix through ``Router.build(..., n)`` (least-loaded) with
+    two windows, each opened and closed while this thread holds
+    ``HOST_LOCK`` and the device is synchronized, so no replica launches
+    meanwhile (switching torch.profiler while two replicas launched ended
+    the process). Over ROUTER_BUSY_WINDOW torch.profiler alone records
+    the device: the busy share is the union of the window's device
+    intervals over its wall time. Over ROUTER_COUNT_WINDOW the port's
+    kernel-call profiler (``obs.profile.Profiler``, what ``--profile``
+    prints) counts the kernel calls of every replica's thread, and the
+    launch counters, set to 0 as the window opens and read as it closes,
+    must equal its counts; the kernels in the busy window's trace are
+    printed beside them."""
+    from torch.profiler import ProfilerActivity, profile
+    fleet = Router.build(model, params, _engine_config(requests), n,
+                         policy="least-loaded")
+    marks = _Marks(*ROUTER_BUSY_WINDOW, *ROUTER_COUNT_WINDOW)
+    window = {}
+
+    async def windows():
+        first, last = ROUTER_BUSY_WINDOW
+        await marks.reached(first)
+        with HOST_LOCK:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+            w0, k0 = time.perf_counter(), marks.n
+        await marks.reached(last)
+        with HOST_LOCK:
+            torch.cuda.synchronize()
+            w1, k1 = time.perf_counter(), marks.n
+            prof.__exit__(None, None, None)
+        await marks.reached(ROUTER_COUNT_WINDOW[0])
+        with HOST_LOCK:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            paged_ops.reset_launches()
+            calls = Profiler().start()
+        await marks.reached(ROUTER_COUNT_WINDOW[1])
+        with HOST_LOCK:
+            torch.cuda.synchronize()
+            window["counts"] = {**ops.launches, **paged_ops.launches}
+            calls.stop()
+        window.update(prof=prof, calls=calls, wall=w1 - w0, tokens=k1 - k0)
+
+    _router_flow(fleet, [requests], marks.stream, during=windows)
+    dev_sum, busy, kernels = _device_busy(
+        window["prof"], OUT_DIR / f"router{n}_window.trace.json")
+    counts = window["counts"]
+    summary = window["calls"].summary()
+    profiled = {key: summary.get(name, {}).get("n_calls")
+                for name, key in (("bsr_spmm/spmm", "spmm"),
+                                  ("paged_attention/paged_flash_attention",
+                                   "paged_flash_fwd"))}
+    traced = {"spmm": sum(v for k, v in kernels.items()
+                          if "decode_fwd" in k or "bsr_tile_fwd" in k),
+              "paged_flash_fwd": sum(v for k, v in kernels.items()
+                                     if "paged_flash_fwd" in k)}
+    log(f"router {n}x busy window (streamed tokens {ROUTER_BUSY_WINDOW}): "
+        f"{window['tokens']} tokens in {window['wall']:.3f} s, device time "
+        f"{dev_sum:.4f} s summed, busy {busy:.4f} s, busy share "
+        f"{busy / window['wall']:.3f}, the trace holds {traced}; count "
+        f"window (streamed tokens {ROUTER_COUNT_WINDOW}): launch counters "
+        f"{counts['spmm']} spmm, {counts['paged_flash_fwd']} paged; the "
+        f"kernel-call profiler counted {profiled}")
+    if any(profiled[k] != counts[k] or not counts[k] for k in profiled):
+        raise SystemExit(f"router {n}x window: the profiler counted "
+                         f"{profiled}, the launch counters {counts}")
+    return {"busy": busy, "wall": window["wall"]}
+
+
+def router_phase(dev, formats, single) -> None:
+    """The router (``serve/router.py``): the engine mix through ``launch/
+    serve --engine --replicas N --route least-loaded`` for N = 2 and 4 in
+    bf16 at full depth, beside the engine phase's single engine; through
+    ``Router.build`` for N = 1, 2 and 4 unprofiled (at N = 1 in turn with
+    one engine, for the router's own cost; serving memory), with the allocator's trace at N = 4,
+    and with the busy and count windows; the weights once
+    (``Router.build`` grows device memory by the replicas' pools only);
+    then in f32 at SMOLLM_F32_LAYERS layers, failover (replica 0 failed
+    after 4 tokens) and the prefix route, against ``generate``."""
+    phase("router: launch/serve --engine --replicas N (bf16, full depth)")
+    cfg = get_config(ARCH)
+    requests = _engine_requests(cfg.vocab)
+    cli = {1: {"stats": single["stats"], "ticks": [single["stats"]["n_ticks"]],
+               "peak": single["peak"]}}
+    for n in ROUTER_REPLICAS:
+        r = cli[n] = _router_cli_run(n)
+        s = r["stats"]
+        log(f"router N={n}: {s['tok_s']:.1f} tok/s, ttft p50/p95 "
+            f"{s['ttft_p50_s'] * 1e3:.1f}/{s['ttft_p95_s'] * 1e3:.1f} ms, "
+            f"ticks per replica {r['ticks']}, peak memory "
+            f"{r['peak'] / 2**30:.2f} GiB, launches spmm {r['counts']['spmm']}"
+            f" paged {r['counts']['paged_flash_fwd']}")
+
+    phase("router: Router.build, unprofiled, N = 1, 2, 4, and one engine")
+    model = build(cfg, device=dev)
+    params = formats["bcsr"]
+    bare, routed = [], []
+    for bare_first in (True, False):      # engine, router, router, engine
+        if bare_first:
+            bare.append(_engine(model, params, requests).run(requests))
+        routed.append(_router_run(model, params, requests, 1))
+        if not bare_first:
+            bare.append(_engine(model, params, requests).run(requests))
+    bare_tok_s = [b["stats"]["tok_s"] for b in bare]
+    routed_tok_s = [r["stats"]["tok_s"] for r in routed]
+    log(f"one ServeEngine in this thread, then Router N=1, twice in turn: "
+        f"{bare_tok_s[0]:.1f}, {routed_tok_s[0]:.1f}, {routed_tok_s[1]:.1f}"
+        f", {bare_tok_s[1]:.1f} tok/s")
+    runs = {1: routed[0]}
+    runs.update((n, _router_run(model, params, requests, n))
+                for n in ROUTER_REPLICAS)
+    for n, r in runs.items():
+        s = r["stats"]
+        log(f"Router N={n}: {s['tok_s']:.1f} tok/s, ttft p50/p95 "
+            f"{s['ttft_p50_s'] * 1e3:.1f}/{s['ttft_p95_s'] * 1e3:.1f} ms, "
+            f"ticks per replica {r['ticks']}; allocated after the build "
+            f"{r['base']} bytes, rose by {r['rise']} while serving")
+    for n in ROUTER_REPLICAS:
+        if runs[n]["rise"] > n * runs[1]["rise"] + ROUTER_MEM_SLACK:
+            _router_memory(model, params, requests, n)
+            raise SystemExit(
+                f"router N={n}: serving raised allocated memory by "
+                f"{runs[n]['rise']} bytes, more than {n} x one replica's "
+                f"{runs[1]['rise']} and {ROUTER_MEM_SLACK} slack")
+    mem = _router_memory(model, params, requests, ROUTER_REPLICAS[-1])
+
+    phase("router: busy and count windows, N = 1, 2, 4")
+    for n in (1, *ROUTER_REPLICAS):
+        w = _router_window(model, params, requests, n)
+        runs[n]["busy_share"] = w["busy"] / w["wall"]
+        runs[n]["busy_share_unprofiled"] = w["busy"] / runs[n]["busy_wall"]
+        log(f"router {n}x busy window: {w['wall']:.3f} s profiled, "
+            f"{runs[n]['busy_wall']:.3f} s in the unprofiled run")
+    log("router summary, bf16 BCSR at full depth, the engine mix: the CLI "
+        "(N = 1 the engine phase's bare engine), then Router.build "
+        "unprofiled, then the busy window's device busy time over its "
+        "profiled wall and over the same tokens' unprofiled wall:")
+    for n in (1, *ROUTER_REPLICAS):
+        c, r = cli[n], runs[n]
+        log(f"  N={n}: CLI {c['stats']['tok_s']:.1f} tok/s, ttft p95 "
+            f"{c['stats']['ttft_p95_s'] * 1e3:.1f} ms, ticks {c['ticks']}, "
+            f"peak memory {c['peak'] / 2**30:.2f} GiB; Router "
+            f"{r['stats']['tok_s']:.1f} tok/s, ttft p95 "
+            f"{r['stats']['ttft_p95_s'] * 1e3:.1f} ms, ticks {r['ticks']}, "
+            f"serving rise {r['rise'] / 2**20:.1f} MiB; busy share "
+            f"{r['busy_share']:.3f} profiled, "
+            f"{r['busy_share_unprofiled']:.3f} unprofiled")
+    log(f"router: one engine's tok/s over Router N=1's, in turn in this "
+        f"phase: {sum(bare_tok_s) / sum(routed_tok_s):.3f}; N = "
+        f"{ROUTER_REPLICAS[-1]}'s serving peak above the build: "
+        f"{mem['peak']} bytes, {mem['by_stream']}")
+
+    phase("router: the weights once")
+    config = _engine_config(requests)
+    for n in ROUTER_REPLICAS:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        fleet = Router.build(model, params, config, n)
+        grown = torch.cuda.memory_allocated() - before
+        pools = sum(fleet.replicas[0].engine.pool_bytes.values())
+        weights = compressed_size_bytes(params)
+        log(f"router N={n}: Router.build grew device memory by {grown} "
+            f"bytes; {n} x pools {pools} = {n * pools}, slack "
+            f"{ROUTER_MEM_SLACK}; the weights are {weights} bytes")
+        if grown > n * pools + ROUTER_MEM_SLACK:
+            raise SystemExit(f"router N={n}: Router.build grew memory by "
+                             f"{grown} bytes, more than {n} pools of {pools} "
+                             f"and {ROUTER_MEM_SLACK} slack")
+        del fleet
+    torch.cuda.empty_cache()
+
+    phase("router: f32 failover and prefix route against generate")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              n_layers=SMOLLM_F32_LAYERS)
+    kernel_f32 = build(f32, device=dev)
+    params = _cut_depth(params, f32.n_super_blocks)
+    config = _engine_config(requests, attn_backend="cuda")
+    fleet = Router.build(kernel_f32, params, config, 2,
+                         policy="least-loaded")
+    events = []
+    comps, _ = _router_flow(fleet, [requests], events.append,
+                            fail=(0, ROUTER_FAIL_AFTER))
+    stats = fleet.fleet_stats(completions=comps)
+    matched = 0
+    for c in comps:
+        rid = c.request_id
+        idx = [e.index for e in events if e.request_id == rid]
+        if idx != list(range(ENGINE_GEN)) or \
+                [e.token for e in events if e.request_id == rid] != \
+                list(c.tokens):
+            raise SystemExit(f"router failover rid {rid}: stream indices "
+                             f"{idx} for {len(c.tokens)} tokens")
+        matched += _divergence_ok(kernel_f32, params, requests[rid].prompt,
+                                  single["generate"][rid], c.tokens,
+                                  f"router failover rid {rid}")
+    log(f"router failover: {stats['n_failed_replicas']} failed replica, "
+        f"{stats['n_redispatched']} re-dispatched, {matched}/"
+        f"{len(requests) * ENGINE_GEN} tokens match generate, per replica "
+        f"{[(r['n_requests'], r['n_ticks']) for r in stats['per_replica']]}")
+    if stats["n_failed_replicas"] != 1 or stats["n_redispatched"] < 1 or \
+            len(comps) != len(requests):
+        raise SystemExit(f"router failover: {stats}")
+
+    prefix_reqs = _prefix_requests(cfg.vocab)
+    config = dataclasses.replace(config, prefix_cache=True, max_seq_len=max(
+        len(r.prompt) + r.max_new_tokens for r in prefix_reqs))
+    fleet = Router.build(kernel_f32, params, config, 2, policy="prefix")
+    comps, _ = _router_flow(fleet, [prefix_reqs[:1], prefix_reqs[1:]])
+    stats = fleet.fleet_stats(completions=comps)
+    per = stats["per_replica"]
+    matched = 0
+    for c in comps:
+        r = prefix_reqs[c.request_id]
+        ref_toks = generate(kernel_f32, params, torch.tensor(
+            r.prompt_ids, device=dev)[None], ENGINE_GEN)[0]
+        matched += _divergence_ok(kernel_f32, params, r.prompt, ref_toks,
+                                  c.tokens, f"router prefix rid {c.request_id}")
+    log(f"router prefix route: per replica "
+        f"{[(r['n_requests'], round(r['prefix_hit_rate'], 4)) for r in per]}"
+        f", {stats['n_cached_tokens']} prompt tokens from cache, {matched}/"
+        f"{len(prefix_reqs) * ENGINE_GEN} tokens match generate")
+    if sorted(r["n_requests"] for r in per) != [0, len(prefix_reqs)] or \
+            max(r["prefix_hit_rate"] for r in per) <= 0:
+        raise SystemExit(f"router prefix route: {per}")
+    del fleet, kernel_f32, params, model
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2737,6 +3202,7 @@ def _train_rows(table, train_rows, train_counts, card) -> None:
 
 
 def main() -> int:
+    faulthandler.enable()       # a hard crash prints every thread's stack
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
@@ -2749,7 +3215,8 @@ def main() -> int:
     decode_phase(dev)
     launches, formats = model_phase(dev)
     paged_rows = paged_kernel_phase(dev)
-    paged_launches = engine_phase(dev, formats)
+    paged_launches, single = engine_phase(dev, formats)
+    router_phase(dev, formats, single)
     paged_err = max(v["max_abs_err"] for v in paged_rows.values())
     _paged_row(table, "paged_flash_attention", paged_rows[PAGED_TABLE_ROW],
                paged_launches["bcsr"], paged_err, card)

@@ -39,7 +39,7 @@ from repro_torch.checkpoint.bridge import (compressed_from_numpy,
 from repro_torch.core.optimizers import ProxState
 from repro_torch.core.prox import default_regularized_predicate
 from repro_torch.sparse.compress import CompressedParams
-from repro_torch.sparse.formats import PaletteBCSR, is_bcsr
+from repro_torch.sparse.formats import PaletteBCSR, dense_to_csr, is_bcsr
 from repro_torch.train.state import TrainState
 
 PyTree = Any
@@ -155,13 +155,10 @@ class Checkpointer:
                     and arr.size > 4096
                     and 1.0 - np.count_nonzero(arr) / arr.size
                     >= _SPARSE_THRESHOLD):
-                rows, cols = np.nonzero(arr)
-                indptr = np.zeros(arr.shape[0] + 1, np.int32)
-                np.add.at(indptr, rows + 1, 1)
+                csr = dense_to_csr(arr)
                 entry["format"] = "csr"
-                arrays[f"{name}__data"] = arr[rows, cols]
-                arrays[f"{name}__indices"] = cols.astype(np.int32)
-                arrays[f"{name}__indptr"] = np.cumsum(indptr).astype(np.int32)
+                for f in ("data", "indices", "indptr"):
+                    arrays[f"{name}__{f}"] = getattr(csr, f).numpy()
                 manifest["leaves"].append(entry)
                 continue
             arrays[name] = arr

@@ -65,9 +65,25 @@ def format_table(table: dict[str, dict], title: str = "") -> str:
     return "\n".join(lines)
 
 
-def model_size_bytes(params) -> int:
-    """Dense model size: every leaf's elements times its item size (what
-    ``launch/serve`` prints). The CSR accounting of the reference's
-    ``sparse=True`` is not ported: no entry point of the port reports it."""
-    return sum(t.numel() * t.element_size() for t in tree_leaves(params)
-               if isinstance(t, torch.Tensor))
+def model_size_bytes(params, sparse: bool = False,
+                     index_bytes: int = 4) -> int:
+    """Dense vs CSR-compressed model size (the paper's Table 3 'Model
+    Size').
+
+    Dense: every leaf's elements times its item size; no value is read, so
+    params on the meta device will do (``launch/serve``'s size line).
+    ``sparse=True`` follows the CSR accounting: nnz * (value + column
+    index) + (rows + 1) * row pointer per regularized leaf
+    (``default_regularized_predicate``); other leaves stay dense."""
+    total = 0
+    for keys, leaf in flatten_with_path(params):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        itemsize = leaf.element_size()
+        if sparse and default_regularized_predicate(keystr(keys), leaf):
+            nnz = int(torch.count_nonzero(leaf))
+            rows = leaf.shape[0] if leaf.dim() >= 1 else 1
+            total += nnz * (itemsize + index_bytes) + (rows + 1) * index_bytes
+        else:
+            total += leaf.numel() * itemsize
+    return total

@@ -5,10 +5,25 @@ NONZERO entries of a weight, from a linspace init over their range, with a
 chunked assignment step. It runs in torch on the weight's own device.
 ``kmeans_palettes`` runs the same k-means for many slices at once (the
 layers and experts of a stacked store), each with its own palette.
+
+The Deep-Compression size accounting rides on it (port of the rest of
+``repro.core.quantize``): ``quantize_tree`` palette-quantizes every
+regularized leaf of a param tree, ``huffman_bits_estimate`` is the entropy
+bound on Huffman-coded palette indices, and ``quantized_size_bytes`` the
+paper-style estimate (elementwise CSR structure + palette + coded values).
+It is an offline estimate, not a serving artifact (``docs/
+size_accounting.md``).
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
+import numpy as np
 import torch
+
+from repro_torch.core.prox import default_regularized_predicate
+from repro_torch.core.tree import flatten_with_path, keystr, map_with_keystr
 
 
 def _init_palettes(vals: torch.Tensor, seg: torch.Tensor, n_slices: int,
@@ -124,3 +139,62 @@ def kmeans_palette(w: torch.Tensor, n_clusters: int, iters: int = 25,
         for i in range(0, flat.numel(), chunk)])
     q = torch.where(nz_mask, palette[a], torch.zeros_like(flat))
     return palette, q.reshape(w.shape).to(w.dtype), a.to(torch.int32)
+
+
+def quantize_tree(params, bits: int = 4, predicate=None) -> tuple:
+    """Palette-quantize every regularized leaf with more than 2^bits
+    nonzeros to 2^bits clusters. Returns (quantized params, per-leaf report
+    ``{name: {bits, rel_err, huffman_bits}}`` in the tree's sorted-key
+    order)."""
+    predicate = predicate or default_regularized_predicate
+    quantized, report = {}, {}
+    for keys, leaf in flatten_with_path(params):
+        name = keystr(keys)
+        if not (predicate(name, leaf)
+                and int(torch.count_nonzero(leaf)) > 2 ** bits):
+            continue
+        _, q, assign = kmeans_palette(leaf, 2 ** bits)
+        err = float(torch.linalg.vector_norm((q - leaf).float())
+                    / max(float(torch.linalg.vector_norm(leaf.float())),
+                          1e-12))
+        report[name] = {"bits": bits, "rel_err": err,
+                        "huffman_bits": huffman_bits_estimate(
+                            assign.cpu().numpy(),
+                            (leaf.reshape(-1) != 0).cpu().numpy())}
+        quantized[name] = q
+    return (map_with_keystr(lambda name, leaf: quantized.get(name, leaf),
+                            params), report)
+
+
+def huffman_bits_estimate(assign: np.ndarray, nz_mask: np.ndarray) -> float:
+    """Entropy lower bound on Huffman-coded palette indices (nonzeros)."""
+    idx = assign[nz_mask]
+    if idx.size == 0:
+        return 0.0
+    _, counts = np.unique(idx, return_counts=True)
+    p = counts / counts.sum()
+    return float(idx.size * -(p * np.log2(p)).sum())
+
+
+def quantized_size_bytes(params, bits: int = 4, index_bytes: int = 4,
+                         reports: Optional[dict] = None) -> int:
+    """Deep-Compression size accounting: CSR indices + palette +
+    Huffman-coded value indices (``reports[name]['huffman_bits']``, else
+    ``bits`` a nonzero) for regularized leaves, dense elsewhere."""
+    total = 0
+    for keys, leaf in flatten_with_path(params):
+        name = keystr(keys)
+        itemsize = leaf.element_size()
+        if default_regularized_predicate(name, leaf):
+            nnz = int(torch.count_nonzero(leaf))
+            rows = leaf.shape[0] if leaf.dim() >= 1 else 1
+            structure = nnz * index_bytes + (rows + 1) * index_bytes
+            palette = (2 ** bits) * itemsize
+            if reports and name in reports:
+                values = math.ceil(reports[name]["huffman_bits"] / 8)
+            else:
+                values = math.ceil(nnz * bits / 8)
+            total += structure + palette + values
+        else:
+            total += leaf.numel() * itemsize
+    return total

@@ -7,6 +7,8 @@ source, the ``.cu`` files it includes and the ``.cuh`` headers) and the
 flags, so a changed source or flag rebuilds and an unchanged one is loaded
 as it is.
 ``build_all`` starts one nvcc per source, all at once, and waits for them.
+``load`` holds a lock while it builds and loads, so that threads (router
+replicas) that first call a kernel together run one nvcc, not one each.
 No CUDA toolkit is needed to import this module.
 """
 from __future__ import annotations
@@ -18,6 +20,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -28,6 +31,7 @@ SOURCES = ("bsr_spmm", "bsr_spmm_experts", "paged_attention", "bsr_sddmm",
            "prox_adam", "flash_attention")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -98,8 +102,9 @@ def build_all(names=SOURCES) -> list[Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build_all((name,))
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return lib
+    with _LOAD_LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

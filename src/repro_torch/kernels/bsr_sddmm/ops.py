@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _counts
 from repro_torch.kernels._tiles import aligned16, sm_count
 from repro_torch.kernels.bsr_sddmm import ref
 from repro_torch.obs.profile import kernel_call
@@ -35,8 +35,7 @@ _COORDS_MAX = 1024
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    _counts.reset(launches)
 
 
 @functools.cache
@@ -203,5 +202,5 @@ def _bsr_weight_grad(x, dy, w: BlockCSR) -> torch.Tensor:
             aligned16(x, w.shape[1], bc), aligned16(dy, w.shape[0], br), stream)
     if err:
         raise RuntimeError(f"bsr_sddmm launch failed: CUDA error {err}")
-    launches["bsr_sddmm"] += 1
+    _counts.bump(launches, "bsr_sddmm")
     return out

@@ -34,7 +34,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _counts
 from repro_torch.kernels._tiles import aligned16, sm_count
 from repro_torch.kernels.bsr_spmm import ref
 from repro_torch.obs.profile import kernel_call
@@ -54,9 +54,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def reset_launches() -> None:
-    for counts in (launches, variant_launches):
-        for k in counts:
-            counts[k] = 0
+    _counts.reset(launches, variant_launches)
 
 
 def pick_kernel(m: int) -> str:
@@ -156,8 +154,8 @@ _FP_STORE = (torch.float32, torch.bfloat16)
 
 
 def _count(wrapper: str, kernel: str) -> None:
-    launches[wrapper] += 1
-    variant_launches[f"{wrapper}_{kernel}"] += 1
+    _counts.bump(launches, wrapper)
+    _counts.bump(variant_launches, f"{wrapper}_{kernel}")
 
 
 def spmm(x: torch.Tensor, w: BlockCSR) -> torch.Tensor:
@@ -293,5 +291,5 @@ def _spmm_t(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
             stream)
     if err:
         raise RuntimeError(f"bsr_spmm_t launch failed: CUDA error {err}")
-    launches["spmm_t"] += 1
+    _counts.bump(launches, "spmm_t")
     return dx

@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _counts
 from repro_torch.kernels._tiles import tile_hd, tile_ready
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.obs.profile import kernel_call
@@ -33,8 +33,7 @@ _MAX_SMEM = 232448                  # bytes of shared memory a block can use
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    _counts.reset(launches)
 
 
 @functools.cache
@@ -106,7 +105,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")
-    launches["flash_attention_fwd"] += 1
+    _counts.bump(launches, "flash_attention_fwd")
     return o if hd_t == hd else o[..., :hd].contiguous()
 
 

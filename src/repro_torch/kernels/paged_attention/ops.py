@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _counts
 from repro_torch.kernels._tiles import tile_hd, tile_ready
 from repro_torch.kernels.paged_attention import ref
 from repro_torch.obs.profile import kernel_call
@@ -45,8 +45,7 @@ _MAX_SMEM = 232448                  # bytes of shared memory a block can use
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    _counts.reset(launches)
 
 
 @functools.cache
@@ -127,7 +126,7 @@ def paged_flash_fwd(q, k_pool, v_pool, page_table, positions, *,
             0 if window is None else int(window), hd ** -0.5, stream)
     if err:
         raise RuntimeError(f"paged_flash_fwd launch failed: CUDA error {err}")
-    launches["paged_flash_fwd"] += 1
+    _counts.bump(launches, "paged_flash_fwd")
     return (acc if hd_t == hd else acc[..., :hd].contiguous()), m, l
 
 

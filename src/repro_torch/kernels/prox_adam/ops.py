@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core.prox import default_regularized_predicate
 from repro_torch.core.tree import flatten_with_path, keystr
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _counts
 from repro_torch.kernels.prox_adam import ref
 from repro_torch.obs.profile import kernel_call
 
@@ -32,8 +32,7 @@ PyTree = Any
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    _counts.reset(launches)
 
 
 @functools.cache
@@ -105,7 +104,7 @@ def _fused_update_leaf(w, g, m, v, scalars, *, rule: str, apply_prox: bool):
             *sc, stream)
     if err:
         raise RuntimeError(f"prox_adam_update launch failed: CUDA error {err}")
-    launches["prox_adam"] += 1
+    _counts.bump(launches, "prox_adam")
     return w, m, v
 
 

@@ -34,6 +34,18 @@ radix prefix cache, and the paged flash-decode CUDA kernel for attention
 (``--attn-backend``). ``--parity-check`` holds every request's greedy
 tokens against ``generate``; ``--metrics-out`` and ``--trace-out`` write
 the metrics registry and a Chrome trace of the run.
+
+``--engine --replicas N`` serves the mix through N engine replicas behind
+the asyncio router (``serve/router.py``): one worker thread per replica,
+each on its own CUDA stream, all reading one copy of the weights.
+``--route`` picks the dispatch: ``prefix`` (rendezvous hash of the
+prompt's leading pages, so a shared system prompt stays on the replica
+whose prefix cache holds it), ``least-loaded`` or ``round-robin``. It
+prints the fleet's line and one line per replica; ``--metrics-out`` writes
+the router's registry with every replica's (JSON, or Prometheus with a
+``replica`` label), and one tracer and one profiler cover the fleet.
+Requests cross the router as the typed values of ``serve/api.py``, whose
+``to_json`` / ``from_json`` are the wire format.
 """
 from __future__ import annotations
 
@@ -55,6 +67,7 @@ from repro_torch.obs.trace import Tracer
 from repro_torch.serve import api
 from repro_torch.serve.api import SamplingParams
 from repro_torch.serve.engine import EngineConfig, ServeEngine
+from repro_torch.serve.router import ROUTE_POLICIES, Router
 from repro_torch.serve.step import generate
 from repro_torch.sparse.compress import (CompressionPlan, bcsr_equiv_size_bytes,
                                          compressed_size_bytes,
@@ -63,8 +76,6 @@ from repro_torch.sparse.compress import (CompressionPlan, bcsr_equiv_size_bytes,
 from repro_torch.sparse.formats import PaletteBCSR
 
 _NOT_PORTED = {
-    "--replicas": "the router slice (ROADMAP Queue 1 item 11)",
-    "--route": "the router slice (ROADMAP Queue 1 item 11)",
     "--mesh": "the multi-device slice (ROADMAP Queue 1 item 12)",
     "--logits-out": "the multi-device slice (ROADMAP Queue 1 item 12)",
 }
@@ -175,6 +186,18 @@ def _parser() -> argparse.ArgumentParser:
                          "the card) and print the summary; pass a "
                          "directory to also write a torch.profiler Chrome "
                          "trace there")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="with --engine: serve through N engine replicas "
+                         "behind the asyncio router (serve/router.py), one "
+                         "worker thread and CUDA stream each; the replicas "
+                         "share one copy of the (compressed) weights")
+    ap.add_argument("--route", default="prefix", choices=ROUTE_POLICIES,
+                    help="router dispatch: 'prefix' = rendezvous-hash the "
+                         "leading page-aligned prompt tokens, so a shared "
+                         "system prompt stays on the replica whose prefix "
+                         "cache holds it (least-loaded for prompts shorter "
+                         "than a page), 'least-loaded' = queue depth + "
+                         "reserved pages, 'round-robin' = modulo counter")
     return ap
 
 
@@ -325,15 +348,43 @@ def _check_parity(model, params, args, requests, results) -> None:
     print(f"engine-vs-generate parity OK ({len(requests)} requests)")
 
 
+def _print_slo_classes(s: dict) -> None:
+    for c, cs in s["by_class"].items():
+        print(f"  class {c}: {cs['n_requests']} requests "
+              f"({cs['n_preempted']} preempted) | ttft p50/p95 "
+              f"{_ms(cs['ttft_p50_s'])}/{_ms(cs['ttft_p95_s'])}ms")
+
+
+def _save_telemetry(args, save_prom, save_json, tracer, profiler) -> None:
+    """Write --metrics-out / --trace-out and print the profile summary.
+    ``save_prom(path)`` / ``save_json(path)`` export the engine's registry
+    or the router's fleet."""
+    if args.metrics_out:
+        if args.metrics_out.endswith(".json"):
+            save_json(args.metrics_out)
+        else:
+            save_prom(args.metrics_out)
+        print(f"metrics -> {args.metrics_out}")
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"trace -> {args.trace_out} ({len(tracer.events)} events)")
+    if profiler is not None:
+        print(profiler.format_summary())
+
+
 def _run_engine(model, params, args) -> dict:
-    """The --engine path: continuous batching over paged KV pools."""
+    """The --engine path: continuous batching over paged KV pools; with
+    --replicas N > 1, N such engines behind the router."""
     requests = _load_requests(args, model.cfg.vocab)
     max_seq = max(len(r.prompt) + r.max_new_tokens for r in requests)
+    config = _engine_config(args, max_seq)
+    if args.replicas > 1:
+        return _run_router(model, params, args, config, requests)
     tracer = Tracer() if args.trace_out else None
     gen = (torch.Generator(device=model.device).manual_seed(1)
            if args.temperature > 0 else None)
     profiler = _profiler(args)
-    engine = ServeEngine(model, params, _engine_config(args, max_seq),
+    engine = ServeEngine(model, params, config,
                          generator=gen, tracer=tracer, profiler=profiler)
     pb = engine.pool_bytes
     print(f"engine pools: kv_pages={pb['kv_page_bytes'] / 2**20:.2f} MiB "
@@ -354,25 +405,73 @@ def _run_engine(model, params, args) -> dict:
           f"{s['n_prefill_chunks']} prefill chunks | pools "
           f"kv={s['kv_page_bytes']} state={s['state_slot_bytes']} bytes")
     if len(s["by_class"]) > 1 or s["n_preemptions"]:
-        for c, cs in s["by_class"].items():
-            print(f"  class {c}: {cs['n_requests']} requests "
-                  f"({cs['n_preempted']} preempted) | ttft p50/p95 "
-                  f"{_ms(cs['ttft_p50_s'])}/{_ms(cs['ttft_p95_s'])}ms")
+        _print_slo_classes(s)
         print(f"  {s['n_preemptions']} preemptions")
     if args.prefix_cache:
         print(f"  prefix cache: hit rate {s['prefix_hit_rate']:.1%} "
               f"({s['n_cached_tokens']} prompt tokens served from cache)")
-    if args.metrics_out:
-        if args.metrics_out.endswith(".json"):
-            engine.metrics.save_json(args.metrics_out)
-        else:
-            engine.metrics.save_prometheus(args.metrics_out)
-        print(f"metrics -> {args.metrics_out}")
-    if tracer is not None:
-        tracer.save(args.trace_out)
-        print(f"trace -> {args.trace_out} ({len(tracer.events)} events)")
-    if profiler is not None:
-        print(profiler.format_summary())
+    _save_telemetry(args, engine.metrics.save_prometheus,
+                    engine.metrics.save_json, tracer, profiler)
+    print("sample:", [int(t) for t in out["results"][0][:16]])
+    if args.parity_check:
+        _check_parity(model, params, args, requests, out["results"])
+    return out
+
+
+def _run_router(model, params, args, config, requests) -> dict:
+    """--replicas N: N identical engines (one EngineConfig, one copy of the
+    weights) behind the prefix / least-loaded / round-robin router. One
+    tracer (router request ids are unique across the fleet, so each
+    request keeps one track) and one profiler cover every replica; each
+    replica samples from its own generator."""
+    tracer = Tracer() if args.trace_out else None
+    profiler = _profiler(args)
+    router = Router.build(model, params, config, args.replicas,
+                          generator_seed=1 if args.temperature > 0 else None,
+                          tracer=tracer, profiler=profiler,
+                          policy=args.route)
+    pb = router.replicas[0].engine.pool_bytes
+    print(f"router: {args.replicas} replicas, pools each kv_pages="
+          f"{pb['kv_page_bytes'] / 2**20:.2f} MiB recurrent_state="
+          f"{pb['state_slot_bytes'] / 2**20:.2f} MiB "
+          f"({config.max_batch} slots)")
+    try:
+        with profiler or contextlib.nullcontext():
+            out = router.serve(requests)
+    except api.ApiValidationError as e:
+        raise SystemExit(f"--engine: {e}")
+    s = out["stats"]
+    print(f"router[{args.replicas}x {args.route}]: {s['n_requests']} "
+          f"requests ({s['n_prompt']} prompt + {s['n_generated']} new "
+          f"tokens) in {s['wall_s']:.2f}s = {s['tok_s']:.1f} tok/s | "
+          f"ttft p50/p95 {_ms(s['ttft_p50_s'])}/{_ms(s['ttft_p95_s'])}ms"
+          f" | latency p50/p95 {_ms(s['latency_p50_s'])}/"
+          f"{_ms(s['latency_p95_s'])}ms | "
+          f"{s['n_redispatched']} re-dispatched, "
+          f"{s['n_failed_replicas']} failed replicas")
+    if len(s["by_class"]) > 1:
+        _print_slo_classes(s)
+    for r in s["per_replica"]:
+        line = (f"  replica {r['replica']}: {r['n_requests']} requests, "
+                f"{r['n_generated']} tokens, {r['n_ticks']} ticks")
+        if args.prefix_cache:
+            line += f", prefix hit rate {r['prefix_hit_rate']:.1%}"
+        if r["failed"]:
+            line += " [FAILED]"
+        print(line)
+
+    def save_json(path):
+        with open(path, "w") as f:
+            json.dump({"router": router.metrics.snapshot(),
+                       "replicas": [r.engine.metrics.snapshot()
+                                    for r in router.replicas]}, f, indent=1)
+            f.write("\n")
+
+    def save_prom(path):
+        with open(path, "w") as f:
+            f.write(router.to_prometheus())
+
+    _save_telemetry(args, save_prom, save_json, tracer, profiler)
     print("sample:", [int(t) for t in out["results"][0][:16]])
     if args.parity_check:
         _check_parity(model, params, args, requests, out["results"])

@@ -13,6 +13,7 @@ PaletteBCSR weights in (out, in) layout; an entry there runs
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.sparse import ops as sparse_ops
 
 Tensor = torch.Tensor
+_MEMO_LOCK = threading.Lock()
 
 
 def truncated_normal_init(shape, scale: float, generator=None, device=None,
@@ -87,16 +89,27 @@ def _rounded_f32(w: Tensor, dtype) -> Tensor:
     For the (vocab, d) head table this rounded copy is made once and kept
     on the table itself while the table is unmodified, so a decode step
     does not read and re-write the whole table (189 MB at smollm-360m's
-    width) to round it again."""
+    width) to round it again. Router replicas share the table from
+    threads, each on its own CUDA stream: the memo is made under a lock,
+    and on the card an event recorded after it orders every reader's
+    stream behind the stream that wrote it."""
     if dtype == torch.float32:
         return w.float()
     if w.requires_grad and torch.is_grad_enabled():
         return w.to(dtype).float()          # training: no memo in the graph
     key = (dtype, w._version)
-    memo = getattr(w, "_repro_rounded_f32", None)
-    if memo is None or memo[0] != key:
-        memo = (key, w.to(dtype).float())
-        w._repro_rounded_f32 = memo
+    with _MEMO_LOCK:
+        memo = getattr(w, "_repro_rounded_f32", None)
+        if memo is None or memo[0] != key:
+            rounded = w.to(dtype).float()
+            written = None
+            if rounded.is_cuda:
+                written = torch.cuda.Event()
+                written.record()
+            memo = (key, rounded, written)
+            w._repro_rounded_f32 = memo
+    if memo[2] is not None:
+        torch.cuda.current_stream(w.device).wait_event(memo[2])
     return memo[1]
 
 

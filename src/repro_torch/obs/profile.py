@@ -3,14 +3,16 @@ telemetry stream (port of ``repro.obs.profile``).
 
 * ``Profiler``: every public kernel entry of ``repro_torch.kernels``
   routes through ``kernel_call(name, fn, ...)``, under the reference's
-  names (``bsr_spmm/spmm``, ...), and the engine wraps its step as
+  names (``bsr_spmm/spmm``, ...), and the engine times its step as
   ``engine/tick_step``. With a profiler active, a kernel call on CUDA
   tensors is bracketed by two CUDA events recorded on the current stream,
   read only when the summary is asked for, so the hook never waits for the
   device; a call on CPU tensors (the plain versions) and the engine tick
   are timed on the host clock. With no profiler active the hook is one
   module-global load and a ``None`` check. ``trace_dir`` also records a
-  ``torch.profiler`` run and writes its Chrome trace there.
+  ``torch.profiler`` run and writes its Chrome trace there. Its counts and
+  sums are taken under a lock, so they stay exact when router replicas
+  call kernels from several threads at once.
 * ``TrainTelemetry``: the phase-tagged JSONL stream of training records.
 * The block-sparsity measurements on the serving grid (host side).
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Callable, Optional
 
@@ -61,6 +64,7 @@ class Profiler:
         self.trace_dir = trace_dir
         self._events: list = []          # (name, start, end), read lazily
         self._torch_prof = None
+        self._lock = threading.Lock()    # records and events, across threads
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -97,17 +101,23 @@ class Profiler:
     # -- measurement --------------------------------------------------------
 
     def _rec(self, name: str) -> dict:
+        """The record of ``name``; the caller holds ``_lock``."""
         r = self.records.get(name)
         if r is None:
             r = self.records[name] = {"n_calls": 0, "total_ms": 0.0,
                                       "max_ms": 0.0, "n_traced": 0}
         return r
 
+    def _count(self, name: str) -> None:
+        with self._lock:
+            self._rec(name)["n_calls"] += 1
+
     def _add(self, name: str, dt_ms: float) -> None:
-        r = self._rec(name)
-        r["total_ms"] += dt_ms
-        if dt_ms > r["max_ms"]:
-            r["max_ms"] = dt_ms
+        with self._lock:
+            r = self._rec(name)
+            r["total_ms"] += dt_ms
+            if dt_ms > r["max_ms"]:
+                r["max_ms"] = dt_ms
 
     def call(self, name: str, fn: Callable, *args, **kwargs):
         """Run ``fn(*args, **kwargs)``, timed by CUDA events on the current
@@ -116,35 +126,44 @@ class Profiler:
         PyTorch runs eagerly, there is no trace to count."""
         if not _on_cuda(args, kwargs):
             return self.wall(name, fn, *args, **kwargs)
-        self._rec(name)["n_calls"] += 1
+        self._count(name)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         out = fn(*args, **kwargs)
         end.record()
-        self._events.append((name, start, end))
+        with self._lock:
+            self._events.append((name, start, end))
         return out
 
     def wall(self, name: str, fn: Callable, *args, **kwargs):
-        """Run ``fn`` timed on the host clock (the engine tick, which ends
-        in its own device sync)."""
-        self._rec(name)["n_calls"] += 1
+        """Run ``fn`` timed on the host clock."""
+        self._count(name)
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         self._add(name, (time.perf_counter() - t0) * 1e3)
         return out
 
+    def wall_since(self, name: str, t0: float) -> None:
+        """Count one ``name`` that began at ``t0`` (``time.perf_counter``)
+        and ends now: the engine tick, which ends in its own device sync."""
+        self._count(name)
+        self._add(name, (time.perf_counter() - t0) * 1e3)
+
     def _drain(self) -> None:
-        for name, start, end in self._events:
+        with self._lock:
+            events, self._events = self._events, []
+        for name, start, end in events:
             end.synchronize()
             self._add(name, start.elapsed_time(end))
-        self._events.clear()
 
     def summary(self) -> dict:
         """``{name: {n_calls, total_ms, mean_ms, max_ms, n_traced}}``."""
         self._drain()
         out = {}
-        for name, r in self.records.items():
+        with self._lock:
+            records = {name: dict(r) for name, r in self.records.items()}
+        for name, r in records.items():
             out[name] = dict(r, mean_ms=(r["total_ms"] / r["n_calls"]
                                          if r["n_calls"] else 0.0))
         return out

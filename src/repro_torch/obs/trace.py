@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import time
 from typing import Optional
 
@@ -58,6 +59,7 @@ class Tracer:
         self._tids: dict[int, int] = {}        # rid -> tid
         self._open_phase: dict[int, tuple] = {}  # rid -> (name, t0_us, args)
         self._next_tid = 1
+        self._tid_lock = threading.Lock()      # router replicas share one
 
     # -- clock --------------------------------------------------------------
 
@@ -67,8 +69,11 @@ class Tracer:
     def _tid(self, rid: int) -> int:
         tid = self._tids.get(rid)
         if tid is None:
-            tid = self._tids[rid] = self._next_tid
-            self._next_tid += 1
+            with self._tid_lock:
+                tid = self._tids.get(rid)
+                if tid is None:
+                    tid = self._tids[rid] = self._next_tid
+                    self._next_tid += 1
         return tid
 
     # -- raw event emitters -------------------------------------------------

@@ -5,10 +5,17 @@
 request), ``StreamEvent`` (one generated token in flight), ``Completion``
 (a finished request with its SLO record) and the ``--requests`` file
 schema (``parse_request_file``). Values validate eagerly with actionable
-messages. Not carried over: the reference's deprecation shims for loose
-sampling kwargs (the port has no legacy callers) and the router's JSON
-wire format of requests, events and completions (ROADMAP Queue 1 item 11).
-This module depends only on numpy.
+messages.
+
+Every type round-trips through plain-dict JSON (``to_json`` /
+``from_json``), the router's wire format: the same field names, order and
+defaults as the reference's, so either package reads the other's JSON.
+``StreamEvent.replica`` and ``Completion.replica`` name the replica that
+served a token or finished a request under ``serve/router.py``;
+``Completion.n_redispatched`` counts the request's moves off a failed
+replica. Not carried over: the reference's deprecation shims for loose
+sampling kwargs (the port has no legacy callers). This module depends only
+on numpy.
 """
 from __future__ import annotations
 
@@ -142,6 +149,9 @@ class Request:
     sampling: Optional[SamplingParams] = None
     request_id: Optional[int] = None
 
+    _FIELDS = ("prompt", "max_new_tokens", "eos_id", "priority", "sampling",
+               "request_id")
+
     def __post_init__(self):
         prompt = self.prompt
         if isinstance(prompt, np.ndarray):
@@ -175,6 +185,42 @@ class Request:
     def prompt_ids(self) -> np.ndarray:
         return np.asarray(self.prompt, np.int32)
 
+    def to_json(self) -> dict:
+        d = {"prompt": list(self.prompt),
+             "max_new_tokens": self.max_new_tokens}
+        if self.eos_id is not None:
+            d["eos_id"] = self.eos_id
+        if self.priority != PRIORITY_CLASSES["standard"]:
+            d["priority"] = self.priority
+        if self.sampling is not None:
+            d["sampling"] = self.sampling.to_json()
+        if self.request_id is not None:
+            d["request_id"] = self.request_id
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict, what: str = "request") -> "Request":
+        if not isinstance(d, dict):
+            raise ApiValidationError(
+                f"{what}: expected an object like "
+                f'{{"prompt": [1, 2, 3], "max_new_tokens": 16}}, got '
+                f"{type(d).__name__} {d!r}")
+        _check_keys(d, cls._FIELDS, what)
+        if "prompt" not in d:
+            raise ApiValidationError(f"{what}: missing required key "
+                                     "'prompt' (a list of token ids)")
+        if "max_new_tokens" not in d:
+            raise ApiValidationError(f"{what}: missing required key "
+                                     "'max_new_tokens' (int >= 1)")
+        kw = dict(d)
+        if "sampling" in kw and kw["sampling"] is not None:
+            kw["sampling"] = SamplingParams.from_json(kw["sampling"],
+                                                      f"{what}.sampling")
+        try:
+            return cls(**kw)
+        except ApiValidationError as e:
+            raise ApiValidationError(f"{what}: {e}") from None
+
 
 # ---------------------------------------------------------------------------
 # StreamEvent / Completion
@@ -183,28 +229,56 @@ class Request:
 @dataclasses.dataclass(frozen=True)
 class StreamEvent:
     """One generated token, as streamed: ``index`` is its 0-based position
-    in the generated sequence, ``done`` marks the final token."""
+    in the generated sequence, ``done`` marks the final token, ``replica``
+    names the serving replica under the router (None on a bare engine)."""
     request_id: int
     token: int
     index: int
     done: bool
+    replica: Optional[int] = None
+
+    _FIELDS = ("request_id", "token", "index", "done", "replica")
+
+    def to_json(self) -> dict:
+        d = {"request_id": self.request_id, "token": self.token,
+             "index": self.index, "done": self.done}
+        if self.replica is not None:
+            d["replica"] = self.replica
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict, what: str = "stream_event") -> "StreamEvent":
+        _check_keys(d, cls._FIELDS, what)
+        try:
+            return cls(**d)
+        except TypeError as e:
+            raise ApiValidationError(f"{what}: {e}") from None
 
 
 @dataclasses.dataclass(frozen=True)
 class Completion:
     """A finished request: the generated tokens plus the per-request SLO
     record. Timing stamps are ``time.perf_counter`` values on the serving
-    host; ``n_cached`` counts prompt tokens served by the prefix cache and
-    ``n_preempted`` the request's preemptions."""
+    host; ``ttft_s`` / ``latency_s`` are the derived SLO numbers.
+    ``n_cached`` counts prompt tokens served by the prefix cache,
+    ``n_preempted`` the request's in-engine preemptions and
+    ``n_redispatched`` its moves off a failed replica; ``replica`` is the
+    replica that produced the final token."""
     request_id: int
     tokens: tuple
     n_prompt: int
     priority: int = PRIORITY_CLASSES["standard"]
     n_cached: int = 0
     n_preempted: int = 0
+    n_redispatched: int = 0
+    replica: Optional[int] = None
     t_submit: float = 0.0
     t_first: Optional[float] = None
     t_done: float = 0.0
+
+    _FIELDS = ("request_id", "tokens", "n_prompt", "priority", "n_cached",
+               "n_preempted", "n_redispatched", "replica", "t_submit",
+               "t_first", "t_done")
 
     def __post_init__(self):
         tokens = self.tokens
@@ -216,12 +290,41 @@ class Completion:
     def n_generated(self) -> int:
         return len(self.tokens)
 
+    @property
+    def token_ids(self) -> np.ndarray:
+        return np.asarray(self.tokens, np.int32)
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        return (None if self.t_first is None
+                else self.t_first - self.t_submit)
+
+    @property
+    def latency_s(self) -> float:
+        return self.t_done - self.t_submit
+
+    def to_json(self) -> dict:
+        return {f: getattr(self, f) for f in self._FIELDS
+                if f != "tokens"} | {"tokens": list(self.tokens)}
+
     @classmethod
-    def from_record(cls, rec: dict) -> "Completion":
+    def from_json(cls, d: dict, what: str = "completion") -> "Completion":
+        _check_keys(d, cls._FIELDS, what)
+        try:
+            return cls(**d)
+        except TypeError as e:
+            raise ApiValidationError(f"{what}: {e}") from None
+
+    @classmethod
+    def from_record(cls, rec: dict, *, request_id: Optional[int] = None,
+                    replica: Optional[int] = None) -> "Completion":
         """Build from a scheduler finish record (``Scheduler._finish``)."""
-        return cls(request_id=rec["rid"], tokens=rec["tokens"],
+        return cls(request_id=rec["rid"] if request_id is None
+                   else request_id,
+                   tokens=tuple(int(t) for t in rec["tokens"]),
                    n_prompt=rec["n_prompt"], priority=rec["priority"],
-                   n_cached=rec["n_cached"], n_preempted=rec["n_preempted"],
+                   n_cached=rec["n_cached"],
+                   n_preempted=rec["n_preempted"], replica=replica,
                    t_submit=rec["t_submit"], t_first=rec["t_first"],
                    t_done=rec["t_done"])
 

@@ -24,12 +24,15 @@ instead of gathering the whole pool.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.bsr_spmm import ops as spmm_ops
+from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.obs.metrics import MetricsRegistry, slo_summary
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serve import api
@@ -43,8 +46,18 @@ from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import Request as _SchedRequest
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.step import make_sampler
+from repro_torch.sparse.compress import CompressedParams, iter_bcsr
 
 _ATTN_BACKENDS = ("auto", "cuda", "ref")
+
+# Every engine's tick holds this lock through its host work and releases it
+# only while it waits for its sampled tokens. The reference's tick is one
+# jitted call, which releases the GIL once; the port's makes thousands of
+# torch calls a tick, each of which releases it, so engines in threads (the
+# router's replicas) would hand the GIL to one another at every call. Under
+# the lock they take turns by whole ticks, and one engine's host work
+# overlaps another's device work. A lone engine takes it uncontended.
+HOST_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,7 +157,8 @@ class ServeEngine:
     device after each step; the default is built from ``config.sampling``
     (greedy when temperature == 0). ``generator`` (a ``torch.Generator``
     on the model's device) drives sampling; it cannot reproduce the
-    reference's ``jax.random`` stream, greedy tokens are comparable."""
+    reference's ``jax.random`` stream, greedy tokens are comparable. A
+    tick runs under ``HOST_LOCK``."""
 
     def __init__(self, model, params, config: EngineConfig,
                  sampler: Optional[Callable] = None,
@@ -224,6 +238,23 @@ class ServeEngine:
         """Total ticks run (registry-backed; all widths)."""
         return int(self._m_ticks.total())
 
+    def load_kernels(self) -> None:
+        """Build and load now every kernel library this engine's step
+        launches on the card (nothing on the CPU): the spmm kernels for
+        compressed weights (and their expert instantiations for an MoE
+        model), the paged kernel unless ``attn_backend='ref'``. A first
+        build runs nvcc for 35-66 s; the router calls this before its
+        worker threads start, so that no tick waits on a build."""
+        if self.device.type != "cuda":
+            return
+        if isinstance(self.params, CompressedParams) \
+                and next(iter_bcsr(self.params), None) is not None:
+            spmm_ops._lib()
+            if self.model.cfg.moe is not None:
+                spmm_ops._lib(experts=True)
+        if self.has_attn and self.config.attn_backend != "ref":
+            paged_ops._lib()
+
     # -- request intake -----------------------------------------------------
 
     def submit(self, request: api.Request,
@@ -269,8 +300,12 @@ class ServeEngine:
         return torch.from_numpy(a).to(self.device)
 
     def _tick_step(self, plan) -> np.ndarray:
-        """The mixed step of one tick and its sampling: the sampled tokens
-        on the host (the tick's one device sync)."""
+        """The mixed step of one tick and its sampling, launched under
+        ``HOST_LOCK``, then the sampled tokens on the host (the tick's one
+        device sync), waited for with the lock released. The profiler's
+        ``engine/tick_step`` ends when the tokens arrive, before the lock
+        is taken back: waiting for it is other engines' host work."""
+        t0 = time.perf_counter()
         with torch.inference_mode():
             logits, self.pools = self.model.paged_step(
                 self.params, self._device(plan.tokens), self.pools,
@@ -279,10 +314,21 @@ class ServeEngine:
                 backend=self.config.attn_backend,
                 kv_splits=self.config.kv_splits)
             sampled = self._sampler(logits, self._generator)
-        return sampled.cpu().numpy()
+        HOST_LOCK.release()
+        try:
+            sampled = sampled.cpu().numpy()
+            if self.profiler is not None:
+                self.profiler.wall_since("engine/tick_step", t0)
+            return sampled
+        finally:
+            HOST_LOCK.acquire()
 
     def step(self) -> list[dict]:
         """Run one tick; returns the requests that finished during it."""
+        with HOST_LOCK:
+            return self._step()
+
+    def _step(self) -> list[dict]:
         tracer = self.tracer
         tick_t0 = tracer.now_us()           # tick span opens at schedule
         plan = self.scheduler.next_tick(now=time.perf_counter())
@@ -299,11 +345,7 @@ class ServeEngine:
         self.tick_widths.add(plan.width)
         n_tok = int(plan.n_tokens.sum())
         with tracer.span("step", width=plan.width, tokens=n_tok):
-            if self.profiler is not None:
-                sampled = self.profiler.wall("engine/tick_step",
-                                             self._tick_step, plan)
-            else:
-                sampled = self._tick_step(plan)
+            sampled = self._tick_step(plan)
         self._m_ticks.inc(width=str(plan.width))
         self._m_tick_tokens.observe(n_tok)
         self._m_sampler_batch.observe(len(plan.samples))

@@ -11,6 +11,11 @@ Construction (``dense_to_bcsr``) runs on the host in numpy and gives the
 same tables as the JAX package, entry for entry. The formats hold torch
 tensors and move with ``.to(device)``.
 
+``CSR`` (``dense_to_csr`` / ``csr_to_dense``) is the paper's elementwise
+CSR, which the checkpointer stores sparse dense leaves in and the size
+accounting counts; ``bcsr_density`` is a BlockCSR's resident share of its
+block grid.
+
 Invariants shared with the reference:
   * slot 0 of the block store is an all-zero pad block, so padded gather
     entries can point at it harmlessly;
@@ -167,6 +172,12 @@ def bcsr_to_dense(m: BlockCSR) -> Tensor:
     return dense.permute(0, 2, 1, 3).reshape(R * br, C * bc)
 
 
+def bcsr_density(m: BlockCSR) -> float:
+    """Resident blocks over the blocks of the grid."""
+    R, C = m.block_grid
+    return m.n_blocks / max(R * C, 1)
+
+
 def _pad_rows(t: Tensor, n: int, dim: int) -> Tensor:
     """Append zeros along ``dim`` up to size ``n``."""
     extra = n - t.shape[dim]
@@ -293,3 +304,52 @@ class PaletteBCSR(_TensorFields):
 
 def is_bcsr(x) -> bool:
     return isinstance(x, (BlockCSR, PaletteBCSR))
+
+
+# ---------------------------------------------------------------------------
+# Elementwise CSR (the paper's Fig. 1(iii))
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CSR:
+    """ptr / indices / data elementwise CSR: ``data`` (nnz,) the nonzeros
+    in row-major order, ``indices`` (nnz,) int32 their columns, ``indptr``
+    (rows + 1,) int32 each row's start."""
+    data: Tensor
+    indices: Tensor
+    indptr: Tensor
+    shape: tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        return (_nbytes(self.data) + self.indices.numel() * 4
+                + self.indptr.numel() * 4)
+
+
+def dense_to_csr(w) -> CSR:
+    """A dense 2D matrix (numpy or tensor) as CSR, built on the host; the
+    tensors of the result lie on the CPU. The same arrays as the
+    reference's ``dense_to_csr``."""
+    w = w.detach().cpu().numpy() if isinstance(w, Tensor) else np.asarray(w)
+    if w.ndim != 2:
+        raise ValueError(f"dense_to_csr wants a 2D matrix, got {w.shape}")
+    rows, cols = np.nonzero(w)
+    indptr = np.zeros(w.shape[0] + 1, np.int32)
+    np.add.at(indptr, rows + 1, 1)
+    return CSR(data=torch.from_numpy(w[rows, cols]),
+               indices=torch.from_numpy(cols.astype(np.int32)),
+               indptr=torch.from_numpy(np.cumsum(indptr).astype(np.int32)),
+               shape=tuple(w.shape))
+
+
+def csr_to_dense(m: CSR) -> Tensor:
+    out = torch.zeros(m.shape, dtype=m.data.dtype, device=m.data.device)
+    counts = (m.indptr[1:] - m.indptr[:-1]).long()
+    rows = torch.repeat_interleave(
+        torch.arange(m.shape[0], device=m.data.device), counts)
+    out[rows, m.indices.long()] = m.data
+    return out

@@ -85,10 +85,10 @@ def test_cli_serves_jax_checkpoint(tmp_path, capsys):
 
 
 def test_cli_rejects_what_is_not_ported(tmp_path):
-    with pytest.raises(SystemExit, match="Queue 1 item 11"):
-        serve.main(BASE + ["--engine", "--replicas=2"])
     with pytest.raises(SystemExit, match="Queue 1 item 12"):
         serve.main(BASE + ["--mesh", "2,2"])
+    with pytest.raises(SystemExit, match="Queue 1 item 12"):
+        serve.main(BASE + ["--engine", "--replicas=2", "--logits-out=x.npy"])
     with pytest.raises(SystemExit, match="prune path only"):
         serve.main(BASE + ["--quantize-bits", "8"])
     with pytest.raises(SystemExit, match="no checkpoints"):
@@ -155,3 +155,39 @@ def test_cli_engine_counters_match_jax(tmp_path):
                        if kinds.get(k[0]) in ("counter", "gauge")})
     got, want = parsed
     assert len(got) > 10 and got == want
+
+
+@pytest.mark.parametrize("route,metrics", [("prefix", "m.json"),
+                                           ("least-loaded", "m.prom")])
+def test_cli_router_serves_with_parity(tmp_path, route, metrics, capsys):
+    """--replicas 2: the mix through two engine replicas behind the router,
+    every request's tokens equal to generate's; the fleet's metrics carry
+    the router's registry and each replica's."""
+    m_out, t_out = tmp_path / metrics, tmp_path / "t.json"
+    out = serve.main(ENGINE + [
+        "--requests", _request_file(tmp_path), "--replicas", "2",
+        "--route", route, "--prefix-cache", "--parity-check", "--profile",
+        "--metrics-out", str(m_out), "--trace-out", str(t_out)])
+    printed = capsys.readouterr().out
+    assert f"router[2x {route}]: 5 requests" in printed
+    assert "engine-vs-generate parity OK (5 requests)" in printed
+    assert printed.count("  replica ") == 2 and "[FAILED]" not in printed
+    assert "engine/tick_step" in printed
+    s = out["stats"]
+    assert s["n_replicas"] == 2 and s["n_failed_replicas"] == 0
+    assert sum(r["n_requests"] for r in s["per_replica"]) == 5
+    ticks = sum(r["n_ticks"] for r in s["per_replica"])
+    if metrics.endswith(".json"):
+        fleet = json.loads(m_out.read_text())
+        assert fleet["router"]["repro_router_requests_total"]["series"][0][
+            "value"] == 5
+        assert sum(x["value"] for rep in fleet["replicas"] for x in
+                   rep["repro_engine_ticks_total"]["series"]) == ticks
+    else:
+        parsed = parse_prometheus(m_out.read_text())
+        assert sum(v for k, v in parsed.items()
+                   if k[0] == "repro_engine_ticks_total") == ticks
+        assert {dict(k[1]).get("replica") for k in parsed
+                if k[0] == "repro_engine_ticks_total"} == {"0", "1"}
+    events = validate_chrome_trace(json.loads(t_out.read_text()))
+    assert sum(e["name"] == "done" for e in events) == 5
