@@ -123,6 +123,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
      engine (capacity factor E / top_k, so nothing is dropped; BlockCSR)
      against ``generate``; and a ``launch/serve --profile`` run whose
      counts equal the launch counters;
+ 13b. olmoe-1b-7b training through compressed experts: the expert
+     backward (``ops.spmm_t_experts``, dx, and
+     ``bsr_weight_grad_experts``, dw: one launch each for all 64 experts,
+     the expert on the grid's z axis) on layer 0's three projections of
+     phase 13's model (bf16 store) at M = 80 (a debias step's capacity)
+     and 8, bf16 and f32, each held to its plain version (every padded
+     slot zero) and timed beside it, 64 single-expert launches,
+     ``torch.bmm`` on the densified experts or a dense dW, and its bound;
+     SpC-Retrain (``train/loop.run_spc_retrain_pipeline`` with the plan's
+     group-l1 prox) at full width on 2 of 16 layers in bf16, from weights
+     whose blocks have spread norms: step times, peak memory, the expert
+     block sparsity (0.8-0.95), the seconds of ``compress_params``, the
+     launch counters per debias step (3 launches of each expert kernel
+     and 9 of each single-matrix kernel a step), then ``generate``; debias
+     at full width and depth on phase 13's model (48 launches of each
+     expert kernel and 65 of each single-matrix one a step), one step
+     profiled; in f32 at 2 layers, the kernel path against the plain path
+     over 3 debias steps (every kernel call held to its plain version;
+     router flips counted; losses, step 1's dx and dw per expert slice,
+     and the stores' updates); and ``launch/train --reduced --sparse`` on
+     reduced olmoe from a planted checkpoint (its experts compress) and
+     ``launch/serve --sparse --ckpt-dir`` on its checkpoint;
  14. flash attention: the kernel against its plain version at
      recurrentgemma-9b's local attention (S 4096, window 2048) and
      smollm-360m's prefill, causal, not causal and windowed, bf16 and
@@ -136,8 +158,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      decode and a prefill tick of the smollm-360m mix and at
      recurrentgemma-9b's prefill tick, flash at recurrentgemma-9b's local
      attention and smollm-360m's prefill, the expert launch at
-     olmoe-1b-7b's ewi (rows 1e / 2e), with the spmm and paged bounds also
-     at the bf16 tensor-core rate) and the contract line.
+     olmoe-1b-7b's ewi (rows 1e / 2e) and the expert backward there (rows
+     1be / 4e), with the spmm and paged bounds also at the bf16
+     tensor-core rate) and the contract line.
 
 It imports nothing of JAX or of the JAX package, and exits with an error
 when no CUDA device is visible.
@@ -192,8 +215,9 @@ from repro_torch.sparse.compress import (CompressionPlan,  # noqa: E402
                                          bcsr_equiv_size_bytes,
                                          compressed_size_bytes,
                                          init_compressed, iter_bcsr,
-                                         quantize_bcsr, quantize_compressed,
-                                         split_trainable)
+                                         make_plan_prox, quantize_bcsr,
+                                         quantize_compressed, split_trainable)
+from repro_torch.core.tree import tree_map  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train.state import TrainState  # noqa: E402
 from repro_torch.train.step import make_loss_fn, make_train_step  # noqa: E402
@@ -423,6 +447,25 @@ MOE_F32_LAYERS = 2
 # this, in some layer; past it a greedy token may differ in f32
 MOE_ROUTER_TIE = 1e-5
 MOE_PROFILE_TICKS = (20, 26)
+# MoE training (olmoe-1b-7b). The expert backward's rows: a debias step's
+# capacity at batch 8 x 64 (int(1.25 * 512 * 8 / 64) = 80 rows an expert)
+# and the floor of moe._capacity (8); rows 1be / 4e of the kernel table at
+# ewi, M = 80, bf16.
+MOE_TRAIN_M = (80, 8)
+MOE_TRAIN_TABLE = ("ewi", 80, torch.bfloat16)
+# SpC-Retrain at full width runs the first 2 of 16 layers: an f32 master,
+# Adam's two moments, the grads and the bf16 casts of all 16 (6.92 B
+# parameters) would pass the card's 80 GB; of 2 layers (1.05 B) they take
+# about 19 GB. Debias starts from the compressed model, which fits at full
+# depth (3.17 GB of BCSR and residue).
+MOE_TRAIN_LAYERS = 2
+MOE_DEBIAS_STEPS = 5
+# launch/train --sparse on reduced olmoe (experts of 64 x 64) from a planted
+# checkpoint: (8, 16) blocks at lr 3e-3; the group-l1 threshold lr * lam
+# (0.06) must pass lr sqrt(8 * 16) (0.034), the norm one Adam step gives a
+# zeroed block, or pruned blocks grow back and nothing compresses.
+MOE_CLI_BLOCK, MOE_CLI_LR, MOE_CLI_LAM = (8, 16), 3e-3, 20.0
+MOE_CLI_STEPS, MOE_CLI_DEBIAS, MOE_CLI_GEN = 6, 3, 8
 
 def log(*a):
     print(*a, flush=True)
@@ -1926,37 +1969,54 @@ def train_kernel_phase(dev) -> dict:
 
 
 def _projections(params):
-    """(stored tensor, (in, out) view) of every compressible projection."""
-    for sub, names in (("attn", ("wq", "wk", "wv", "wo")),
-                       ("mlp", ("wi", "wg", "wo"))):
-        for name in names:
-            t = params["layers"]["b0_attn"][sub][name]
-            s = t.shape
-            if name in ("wq", "wk", "wv"):
-                yield t.view(s[0], s[1], s[2] * s[3])
-            elif name == "wo" and sub == "attn":
-                yield t.view(s[0], s[1] * s[2], s[3])
-            else:
-                yield t
+    """The (in, out) view of every compressible projection: attention and
+    MLP of every stacked layer, each expert of an MoE layer (the (L, E)
+    axes lead), and an untied head."""
+    for layer in params["layers"].values():
+        for sub, names in (("attn", ("wq", "wk", "wv", "wo")),
+                           ("mlp", ("wi", "wg", "wo")),
+                           ("moe", ("ewi", "ewg", "ewo"))):
+            for name in names:
+                t = layer.get(sub, {}).get(name)
+                if t is None:
+                    continue
+                s = t.shape
+                if sub == "attn" and name in ("wq", "wk", "wv"):
+                    yield t.view(s[0], s[1], s[2] * s[3])
+                elif sub == "attn":
+                    yield t.view(s[0], s[1] * s[2], s[3])
+                else:
+                    yield t
+    if "head" in params:
+        yield params["head"]
 
 
-def _plant_checkpoint(dev, ckpt_dir: Path) -> None:
-    """A step-1 TrainState whose (8, 128) blocks (on the (out, in) serving
-    grid) have norms spread log-uniformly over [SPREAD_LO, SPREAD_HI]."""
-    model = build(get_config(ARCH), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = model.init(gen)
-    br, bc = BLOCK
+def _spread_norms(params, block, gen) -> None:
+    """Scale every block (``block`` on the (out, in) serving grid) of every
+    compressible projection, in place, so that the block norms are spread
+    log-uniformly over [SPREAD_LO, SPREAD_HI], as trained weights' are."""
+    br, bc = block
     with torch.no_grad():
         for flat in _projections(params):
             norms = prox_lib._block_reduce_l2(flat, (bc, br))
             target = torch.exp(math.log(SPREAD_LO) + torch.rand(
-                norms.shape, generator=gen, device=dev)
+                norms.shape, generator=gen, device=flat.device)
                 * math.log(SPREAD_HI / SPREAD_LO))
             scale = target / norms.clamp_min(1e-30)
             full = scale.repeat_interleave(bc, -2).repeat_interleave(br, -1)
             flat.mul_(full[..., :flat.shape[-2], :flat.shape[-1]])
-    opt = optimizers.prox_adam(TRAIN_LR, lam=LAM)
+
+
+def _plant_checkpoint(dev, ckpt_dir: Path, arch: str = ARCH, block=BLOCK,
+                      lr: float = TRAIN_LR, lam: float = LAM,
+                      reduced: bool = False) -> None:
+    """A step-1 TrainState of ``arch`` whose blocks have spread norms
+    (``_spread_norms``), with the optimizer state ``launch/train --sparse``
+    builds, for the CLI to resume from."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build(arch, reduced=reduced, device=dev).init(gen)
+    _spread_norms(params, block, gen)
+    opt = optimizers.prox_adam(lr, lam=lam)
     Checkpointer(str(ckpt_dir)).save(1, TrainState(
         params=params, opt_state=opt.init(params), mask=None, step=1))
 
@@ -1970,11 +2030,14 @@ class _TimedWatchdog(train_loop.StragglerWatchdog):
         _TimedWatchdog.phases.append(self.times)
 
 
-def _block_sparsity(cp) -> tuple:
+def _block_sparsity(cp, where: str = "") -> tuple:
+    """(block sparsity, resident, total) over the compressed weights whose
+    path holds ``where``, every stacked slice (layer, expert) counted."""
     resident = total = 0
-    for _, m in iter_bcsr(cp):
-        resident += int(m.gather_nnz.sum())
-        total += int(np.prod(m.block_grid)) * m.gather_nnz.shape[0]
+    for path, m in iter_bcsr(cp):
+        if where in path:
+            resident += int(m.gather_nnz.sum())
+            total += m.gather_nnz.numel() * m.block_grid[1]
     return 1.0 - resident / max(total, 1), resident, total
 
 
@@ -2732,9 +2795,10 @@ def _router_probs(inputs=None):
     seen = []
 
     def record(router_w, xt, e):
-        seen.append(torch.softmax(xt.float() @ router_w.float(), dim=-1))
+        with torch.no_grad():
+            seen.append(torch.softmax(xt.float() @ router_w.float(), dim=-1))
         if inputs is not None:
-            inputs.append(xt.float())
+            inputs.append(xt.detach().float())
         return inner(router_w, xt, e)
 
     moe_lib._router_and_aux = record
@@ -3033,9 +3097,539 @@ def moe_phase(dev) -> dict:
         if line.startswith("  ") and "calls" in line:
             log(f"  {line.strip()}")
     result["profile_counts"] = prof
-    del formats, cp, model
+    del formats, model
     torch.cuda.empty_cache()
+    return result, cp
+
+
+# ---------------------------------------------------------------------------
+# MoE training (olmoe-1b-7b)
+# ---------------------------------------------------------------------------
+
+def _expert_bound(one, dtypes, w, *ts):
+    """A single-matrix bound helper (``_spmm_t_bound``, ``_sddmm_bound``)
+    summed over the experts of one launch: each expert's bytes and flops,
+    at the rate of the operand types ``dtypes``."""
+    nbytes = flops = 0
+    for i in range(w.gather_nnz.shape[0]):
+        b = one(w[i], *(t[i] for t in ts))
+        nbytes, flops = nbytes + b[2], flops + b[3]
+    return _ops_bound(nbytes, flops, *dtypes)
+
+
+def _moe_train_kernel_rows(dev, cp) -> dict:
+    """Rows 1be / 4e: the expert backward (``spmm_t_experts``, dx, and
+    ``bsr_weight_grad_experts``, dw) on layer 0's ewi, ewg and ewo of the
+    phase-13 model (64 experts, (8, 128) blocks at 0.9, the store in bf16),
+    at M = 80 (a debias step's capacity) and 8 (the capacity's floor), dY
+    and x in bf16 and f32. Each call held to its plain version (a loop of
+    the single-matrix plain version over the experts), every expert's
+    padded slots zero in dw; timed beside the plain version, 64
+    single-expert launches of ``spmm_t`` / ``bsr_weight_grad``, the library
+    yardsticks ``torch.bmm(dY, densified W)`` and ``torch.bmm(dY', X)`` (a
+    dense dW; the port calls neither), and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+    for proj in ("ewi", "ewg", "ewo"):
+        w32 = cp.sparse["layers"]["b0_attn"]["moe"][proj][0]
+        w = dataclasses.replace(w32, data=w32.data.to(torch.bfloat16))
+        e, (n, k) = w.gather_nnz.shape[0], w.shape
+        valid = sddmm_ops.slot_coordinates(w)[2]
+        wd = torch.stack([bcsr_to_dense(w[i])[:n, :k] for i in range(e)])
+        for m_rows in MOE_TRAIN_M:
+            for dt in (torch.bfloat16, torch.float32):
+                lib = str(dt).split(".")[-1]
+                dy = torch.randn(e, m_rows, n, generator=gen, device=dev).to(dt)
+                x = torch.randn(e, m_rows, k, generator=gen, device=dev).to(dt)
+                wdt = wd.to(dt)
+                base = {"matrix": f"layer 0 moe.{proj}", "experts": e,
+                        "matrix_shape": [n, k], "M": m_rows, "dtype": lib,
+                        "store": "bfloat16",
+                        "resident_blocks": int(w.gather_nnz.sum())}
+                err = _check(f"spmm_t_experts {proj} M={m_rows} {dt}",
+                             ops.spmm_t_experts(dy, w),
+                             ref.spmm_experts_bwd_ref(dy, w), KERNEL_ATOL,
+                             KERNEL_RTOL)
+                sets = copies(lambda: (dy.clone(), w.map(torch.clone)),
+                              tensor_bytes(dy, w.data))
+
+                def t_singles(d, ww):
+                    for i in range(d.shape[0]):
+                        ops.spmm_t(d[i], ww[i])
+
+                row = {"kernel": "bsr_spmm_t_experts", **base,
+                       "max_abs_err": err, "atol": KERNEL_ATOL,
+                       "rtol": KERNEL_RTOL,
+                       "ms": time_ms(ops.spmm_t_experts, sets, MOE_TIMED_CALLS),
+                       "singles_ms": time_ms(t_singles, sets,
+                                             MOE_YARDSTICK_CALLS),
+                       "plain_ms": time_ms(ref.spmm_experts_bwd_ref,
+                                           sets[:1], 1),
+                       "library_ms": time_ms(torch.bmm, copies(
+                           lambda: (dy.clone(), wdt.clone()),
+                           tensor_bytes(dy, wdt)), MOE_YARDSTICK_CALLS),
+                       "library": f"torch.bmm(dY, densified W) {lib}"}
+                row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                               _expert_bound(_spmm_t_bound, (dt, w.data.dtype),
+                                             w, dy)))
+                log(json.dumps(row))
+                rows[("spmm_t_experts", proj, m_rows, dt)] = row
+                del sets
+
+                got = sddmm_ops.bsr_weight_grad_experts(x, dy, w)
+                err = _check(f"bsr_sddmm_experts {proj} M={m_rows} {dt}", got,
+                             sddmm_ops.bsr_weight_grad_experts_ref(x, dy, w),
+                             SDDMM_ATOL, SDDMM_RTOL)
+                if not bool((got[~valid] == 0).all()):
+                    raise SystemExit(f"bsr_sddmm_experts {proj}: a padded or "
+                                     "pad slot is not zero")
+                sets = copies(lambda: (x.clone(), dy.clone(), w),
+                              tensor_bytes(x, dy))
+
+                def s_singles(xs, d, ww):
+                    for i in range(xs.shape[0]):
+                        sddmm_ops.bsr_weight_grad(xs[i], d[i], ww[i])
+
+                row = {"kernel": "bsr_sddmm_experts", **base,
+                       "slots": int(w.data.shape[1]),
+                       "valid_slots": int(valid.sum()),
+                       "max_abs_err": err, "atol": SDDMM_ATOL,
+                       "rtol": SDDMM_RTOL,
+                       "ms": time_ms(sddmm_ops.bsr_weight_grad_experts, sets,
+                                     MOE_TIMED_CALLS),
+                       "singles_ms": time_ms(s_singles, sets,
+                                             MOE_YARDSTICK_CALLS),
+                       "plain_ms": time_ms(
+                           sddmm_ops.bsr_weight_grad_experts_ref, sets[:1], 1),
+                       "library_ms": time_ms(
+                           lambda a, b: torch.bmm(a.transpose(1, 2), b),
+                           copies(lambda: (dy.clone(), x.clone()),
+                                  tensor_bytes(x, dy)), MOE_YARDSTICK_CALLS),
+                       "library": f"torch.bmm(dY', X) {lib} (dense dW)"}
+                row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                               _expert_bound(_sddmm_bound, (dt, dt), w, x, dy)))
+                log(json.dumps(row))
+                rows[("bsr_sddmm_experts", proj, m_rows, dt)] = row
+                del sets, got
+        del wd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _per_step(counts: dict, steps: int) -> dict:
+    return {k: counts[k] / steps for k in (
+        "spmm", "spmm_t", "bsr_sddmm", "spmm_experts", "spmm_t_experts",
+        "bsr_sddmm_experts", "spmm_palette", "spmm_palette_experts")}
+
+
+def _check_train_counts(what, counts, steps, single, experts) -> None:
+    """Each debias step: ``single`` launches of each single-matrix training
+    kernel (attention and the head), ``experts`` of each expert one (3 a
+    layer), no palette launch and so no launch that is not one of these;
+    and prox_adam on the leaves."""
+    want = {"spmm": single, "spmm_t": single, "bsr_sddmm": single,
+            "spmm_experts": experts, "spmm_t_experts": experts,
+            "bsr_sddmm_experts": experts, "spmm_palette": 0,
+            "spmm_palette_experts": 0}
+    got = _per_step(counts, steps)
+    log(f"  {what}: launches per debias step {got}")
+    if got != {k: float(v) for k, v in want.items()} or not counts["prox_adam"]:
+        raise SystemExit(f"{what}: launches {counts}, expected per step {want} "
+                         "and some prox_adam")
+
+
+def _moe_spc_retrain(dev) -> tuple:
+    """SpC-Retrain of olmoe-1b-7b at full width on MOE_TRAIN_LAYERS layers
+    in bf16, through ``train/loop.run_spc_retrain_pipeline`` (the function
+    ``launch/train --sparse`` calls) with the plan's group-l1 prox, from
+    seed-0 weights whose blocks have spread norms (``_spread_norms``: every
+    projection, each expert's (out, in) view and the head): SPC_STEPS SpC
+    steps, compression, MOE_DEBIAS_STEPS debias steps on the compressed
+    experts; then ``generate`` from the result."""
+    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_TRAIN_LAYERS)
+    phase(f"{MOE} training: SpC-Retrain at full width, {MOE_TRAIN_LAYERS} of "
+          f"16 layers (the main path)")
+    model = build(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    _spread_norms(params, BLOCK, gen)
+    plan = CompressionPlan(block=BLOCK)
+    data = TokenStreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH)
+    compress_s = []
+    inner = train_loop.compress_params
+
+    def timed_compress(p, pl):
+        t0 = time.perf_counter()
+        out = inner(p, pl)
+        torch.cuda.synchronize()
+        compress_s.append(time.perf_counter() - t0)
+        return out
+
+    _TimedWatchdog.phases = []
+    saved = train_loop.StragglerWatchdog
+    train_loop.StragglerWatchdog = _TimedWatchdog
+    train_loop.compress_params = timed_compress
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    t0 = time.perf_counter()
+    try:
+        cp, hist_spc, hist_db, report = train_loop.run_spc_retrain_pipeline(
+            params, lambda o, param_transform=None: make_train_step(
+                model, o, param_transform=param_transform),
+            optimizers.prox_adam(TRAIN_LR, lam=LAM,
+                                 prox_fn=make_plan_prox(plan)),
+            optimizers.prox_adam(TRAIN_LR, lam=0.0),
+            lambda step: token_batch(data, step, device=dev),
+            spc_steps=SPC_STEPS, debias_steps=MOE_DEBIAS_STEPS, plan=plan,
+            log_every=1)
+        torch.cuda.synchronize()
+    finally:
+        train_loop.StragglerWatchdog = saved
+        train_loop.compress_params = inner
+    counts = _all_launches()
+    del params
+    log(f"  run {time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"compress_params {compress_s[0]:.1f} s; bytes dense "
+        f"{report['dense_bytes'] / 1e6:.1f} MB, bcsr "
+        f"{report['bcsr_bytes'] / 1e6:.1f} MB")
+    for name, hist in (("spc", hist_spc), ("debias", hist_db)):
+        log(f"  {name} losses {[round(h['loss'], 4) for h in hist]}, "
+            f"load balance {[round(h['load_balance'], 4) for h in hist]}")
+    for name, times in zip(("spc", "debias"), _TimedWatchdog.phases):
+        log(f"  {name} step times (s, host clock, the loss read every step): "
+            f"{[round(t, 4) for t in times]}")
+    sparsity, resident, total = _block_sparsity(cp, "/moe/")
+    log(f"  expert block sparsity after SpC: {sparsity:.4f} ({resident} of "
+        f"{total} (8, 128) blocks resident), all compressed weights "
+        f"{_block_sparsity(cp)[0]:.4f}, band {SPARSITY_BAND}")
+    if not SPARSITY_BAND[0] <= sparsity <= SPARSITY_BAND[1]:
+        raise SystemExit(f"expert block sparsity {sparsity:.4f} outside the "
+                         "band")
+    single = 4 * cfg.n_layers + 1
+    if _moe_per_pass(cp) != (single, 3 * cfg.n_layers):
+        raise SystemExit(f"expected every projection compressed, got "
+                         f"{[p for p, _ in iter_bcsr(cp)]}")
+    _check_train_counts("SpC-Retrain", counts, MOE_DEBIAS_STEPS, single,
+                        3 * cfg.n_layers)
+    losses = [h["loss"] for h in hist_spc + hist_db]
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"non-finite training loss: {losses}")
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                           device=dev)
+    ops.reset_launches()
+    out = generate(model, cp, prompt, TRAIN_GEN)
+    torch.cuda.synchronize()
+    log(f"  generate from the trained compressed params: tokens "
+        f"{tuple(out.shape)}, launches spmm {ops.launches['spmm']} "
+        f"spmm_experts {ops.launches['spmm_experts']}")
+    if tuple(out.shape) != (BATCH, TRAIN_GEN) or \
+            ops.launches["spmm_experts"] != 3 * cfg.n_layers * TRAIN_GEN or \
+            ops.launches["spmm"] != single * TRAIN_GEN:
+        raise SystemExit("generate from the trained params: tokens or "
+                         "launches")
+    return cp, {"launches": counts, "sparsity": sparsity,
+                "compress_s": compress_s[0],
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "step_times": _TimedWatchdog.phases}
+
+
+def _moe_debias_full(dev, cp) -> dict:
+    """Debias of the phase-13 model at full width and depth in bf16:
+    ``split_trainable`` / ``rebuild`` and ``make_train_step`` with
+    prox-Adam at lam 0, MOE_DEBIAS_STEPS steps; the launch counters per
+    step; one step profiled. Trains ``cp``'s stores in place."""
+    cfg = get_config(MOE)
+    phase(f"{MOE} training: debias at full width and depth (bf16)")
+    model = build(cfg, device=dev)
+    trainable, rebuild = split_trainable(cp)
+    opt = optimizers.prox_adam(TRAIN_LR, lam=0.0)
+    holder = [TrainState(params=trainable, opt_state=opt.init(trainable),
+                         mask=masks.zero_mask(trainable), step=0)]
+    step = make_train_step(model, opt, param_transform=rebuild)
+    data = TokenStreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH)
+    batches = [token_batch(data, i, device=dev)
+               for i in range(MOE_DEBIAS_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    times, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        holder[0], met = step(holder[0], b)
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts = _all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  losses {[round(v, 4) for v in losses]}; step times (s, host "
+        f"clock, the loss read) {[round(t, 4) for t in times]}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    _check_train_counts("full-depth debias", counts, MOE_DEBIAS_STEPS,
+                        4 * cfg.n_layers + 1, 3 * cfg.n_layers)
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"non-finite debias loss: {losses}")
+
+    def one():
+        holder[0], met = step(holder[0], batches[0])
+        float(met["loss"])
+
+    _profile(f"{MOE} debias step (batch 8 x 64, 16 layers)", 0, one, top=10)
+    del holder, trainable, step
+    torch.cuda.empty_cache()
+    return {"launches": counts, "step_times": times, "peak_bytes": peak}
+
+
+@contextlib.contextmanager
+def _held_backward(what: str):
+    """Within the block, every kernel call of ``sparse_matmul``'s backward
+    (``spmm_t`` / ``spmm_t_experts`` for dx, the SDDMM for dw) is also run
+    through its plain version on the same inputs and held to it (the
+    kernels phase's tolerances); yields the list of each call's max
+    |kernel - plain|."""
+    dx_product, dw_product = sparse_ops._dx_product, sparse_ops._dw_product
+    errs = []
+
+    def hold(got, want, atol, rtol, desc):
+        errs.append(float((got - want).abs().max()) if got.numel() else 0.0)
+        if not torch.allclose(got, want, atol=atol, rtol=rtol):
+            raise SystemExit(f"{what}: {desc} disagrees with plain, max err "
+                             f"{errs[-1]}")
+
+    def dx(dy, w, backend):
+        got = dx_product(dy, w, backend)
+        if backend == "cuda":
+            plain = ref.spmm_experts_bwd_ref if dy.dim() == 3 else \
+                ref.spmm_bwd_ref
+            hold(got, plain(dy, w), KERNEL_ATOL, KERNEL_RTOL,
+                 f"dx call (dy {tuple(dy.shape)}, W {w.shape})")
+        return got
+
+    def dw(x, dy, w, backend):
+        got = dw_product(x, dy, w, backend)
+        if backend == "cuda":
+            plain = (sddmm_ops.bsr_weight_grad_experts_ref if x.dim() == 3
+                     else sddmm_ops.bsr_weight_grad_ref)
+            hold(got, plain(x, dy, w), SDDMM_ATOL, SDDMM_RTOL,
+                 f"dw call (x {tuple(x.shape)}, W {w.shape})")
+        return got
+
+    sparse_ops._dx_product, sparse_ops._dw_product = dx, dw
+    try:
+        yield errs
+    finally:
+        sparse_ops._dx_product, sparse_ops._dw_product = dx_product, dw_product
+
+
+def _moe_train_compare(dev, cp) -> dict:
+    """The kernel path against the plain path in f32 (``sparse_backend``
+    'auto' against 'ref') on the SpC-Retrain result (MOE_TRAIN_LAYERS
+    layers), over COMPARE_STEPS debias steps from the same stores: the
+    kernel path's every kernel call (forward and backward) held to its
+    plain version on its inputs; the routers' top-k choices compared per
+    layer and step (flips counted; a flip is accepted only at a near tie,
+    as ``_router_flips`` holds it). Up to the first step with a flip: the
+    losses within LOSS_RTOL, step 1's dx per projection call and dw per
+    layer and expert slice within GRAD_RTOL of their largest |value|, and
+    after COMPARE_STEPS steps the stores' updates within UPDATE_RTOL of
+    their norm."""
+    phase(f"{MOE} training: kernel path vs plain path (f32 debias, "
+          f"{MOE_TRAIN_LAYERS} layers)")
+    f32 = dataclasses.replace(get_config(MOE), compute_dtype="float32",
+                              n_layers=MOE_TRAIN_LAYERS)
+    k_top = f32.moe.top_k
+    data = TokenStreamConfig(vocab=f32.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH)
+    trainable, rebuild = split_trainable(cp)
+    base = {"dense": tree_map(torch.clone, trainable["dense"]),
+            "bcsr_data": {p: d.clone() for p, d in
+                          trainable["bcsr_data"].items()}}
+    del trainable
+    runs = {}
+    for backend in ("auto", "ref"):
+        model = build(f32, device=dev, sparse_backend=backend)
+        tr = {"dense": tree_map(torch.clone, base["dense"]),
+              "bcsr_data": {p: d.clone() for p, d in base["bcsr_data"].items()}}
+        loss0, dxs, dws = _first_grads(model, tr, rebuild,
+                                       token_batch(data, 0, device=dev))
+        opt = optimizers.prox_adam(COMPARE_LR, lam=0.0)
+        state = TrainState(params=tr, opt_state=opt.init(tr),
+                           mask=masks.zero_mask(tr), step=0)
+        step = make_train_step(model, opt, param_transform=rebuild)
+        losses, inputs = [], []
+        held = contextlib.ExitStack()
+        fwd_errs = bwd_errs = []
+        if backend == "auto":
+            fwd_errs = held.enter_context(_held_calls(f"{MOE} f32 debias"))
+            bwd_errs = held.enter_context(_held_backward(f"{MOE} f32 debias"))
+        with held, _router_probs(inputs) as probs:
+            _reset_all()
+            for i in range(COMPARE_STEPS):
+                state, met = step(state, token_batch(data, i, device=dev))
+                losses.append(float(met["loss"]))
+        log(f"  {backend}: losses {losses}, launches {_all_launches()}"
+            + (f"; {len(fwd_errs)} forward and {len(bwd_errs)} backward "
+               f"kernel calls held to their plain versions, max |diff| "
+               f"{max(fwd_errs):.3e} / {max(bwd_errs):.3e}"
+               if backend == "auto" else ""))
+        runs[backend] = (loss0, dxs, dws, losses,
+                         {p: v - base["bcsr_data"][p] for p, v in
+                          state.params["bcsr_data"].items()}, probs, inputs)
+        del state, step, model, tr
+        torch.cuda.empty_cache()
+    k, p = runs["auto"], runs["ref"]
+    flips, first = _router_flips(f"{MOE} f32 debias", k_top, (k[5], k[6]),
+                                 (p[5], p[6]))
+    per_step = len(k[5]) // COMPARE_STEPS
+    first_step = COMPARE_STEPS if first is None else first["layer"] // per_step
+    log(f"  router top-{k_top} flips between kernel and plain path: {flips} "
+        f"of {len(k[5]) * k[5][0].shape[0]} (token, layer, step) triples, "
+        f"first {first}" + ("" if first is None else
+                            f" (step {first_step + 1}: from there the steps "
+                            "are held call by call only)"))
+    for i, (a, b) in enumerate(zip(k[3], p[3])):
+        if i < first_step and abs(a - b) > LOSS_RTOL * abs(b):
+            raise SystemExit(f"debias losses differ: {k[3]} vs {p[3]}")
+    result = {"flips": flips, "first_flip_step": first_step + 1
+              if first is not None else None, "losses": (k[3], p[3])}
+    if first_step == 0:
+        return result
+    if len(k[1]) != len(p[1]) or len(k[1]) != 7 * MOE_TRAIN_LAYERS + 1:
+        raise SystemExit(f"dx taps: {len(k[1])} and {len(p[1])}")
+    dx_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                 for a, b in zip(k[1], p[1]))
+    dw_err = 0.0
+    for path, gk in k[2].items():
+        gp = p[2][path]
+        lead = gk.shape[:-3]
+        for idx in np.ndindex(*lead):
+            scale = gp[idx].abs().max().clamp_min(1e-30)
+            dw_err = max(dw_err, float((gk[idx] - gp[idx]).abs().max()
+                                       / scale))
+    upd_err = max(float((k[4][q] - p[4][q]).norm()
+                        / p[4][q].norm().clamp_min(1e-30)) for q in k[4])
+    log(f"  f32 debias, kernels vs plain: step-1 loss {k[0]:.6f} vs "
+        f"{p[0]:.6f}; dx max err / max|dx| per call {dx_err:.3e}, dw per "
+        f"layer and expert slice {dw_err:.3e} (bound {GRAD_RTOL}); "
+        f"block-store updates after {COMPARE_STEPS} steps: |diff| / |update| "
+        f"{upd_err:.3e} (bound {UPDATE_RTOL}"
+        + (")" if first is None else ", not held: a router flipped)"))
+    if dx_err > GRAD_RTOL or dw_err > GRAD_RTOL or \
+            (first is None and upd_err > UPDATE_RTOL):
+        raise SystemExit("kernel path and plain path disagree")
+    result.update(dx_err=dx_err, dw_err=dw_err, upd_err=upd_err)
     return result
+
+
+def _moe_train_cli(dev) -> dict:
+    """``launch/train --arch olmoe-1b-7b --reduced --sparse`` on the card,
+    resumed from a planted checkpoint so that the experts compress, with
+    the launch counters read around it; then ``launch/serve --sparse
+    --ckpt-dir`` on its checkpoint."""
+    phase(f"{MOE} training: launch/train --reduced --sparse and launch/serve "
+          "--ckpt-dir")
+    cfg = get_config(MOE).reduced()
+    ckpt_dir = OUT_DIR / "moe_train_ckpt"
+    if ckpt_dir.exists():
+        import shutil
+        shutil.rmtree(ckpt_dir)
+    _plant_checkpoint(dev, ckpt_dir, MOE, MOE_CLI_BLOCK, MOE_CLI_LR,
+                      MOE_CLI_LAM, reduced=True)
+    argv = ["--arch", MOE, "--reduced", "--sparse", "--steps",
+            str(MOE_CLI_STEPS), "--debias-steps", str(MOE_CLI_DEBIAS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr",
+            str(MOE_CLI_LR), "--compress", f"group_l1:{MOE_CLI_LAM}",
+            "--block", *map(str, MOE_CLI_BLOCK), "--log-every", "1",
+            "--ckpt-dir", str(ckpt_dir)]
+    buf = io.StringIO()
+    _reset_all()
+    with contextlib.redirect_stdout(buf):
+        cp, hist_spc, hist_db, report = train.main(argv)
+    torch.cuda.synchronize()
+    counts = _all_launches()
+    log(f"train {' '.join(argv)}")
+    for line in buf.getvalue().splitlines():
+        if line.startswith(("arch=", "loss:", "model size", "compressed ")):
+            log(f"  {line}")
+    experts = sorted(q for q, _ in iter_bcsr(cp) if "/moe/" in q)
+    log(f"  compressed experts {experts}, expert block sparsity "
+        f"{_block_sparsity(cp, '/moe/')[0]:.4f}")
+    if len(experts) != 3:
+        raise SystemExit("launch/train --reduced --sparse compressed no expert "
+                         "stack")
+    _check_train_counts("launch/train --reduced --sparse", counts,
+                        MOE_CLI_DEBIAS, *(_moe_per_pass(cp)))
+    argv = ["--arch", MOE, "--reduced", "--sparse", "--ckpt-dir",
+            str(ckpt_dir), "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+            "--gen", str(MOE_CLI_GEN)]
+    buf = io.StringIO()
+    _reset_all()
+    with contextlib.redirect_stdout(buf):
+        out = serve.main(argv)
+    torch.cuda.synchronize()
+    log(f"serve {' '.join(argv)}")
+    for line in buf.getvalue().splitlines()[-3:]:
+        log(f"  {line}")
+    log(f"  launches spmm {ops.launches['spmm']} spmm_experts "
+        f"{ops.launches['spmm_experts']}")
+    if tuple(out.shape) != (BATCH, MOE_CLI_GEN) or ops.launches[
+            "spmm_experts"] != 3 * cfg.n_layers * MOE_CLI_GEN:
+        raise SystemExit(f"serving the trained MoE checkpoint: tokens "
+                         f"{tuple(out.shape)}, launches {ops.launches}")
+    return {"launches": counts}
+
+
+def moe_train_phase(dev, cp) -> dict:
+    """MoE training through compressed experts (olmoe-1b-7b): the expert
+    backward kernels at its shapes (rows 1be / 4e, on ``cp``, phase 13's
+    BlockCSR); SpC-Retrain at full width on 2 layers; debias at full width
+    and depth on ``cp`` (trained in place); the kernel path against the
+    plain path in f32; and the training and serving CLIs on reduced
+    olmoe."""
+    phase(f"{MOE} training: the expert backward kernels against their plain "
+          "versions (rows 1be / 4e)")
+    result = {"kernel_rows": _moe_train_kernel_rows(dev, cp)}
+    cp2, result["spc_retrain"] = _moe_spc_retrain(dev)
+    torch.cuda.empty_cache()
+    result["compare"] = _moe_train_compare(dev, cp2)
+    del cp2
+    torch.cuda.empty_cache()
+    result["debias_full"] = _moe_debias_full(dev, cp)
+    result["cli"] = _moe_train_cli(dev)
+    return result
+
+
+def _moe_train_rows(table, mt, card) -> None:
+    """Rows 1be / 4e: the expert backward at olmoe-1b-7b's layer-0 ewi (64
+    experts of (1024, 2048), bf16 dY, x and store, M = 80); launches are
+    the SpC-Retrain run's (its debias steps), and the full-depth debias
+    run's beside them."""
+    proj, m_rows, dt = MOE_TRAIN_TABLE
+    for name, key, source, replaces in (
+            ("bsr_spmm_t_experts", "spmm_t_experts",
+             "src/repro_torch/csrc/bsr_spmm_experts.cu",
+             "src/repro/kernels/bsr_spmm/bsr_spmm.py:163"),
+            ("bsr_sddmm_experts", "bsr_sddmm_experts",
+             "src/repro_torch/csrc/bsr_sddmm.cu",
+             "src/repro/kernels/bsr_sddmm/bsr_sddmm.py:44")):
+        rows = mt["kernel_rows"]
+        r = rows[(key, proj, m_rows, dt)]
+        table.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": mt["spc_retrain"]["launches"][key],
+            "full_depth_debias_launches": mt["debias_full"]["launches"][key],
+            "max_abs_err": max(v["max_abs_err"] for q, v in rows.items()
+                               if q[0] == key),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "singles_ms": r["singles_ms"],
+            "shape": f"{MOE} layer 0 {proj}, {r['experts']} experts of "
+                     f"{r['matrix_shape']}, M={m_rows} dy=x=bfloat16 "
+                     "store=bfloat16",
+            "card": card})
 
 
 def _moe_table_rows(table, moe, card) -> None:
@@ -3241,9 +3835,14 @@ def main() -> int:
     _spmm_rows(table, rows, launches, hybrid, card)
     rwkv = recurrent_phase(dev, RWKV, RWKV_PROMPTS, f32_layers=RWKV_F32_LAYERS)
     log(f"{RWKV}: {json.dumps(rwkv, default=str)}")
-    moe = moe_phase(dev)
+    moe, cp = moe_phase(dev)
     log(f"{MOE}: {json.dumps({k: v for k, v in moe.items() if k != 'expert_rows'}, default=str)}")
     _moe_table_rows(table, moe, card)
+    moe_train = moe_train_phase(dev, cp)
+    del cp
+    torch.cuda.empty_cache()
+    log(f"{MOE} training: {json.dumps({k: v for k, v in moe_train.items() if k != 'kernel_rows'}, default=str)}")
+    _moe_train_rows(table, moe_train, card)
     flash_rows, flash_launches, model_launches = flash_phase(dev)
     flash_err = max(v["max_abs_err"] for v in flash_rows)
     _flash_row(table, "flash_attention", flash_rows[FLASH_TABLE_ROW],

@@ -98,10 +98,12 @@
 //   (its tables, then its copies, then its products), not the bytes, sets
 //   the time.
 //
-// The expert axis (ops.spmm_experts, ops.spmm_palette_experts; the MoE FFN,
-// replacing the reference's lax.map of one sparse_matmul per expert): both
-// forward kernels take E stacked problems in one launch, blockIdx.z the
-// expert. Expert e's X, Y, gather tables, block store or codes and palette
+// The expert axis (ops.spmm_experts, ops.spmm_palette_experts and, for the
+// backward, ops.spmm_t_experts; the MoE FFN, replacing the reference's
+// lax.map of one sparse_matmul per expert and its VJP): all three kernels
+// take E stacked problems in one launch, blockIdx.z the expert (the
+// forward's grids and bsr_tile_bwd's use x and y only). Expert e's X (dY),
+// Y (dX), gather tables, block store or codes and palette
 // lie at e times a per-expert stride (Experts below) from the first's; the
 // stacked stores share one slot count and table width (the compression
 // pads them), so every expert runs the grid of the widest. A single matrix
@@ -136,17 +138,18 @@
 
 namespace {
 
-constexpr bool kExperts = BSR_SPMM_EXPERTS;   // this build's forward: the expert axis
+constexpr bool kExperts = BSR_SPMM_EXPERTS;   // this build's kernels: the expert axis
 
 constexpr int kDecWarps = 8;         // decode: warps per thread block
 constexpr int kDecOut = 32;          // decode: outputs of a task, 32 / br rows x br
 
 using bsr::to_f32;
 
-// Per-expert strides of the forward's operands, in elements of each (x, y,
-// the gather tables idx / blk, nnz, the block store; for a palette store
-// w is in bytes of codes, and the palette's stride is its 2**BITS
-// entries). All 0 for a single matrix.
+// Per-expert strides of the operands, in elements of each (x, y, the
+// gather tables idx / blk, nnz, the block store; for a palette store w is
+// in bytes of codes, and the palette's stride is its 2**BITS entries). The
+// backward reads x as dY's, y as dX's, tab and nnz as the transposed
+// tables'. Unused for a single matrix.
 struct Experts {
   long long x, y, tab, nnz, w;
 };
@@ -497,12 +500,21 @@ bsr_tile_fwd(const TX* __restrict__ x, Blocks w, const int* __restrict__ idx,
 constexpr int kTCols = 64;                 // dX columns of a thread block
 constexpr int kTStr = kTCols + 8;          // row stride of the staged block slab
 
-template <int MT, typename TY, typename S>
+template <int MT, typename TY, typename S, bool EXP>
 __global__ void __launch_bounds__(128, 1)
 bsr_tile_bwd(const TY* __restrict__ dy, const S* __restrict__ data,
              const int* __restrict__ t_idx, const int* __restrict__ t_blk,
              const int* __restrict__ t_nnz, float* __restrict__ dx, int M, int N, int K,
-             int jmax_t, int br, int bc, int dy_vec, int w_vec) {
+             int jmax_t, int br, int bc, int dy_vec, int w_vec, Experts ex) {
+  if constexpr (EXP) {                // expert blockIdx.z's problem
+    const long long e = blockIdx.z;
+    dy += e * ex.x;
+    dx += e * ex.y;
+    t_idx += e * ex.tab;
+    t_blk += e * ex.tab;
+    t_nnz += e * ex.nnz;
+    data += e * ex.w;
+  }
   using bsr::H;
   using bsr::kK;
   using bsr::kStr;
@@ -721,11 +733,11 @@ int launch_fwd(const void* x, int x_is_bf16, DecodeBlocks wd, TileBlocks wt, con
 template <int MT, typename TY, typename S>
 int launch_bwd(const void* dy, const void* data, const int* t_idx, const int* t_blk,
                const int* t_nnz, float* dx, int M, int N, int K, int C, int jmax_t, int br,
-               int bc, int dy_vec, int w_vec, cudaStream_t st) {
+               int bc, int dy_vec, int w_vec, int E, const Experts& ex, cudaStream_t st) {
   constexpr int R = 32 * MT;
   constexpr size_t smem = sizeof(bsr::H) * 2 *
       ((size_t)bsr::parts<TY>() * R * bsr::kStr + (size_t)bsr::parts<S>() * bsr::kK * kTStr);
-  auto kern = bsr_tile_bwd<MT, TY, S>;
+  auto kern = bsr_tile_bwd<MT, TY, S, kExperts>;
   static size_t opted = 48 * 1024;             // the limit raised so far
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -734,19 +746,19 @@ int launch_bwd(const void* dy, const void* data, const int* t_idx, const int* t_
     opted = smem;
   }
   const int n_cc = (bc + kTCols - 1) / kTCols;
-  const dim3 grid(C * n_cc, std::min((M + R - 1) / R, 65535));
-  if (grid.x == 0 || M == 0) return 0;
+  const dim3 grid(C * n_cc, std::min((M + R - 1) / R, 65535), E);
+  if (grid.x == 0 || M == 0 || E == 0) return 0;
   kern<<<grid, 128, smem, st>>>(static_cast<const TY*>(dy), static_cast<const S*>(data), t_idx,
-                                t_blk, t_nnz, dx, M, N, K, jmax_t, br, bc, dy_vec, w_vec);
+                                t_blk, t_nnz, dx, M, N, K, jmax_t, br, bc, dy_vec, w_vec, ex);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TY, typename S>
 int launch_bwd_mt(int mt, const void* dy, const void* data, const int* t_idx, const int* t_blk,
                   const int* t_nnz, float* dx, int M, int N, int K, int C, int jmax_t, int br,
-                  int bc, int dy_vec, int w_vec, cudaStream_t st) {
+                  int bc, int dy_vec, int w_vec, int E, const Experts& ex, cudaStream_t st) {
 #define BSR_BWD_ARGS dy, data, t_idx, t_blk, t_nnz, dx, M, N, K, C, jmax_t, br, bc, dy_vec, \
-                     w_vec, st
+                     w_vec, E, ex, st
   if (mt == 1) return launch_bwd<1, TY, S>(BSR_BWD_ARGS);
   if (mt == 2) return launch_bwd<2, TY, S>(BSR_BWD_ARGS);
 #undef BSR_BWD_ARGS
@@ -755,13 +767,16 @@ int launch_bwd_mt(int mt, const void* dy, const void* data, const int* t_idx, co
 
 }  // namespace
 
-// The forward entries of this build: bsr_spmm_fwd and bsr_spmm_palette_fwd
-// for one matrix (E = 1), or bsr_spmm_experts_fwd and
-// bsr_spmm_palette_experts_fwd for E stacked ones (bsr_spmm_experts.cu).
+// The entries of this build: bsr_spmm_fwd, bsr_spmm_palette_fwd and
+// bsr_spmm_t for one matrix (E = 1), or bsr_spmm_experts_fwd,
+// bsr_spmm_palette_experts_fwd and bsr_spmm_t_experts for E stacked ones
+// (bsr_spmm_experts.cu).
 #if BSR_SPMM_EXPERTS
 #define BSR_FWD(name) name##_experts_fwd
+#define BSR_BWD(name) name##_experts
 #else
 #define BSR_FWD(name) name##_fwd
+#define BSR_BWD(name) name
 #endif
 
 extern "C" {
@@ -788,21 +803,25 @@ int BSR_FWD(bsr_spmm)(const void* x, int x_is_bf16, const void* data, int data_i
                     N, O, jmax, tile, J, x_vec, E, n_slots, bc, stream);
 }
 
-#if !BSR_SPMM_EXPERTS
-// dX (M, K) f32 = dY (M, N) @ W for BlockCSR W (N, K), over the transposed
-// tables t_idx/t_blk (C, jmax_t) int32 and t_nnz (C,) int32: dY f32 or bf16,
-// data f32 or bf16 (n_slots, br, bc); br one of 1, 2, 4, 8, 16, 32; mt 1 or
-// 2: 32 mt rows of dX a thread block; dy_vec / w_vec: the rows of dY / of
-// the store are 16-byte aligned and br / bc are multiples of 16 bytes' worth.
-int bsr_spmm_t(const void* dy, int dy_is_bf16, const void* data, int data_is_bf16,
-               const int* t_idx, const int* t_blk, const int* t_nnz, float* dx, int M,
-               int N, int K, int C, int jmax_t, int br, int bc, int mt, int dy_vec,
-               int w_vec, void* stream) {
+// dX (E, M, K) f32 = dY (E, M, N) @ W_e for E stacked BlockCSR W_e (N, K)
+// (E = 1: one matrix), over the transposed tables t_idx/t_blk (E, C,
+// jmax_t) int32 and t_nnz (E, C) int32: dY f32 or bf16, data f32 or bf16
+// (E, n_slots, br, bc); br one of 1, 2, 4, 8, 16, 32; mt 1 or 2: 32 mt rows
+// of dX a thread block; dy_vec / w_vec: the rows of dY / of the store are
+// 16-byte aligned and br / bc are multiples of 16 bytes' worth.
+int BSR_BWD(bsr_spmm_t)(const void* dy, int dy_is_bf16, const void* data, int data_is_bf16,
+                        const int* t_idx, const int* t_blk, const int* t_nnz, float* dx,
+                        int M, int N, int K, int C, int jmax_t, int br, int bc, int mt,
+                        int dy_vec, int w_vec, int E, int n_slots, void* stream) {
   if (br != 1 && br != 2 && br != 4 && br != 8 && br != 16 && br != 32)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (E < 1 || E > 65535 || (!kExperts && E != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Experts ex{(long long)M * N, (long long)M * K, (long long)C * jmax_t, (long long)C,
+                   (long long)n_slots * br * bc};
 #define BSR_BWD_ARGS mt, dy, data, t_idx, t_blk, t_nnz, dx, M, N, K, C, jmax_t, br, bc, \
-                     dy_vec, w_vec, st
+                     dy_vec, w_vec, E, ex, st
   if (dy_is_bf16)
     return data_is_bf16 ? launch_bwd_mt<__nv_bfloat16, __nv_bfloat16>(BSR_BWD_ARGS)
                         : launch_bwd_mt<__nv_bfloat16, float>(BSR_BWD_ARGS);
@@ -810,7 +829,6 @@ int bsr_spmm_t(const void* dy, int dy_is_bf16, const void* data, int data_is_bf1
                       : launch_bwd_mt<float, float>(BSR_BWD_ARGS);
 #undef BSR_BWD_ARGS
 }
-#endif
 
 // As bsr_spmm_fwd for PaletteBCSR W: codes uint8 (E, n_slots, br, bc) at 8
 // bits or (E, n_slots, br, bc/2) at 4 bits, palette (E, 2**bits) f32, one per
@@ -835,3 +853,4 @@ int BSR_FWD(bsr_spmm_palette)(const void* x, int x_is_bf16, const uint8_t* codes
 }  // extern "C"
 
 #undef BSR_FWD
+#undef BSR_BWD

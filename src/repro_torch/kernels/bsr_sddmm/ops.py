@@ -6,8 +6,14 @@ summed over the M rows, at the resident slots only, aligned with
 ``w.data``. Slot 0 (the pad) and the slots ``pad_bcsr`` appended carry
 zero. No dense (N, K) gradient is formed on either path.
 
-For tensors on the CPU it runs the plain version (``ref.py``); for CUDA
-tensors it launches the kernel or raises. There is no fallback. The kernel
+``bsr_weight_grad_experts(x, dy, w)`` takes E problems at once, x (E, M,
+K) and dy (E, M, N) against an E-stacked BlockCSR (the MoE FFN's
+compressed experts): the (E, n_slots, br, bc) f32 gradient of its store,
+each expert's padded slots zero, in one launch of the same kernel (the
+reference maps one VJP per expert).
+
+For tensors on the CPU they run the plain version (``ref.py``); for CUDA
+tensors they launch the kernel or raise. There is no fallback. The kernel
 groups slots by block-column through the block-CSC tables and, where the
 grid would leave SMs idle, splits M into ``m_split`` ranges whose partial
 sums a second pass adds in a fixed order (bit-equal run to run).
@@ -17,6 +23,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -26,7 +33,7 @@ from repro_torch.kernels.bsr_sddmm import ref
 from repro_torch.obs.profile import kernel_call
 from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
 
-launches = {"bsr_sddmm": 0}
+launches = {"bsr_sddmm": 0, "bsr_sddmm_experts": 0}
 _CHUNK = 64                     # rows of M staged per pass
 _WARPS = 4                      # warps per thread block
 # slot coordinates per gather table, newest last (see ``_coordinates``)
@@ -42,7 +49,7 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bsr_sddmm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bsr_sddmm.argtypes = [p, i, p, i, p, p, p, p, p, p] + [i] * 11 + [p]
+    lib.bsr_sddmm.argtypes = [p, i, p, i, p, p, p, p, p, p] + [i] * 12 + [p]
     lib.bsr_sddmm.restype = i
     return lib
 
@@ -74,7 +81,7 @@ def _coordinates(w: BlockCSR) -> tuple:
     memory, layout and version counter; the entry holds the tables
     themselves, so their memory cannot be handed to other tables while the
     entry lives, and an in-place change to them misses."""
-    key = (_key(w.gather_idx), _key(w.gather_blk), w.data.shape[0])
+    key = (_key(w.gather_idx), _key(w.gather_blk), w.data.shape[-3])
     hit = _COORDS.get(key)
     if hit is not None:
         _COORDS.move_to_end(key)
@@ -90,7 +97,8 @@ def _coordinates(w: BlockCSR) -> tuple:
 def slot_coordinates(w: BlockCSR):
     """Per-slot (block-row, block-col, valid) int32 / int32 / bool vectors,
     derived from the gather tables on their device (computed once per
-    table, see ``_coordinates``; callers must not write to them).
+    table, see ``_coordinates``; callers must not write to them). For a
+    stacked store each is (*lead, n_slots): one row per slice.
 
     ``valid`` marks the slots a gather entry references: slot 0 and any
     trailing slots added by ``pad_bcsr`` are invalid and carry zero
@@ -103,19 +111,22 @@ def slot_coordinates(w: BlockCSR):
 
 
 def _slot_coordinates(w: BlockCSR):
-    n_slots = w.data.shape[0]
-    r_grid, jmax = w.gather_idx.shape
+    n_slots = w.data.shape[-3]
+    lead = tuple(w.gather_idx.shape[:-2])
+    r_grid, jmax = w.gather_idx.shape[-2:]
     dev = w.gather_idx.device
-    slots = w.gather_blk.reshape(-1).long()
-    entries = torch.arange(r_grid * jmax, device=dev)
+    n = math.prod(lead)
+    slots = w.gather_blk.reshape(n, -1).long()
+    entries = torch.arange(r_grid * jmax, device=dev).expand(n, -1)
     keep = (torch.arange(n_slots, device=dev) != 0).to(torch.int32)
 
     def scatter(src):
-        out = torch.zeros(n_slots, dtype=torch.int32, device=dev)
-        return out.scatter_(0, slots, src.to(torch.int32)) * keep
+        out = torch.zeros((n, n_slots), dtype=torch.int32, device=dev)
+        out = out.scatter_(1, slots, src.to(torch.int32)) * keep
+        return out.reshape(lead + (n_slots,))
 
     rows = scatter(torch.div(entries, jmax, rounding_mode="floor"))
-    cols = scatter(w.gather_idx.reshape(-1))
+    cols = scatter(w.gather_idx.reshape(n, -1))
     valid = scatter(torch.ones_like(entries)) != 0
     return rows, cols, valid
 
@@ -133,13 +144,14 @@ def bsr_weight_grad_ref(x, dy, w: BlockCSR) -> torch.Tensor:
     return out * valid[:, None, None].to(out.dtype)
 
 
-def m_split(m: int, n_slots: int, block, sms: int) -> int:
+def m_split(m: int, n_slots: int, block, sms: int, experts: int = 1) -> int:
     """Ranges of M (whole 64-row chunks) the kernel splits the rows into:
     doubled while the thread blocks (4 / n-tiles slots each, per 128
-    columns and 32 rows of the block) would leave SMs idle."""
+    columns and 32 rows of the block, for each of the ``experts``
+    problems) would leave SMs idle."""
     br, bc = block
     n_tiles = 1 if br <= 8 else 2 if br <= 16 else 4
-    blocks = (-(-n_slots // (_WARPS // n_tiles)) * -(-bc // 128)
+    blocks = (experts * -(-n_slots // (_WARPS // n_tiles)) * -(-bc // 128)
               * -(-br // 32))
     split = 1
     while 2 * split <= -(-m // _CHUNK) and blocks * split < sms:
@@ -147,15 +159,25 @@ def m_split(m: int, n_slots: int, block, sms: int) -> int:
     return split
 
 
-def _check(x, dy, w: BlockCSR):
+def bsr_weight_grad_experts_ref(x, dy, w: BlockCSR) -> torch.Tensor:
+    """The plain version of the expert form: ``bsr_weight_grad_ref`` on
+    each expert's slice, as the reference's VJP runs per expert under its
+    ``lax.map``."""
+    return torch.stack([bsr_weight_grad_ref(x[e], dy[e], w[e])
+                        for e in range(x.shape[0])])
+
+
+def _check(x, dy, w: BlockCSR, experts: int):
     if x.device.type != "cuda" or dy.device != x.device:
         raise ValueError(f"bsr_sddmm takes x and dy on one CUDA device, got "
                          f"{x.device} and {dy.device}")
     n, k = w.shape
-    if x.dim() != 2 or dy.dim() != 2 or x.shape != (dy.shape[0], k) \
-            or dy.shape[1] != n:
+    lead = (experts,) if experts else ()
+    if x.shape != lead + (dy.shape[-2], k) or dy.shape != lead + (
+            x.shape[-2], n):
         raise ValueError(f"x {tuple(x.shape)} / dy {tuple(dy.shape)} do not "
-                         f"match W {w.shape}")
+                         f"match W {w.shape}" + (f" and {experts} experts"
+                                                 if experts else ""))
     for t in (x, dy):
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"bsr_sddmm takes f32 or bf16, got {t.dtype}")
@@ -164,7 +186,13 @@ def _check(x, dy, w: BlockCSR):
         raise ValueError("W's gather tables must be contiguous, on x's device")
     if any(t.dtype != torch.int32 for t in tables):
         raise TypeError("gather tables must be int32")
-    if w.gather_t_idx.shape[0] != w.block_grid[1]:
+    if w.gather_t_nnz.dim() != 1 + len(lead) or any(
+            tuple(t.shape[:len(lead)]) != lead for t in tables + (w.data,)):
+        raise ValueError(
+            f"W's stack {tuple(w.data.shape[:-3])} does not match x "
+            f"{tuple(x.shape)}: bsr_weight_grad takes one matrix, "
+            "bsr_weight_grad_experts one slice per expert")
+    if w.gather_t_idx.shape[-2] != w.block_grid[1]:
         raise ValueError("block-CSC table rows do not match the block grid")
     return x.contiguous(), dy.contiguous()
 
@@ -173,22 +201,37 @@ def bsr_weight_grad(x, dy, w: BlockCSR) -> torch.Tensor:
     """x: (M, K) activations; dy: (M, N) output cotangent; w: (N, K)
     BlockCSR. Returns (n_slots, br, bc) f32 gradient blocks for w.data."""
     return kernel_call("bsr_sddmm/bsr_weight_grad", _bsr_weight_grad, x, dy,
-                       w)
+                       w, False)
 
 
-def _bsr_weight_grad(x, dy, w: BlockCSR) -> torch.Tensor:
+def bsr_weight_grad_experts(x, dy, w: BlockCSR) -> torch.Tensor:
+    """x: (E, M, K); dy: (E, M, N); w: an E-stacked BlockCSR of (N, K)
+    slices. Returns (E, n_slots, br, bc) f32 gradient blocks for w.data,
+    in one launch for all E."""
+    return kernel_call("bsr_sddmm/bsr_weight_grad_experts", _bsr_weight_grad,
+                       x, dy, w, True)
+
+
+def _bsr_weight_grad(x, dy, w: BlockCSR, experts: bool) -> torch.Tensor:
     _reject_palette(w)
+    if x.dim() != (3 if experts else 2):
+        raise ValueError(f"x {tuple(x.shape)}: bsr_weight_grad takes a 2-D x, "
+                         "bsr_weight_grad_experts a 3-D one")
     if x.device.type == "cpu":
-        return bsr_weight_grad_ref(x, dy, w)
-    x, dy = _check(x, dy, w)
+        return (bsr_weight_grad_experts_ref(x, dy, w) if experts
+                else bsr_weight_grad_ref(x, dy, w))
+    n_exp = x.shape[0] if experts else 0
+    x, dy = _check(x, dy, w, n_exp)
     valid = _coordinates(w)[3]
-    n_slots = w.data.shape[0]
+    n_slots = w.data.shape[-3]
     br, bc = w.block
-    m = x.shape[0]
-    n_cols, jmax_t = w.gather_t_idx.shape
-    out = torch.empty((n_slots, br, bc), dtype=torch.float32, device=x.device)
-    split = m_split(m, n_slots, w.block, sm_count(x.device.index or 0))
-    scratch = (torch.empty((split, n_slots, br, bc), dtype=torch.float32,
+    m = x.shape[-2]
+    n_cols, jmax_t = w.gather_t_idx.shape[-2:]
+    e = max(n_exp, 1)
+    out = torch.empty(w.data.shape[:-2] + (br, bc), dtype=torch.float32,
+                      device=x.device)
+    split = m_split(m, n_slots, w.block, sm_count(x.device.index or 0), e)
+    scratch = (torch.empty((e, split, n_slots, br, bc), dtype=torch.float32,
                            device=x.device) if split > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -199,8 +242,10 @@ def _bsr_weight_grad(x, dy, w: BlockCSR) -> torch.Tensor:
             valid.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), m, w.shape[0],
             w.shape[1], n_cols, jmax_t, n_slots, br, bc, split,
-            aligned16(x, w.shape[1], bc), aligned16(dy, w.shape[0], br), stream)
+            aligned16(x, w.shape[1], bc), aligned16(dy, w.shape[0], br), e,
+            stream)
+    wrapper = "bsr_sddmm_experts" if experts else "bsr_sddmm"
     if err:
-        raise RuntimeError(f"bsr_sddmm launch failed: CUDA error {err}")
-    _counts.bump(launches, "bsr_sddmm")
+        raise RuntimeError(f"{wrapper} launch failed: CUDA error {err}")
+    _counts.bump(launches, wrapper)
     return out

@@ -7,11 +7,13 @@
 at once, X (E, M, K) against an E-stacked W (one slice per expert, the MoE
 FFN's (E, out, in) weights): ``Y (E, M, N) f32``, in one launch of the same
 forward kernels with the expert on the grid's z axis (the reference maps
-one ``sparse_matmul`` per expert). A BlockCSR
-block store may be f32 or bf16 (training casts it to the compute dtype);
-the kernels upcast it as they read. For a tensor on the CPU they run the
-plain PyTorch version (``ref.py``); for a CUDA tensor they launch the
-hand-written Hopper kernel or raise. There is no fallback between the two.
+one ``sparse_matmul`` per expert); ``spmm_t_experts(dy, w)`` is the
+backward's: ``dX (E, M, K) f32`` in one launch of the ``spmm_t`` kernel.
+A BlockCSR block store may be f32 or bf16 (training casts it to the
+compute dtype); the kernels upcast it as they read. For a tensor on the
+CPU they run the plain PyTorch version (``ref.py``); for a CUDA tensor
+they launch the hand-written Hopper kernel or raise. There is no fallback
+between the two.
 
 The forward has two kernels, dispatched by M: the tensor-core tile kernel
 for M > ``DECODE_MAX_M`` (prefill, training) and the decode kernel, an
@@ -42,7 +44,7 @@ from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
 
 FORWARD = ("spmm", "spmm_palette", "spmm_experts", "spmm_palette_experts")
 launches = {"spmm": 0, "spmm_t": 0, "spmm_palette": 0, "spmm_experts": 0,
-            "spmm_palette_experts": 0}
+            "spmm_palette_experts": 0, "spmm_t_experts": 0}
 # The forward runs the decode kernel up to this many rows of X (one mma
 # m-tile), the tile kernel above.
 DECODE_MAX_M = 16
@@ -76,31 +78,30 @@ def decode_warps(jmax: int) -> int:
     return warps
 
 
-def spmm_t_rows(m: int, k_blocks: int, bc: int, sms: int, dy_f32: bool) -> int:
+def spmm_t_rows(m: int, k_blocks: int, bc: int, sms: int, dy_f32: bool,
+                experts: int = 1) -> int:
     """Rows of dX a ``spmm_t`` thread block takes (64 or 32). f32 dY: 32,
     whose three parts make a slab of 64 rows cost more than SMs left idle
     (PERF.md); bf16 dY: 64 where the thread blocks of 64 rows (one per 64
-    columns of each of the ``k_blocks`` block-columns) fill the SMs, else
-    32."""
-    blocks = k_blocks * -(-bc // _T_COLS)
+    columns of each of the ``k_blocks`` block-columns of each of the
+    ``experts`` problems) fill the SMs, else 32."""
+    blocks = experts * k_blocks * -(-bc // _T_COLS)
     return 64 if not dy_f32 and blocks * -(-m // 64) >= sms else 32
 
 
 @functools.cache
 def _lib(experts: bool = False) -> ctypes.CDLL:
-    """``csrc/bsr_spmm.cu``'s library, or with ``experts`` the expert
-    instantiations of its forward (``csrc/bsr_spmm_experts.cu``)."""
+    """``csrc/bsr_spmm.cu``'s library, or with ``experts`` its expert
+    instantiations (``csrc/bsr_spmm_experts.cu``)."""
     lib = _build.load("bsr_spmm_experts" if experts else "bsr_spmm")
     tag = "_experts" if experts else ""
     fwd = getattr(lib, f"bsr_spmm{tag}_fwd")
     fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 13 + [_P]
     pal = getattr(lib, f"bsr_spmm_palette{tag}_fwd")
     pal.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 13 + [_P]
-    fwd.restype = pal.restype = _I
-    if not experts:
-        lib.bsr_spmm_t.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] \
-            + [_I] * 10 + [_P]
-        lib.bsr_spmm_t.restype = _I
+    bwd = getattr(lib, f"bsr_spmm_t{tag}")
+    bwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 12 + [_P]
+    fwd.restype = pal.restype = bwd.restype = _I
     return lib
 
 
@@ -264,32 +265,48 @@ def _fwd(x: torch.Tensor, w, kernel=None) -> torch.Tensor:
 def spmm_t(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
     """dX (M, K) f32 = dY (M, N) @ W for W (N, K) BlockCSR, over the
     block-CSC tables ``gather_t_*`` (the backward of ``spmm`` in x)."""
-    return kernel_call("bsr_spmm/spmm_t", _spmm_t, dy, w)
+    return kernel_call("bsr_spmm/spmm_t", _spmm_t, dy, w, False)
 
 
-def _spmm_t(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+def spmm_t_experts(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+    """dX (E, M, K) f32, dX[e] = dY[e] @ W[e] for dY (E, M, N) and an
+    E-stacked BlockCSR W (the backward of ``spmm_experts`` in x): one
+    launch for all E."""
+    return kernel_call("bsr_spmm/spmm_t_experts", _spmm_t, dy, w, True)
+
+
+def _spmm_t(dy: torch.Tensor, w: BlockCSR, experts: bool) -> torch.Tensor:
+    if dy.dim() != (3 if experts else 2):
+        raise ValueError(f"dy {tuple(dy.shape)}: spmm_t takes a 2-D dy, "
+                         "spmm_t_experts a 3-D one")
     if dy.device.type == "cpu":
-        return ref.spmm_bwd_ref(dy, w)
+        return (ref.spmm_experts_bwd_ref(dy, w) if experts
+                else ref.spmm_bwd_ref(dy, w))
+    n_exp = dy.shape[0] if experts else 0
     tables = (w.gather_t_idx, w.gather_t_blk, w.gather_t_nnz)
-    dy = _check(dy, w, w.data, _FP_STORE, w.block[1], tables, in_dim=0)
-    m = dy.shape[0]
-    n_cols, jmax_t = w.gather_t_idx.shape
+    dy = _check(dy, w, w.data, _FP_STORE, w.block[1], tables, in_dim=0,
+                experts=n_exp)
+    m = dy.shape[-2]
+    n_cols, jmax_t = w.gather_t_idx.shape[-2:]
     br, bc = w.block
     rows = spmm_t_rows(m, n_cols, bc, sm_count(dy.device.index or 0),
-                       dy.dtype == torch.float32)
-    dx = torch.empty((m, w.shape[1]), dtype=torch.float32, device=dy.device)
-    if m == 0:
+                       dy.dtype == torch.float32, max(n_exp, 1))
+    dx = torch.empty(dy.shape[:-1] + (w.shape[1],), dtype=torch.float32,
+                     device=dy.device)
+    if dx.numel() == 0:
         return dx
+    lib, tag = _lib(n_exp > 1), "_experts" if n_exp > 1 else ""
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().bsr_spmm_t(
+        err = getattr(lib, f"bsr_spmm_t{tag}")(
             dy.data_ptr(), int(dy.dtype == torch.bfloat16), w.data.data_ptr(),
             int(w.data.dtype == torch.bfloat16), w.gather_t_idx.data_ptr(),
             w.gather_t_blk.data_ptr(), w.gather_t_nnz.data_ptr(),
             dx.data_ptr(), m, w.shape[0], w.shape[1], n_cols, jmax_t, br, bc,
             rows // 32, aligned16(dy, w.shape[0], br), aligned16(w.data, bc),
-            stream)
+            max(n_exp, 1), w.data.shape[-3], stream)
+    wrapper = "spmm_t_experts" if experts else "spmm_t"
     if err:
-        raise RuntimeError(f"bsr_spmm_t launch failed: CUDA error {err}")
-    _counts.bump(launches, "spmm_t")
+        raise RuntimeError(f"bsr_{wrapper} launch failed: CUDA error {err}")
+    _counts.bump(launches, wrapper)
     return dx

@@ -36,6 +36,13 @@ def spmm_experts_fwd_ref(x: torch.Tensor, w: BlockCSR) -> torch.Tensor:
     return torch.stack([spmm_fwd_ref(x[e], w[e]) for e in range(x.shape[0])])
 
 
+def spmm_experts_bwd_ref(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+    """dX (E, M, K) f32, dX[e] = dY[e] @ W[e] for dY (E, M, N) and an
+    E-stacked BlockCSR: ``spmm_bwd_ref`` on each expert's slice, as the
+    reference's VJP runs per expert under its ``lax.map``."""
+    return torch.stack([spmm_bwd_ref(dy[e], w[e]) for e in range(dy.shape[0])])
+
+
 def spmm_palette_experts_fwd_ref(x: torch.Tensor, w) -> torch.Tensor:
     """``spmm_experts_fwd_ref`` for an E-stacked ``PaletteBCSR`` (one
     palette per expert)."""

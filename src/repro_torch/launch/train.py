@@ -4,11 +4,16 @@
         --reduced --steps 200 --compress l1:2.0 --debias-steps 50 \\
         --ckpt-dir /tmp/ckpt --device cpu
 
-Runs compressed training (the paper's SpC pipeline) on an attention-only
-zoo architecture, on ``--device`` (``cuda`` unless told otherwise). The
-frontend architectures (paligemma-3b, musicgen-medium) train on synthetic
-(B, S, d) patch / frame embeddings in place of token ids, as in the
-reference; MoE and recurrent architectures are refused, naming the ROADMAP
+Runs compressed training (the paper's SpC pipeline) on a zoo
+architecture with attention layers, on ``--device`` (``cuda`` unless told
+otherwise). The frontend architectures (paligemma-3b, musicgen-medium)
+train on synthetic (B, S, d) patch / frame embeddings in place of token
+ids, as in the reference. The MoE architectures (olmoe-1b-7b,
+llama4-scout-17b-a16e) train with the router's aux losses (load balance,
+z-loss) in the loss; under ``--sparse`` the plan prox shrinks blocks of
+each expert's (out, in) view, and debias trains the compressed experts,
+each projection's backward one launch of the expert ``spmm_t`` and one of
+the expert SDDMM. Recurrent architectures are refused, naming the ROADMAP
 item that ports their training.
 
 ``--sparse`` switches to SpC-Retrain, training *into* BlockCSR: the prox is
@@ -116,10 +121,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     model = build(args.arch, reduced=args.reduced, device=device)
     cfg = model.cfg
-    if cfg.moe is not None:
-        raise SystemExit(f"{cfg.name}: training an MoE model is not ported "
-                         "yet; it comes with MoE training (ROADMAP Queue 1 "
-                         "item 8c)")
     recurrent = sorted(set(RECURRENT_KINDS) & set(layer_kinds(cfg)))
     if recurrent:
         raise SystemExit(f"{cfg.name}: training layer kinds {recurrent} is "

@@ -9,7 +9,12 @@ path needs a device mesh and comes with ROADMAP Queue 1 item 12.
 Compressed experts (E-stacked BlockCSR / PaletteBCSR, one (out, in) slice
 per expert) run ``sparse_matmul`` on the 3-D buffer: one launch of the
 expert spmm kernel per projection for all E experts, where the reference
-maps one ``sparse_matmul`` per expert. Dense experts run ``torch.bmm``.
+maps one ``sparse_matmul`` per expert. Under autograd each projection's
+backward is one launch of the expert ``spmm_t`` (dx) and one of the expert
+SDDMM (dw at each expert's resident slots; a palette store takes dx
+only). Dense experts run ``torch.bmm``. The dispatch is a scatter into the
+buffer and the combine a gather from it, so a dropped (token, choice)
+gets no gradient through the experts, as in the reference.
 
 Ties and order, kept from the reference so the same tokens are kept and
 dropped:

@@ -31,9 +31,11 @@ the weight gets no gradient.
 A 3-D x (E, M, K) with an E-stacked w (one (out, in) slice per expert, the
 MoE FFN's compressed experts) gives ``y[e] = x[e] @ w[e].T``: one launch of
 ``spmm_experts`` / ``spmm_palette_experts`` for all E on the kernel path,
-the reference's ``lax.map`` over experts on the plain path. It is
-forward-only: MoE training through compressed experts (the expert-axis
-``spmm_t`` and SDDMM) is ROADMAP Queue 1 item 8c.
+the reference's ``lax.map`` over experts on the plain path. Its backward
+is the expert form of each product, one launch for all E as well:
+``spmm_t_experts`` for dx and ``bsr_weight_grad_experts`` for dw (each
+expert's padded slots get zero); the plain path loops the single-matrix
+plain versions over the experts, as the reference maps its VJP.
 """
 from __future__ import annotations
 
@@ -73,22 +75,29 @@ def _forward(x: torch.Tensor, w, backend: str) -> torch.Tensor:
 
 
 def _dx_product(dy: torch.Tensor, w: BlockCSR, backend: str) -> torch.Tensor:
+    experts = dy.dim() == 3
     if backend == "cuda":
-        return kops.spmm_t(dy, w)
-    return kref.spmm_bwd_ref(dy, w).to(dy.dtype)
+        return kops.spmm_t_experts(dy, w) if experts else kops.spmm_t(dy, w)
+    dx = (kref.spmm_experts_bwd_ref(dy, w) if experts
+          else kref.spmm_bwd_ref(dy, w))
+    return dx.to(dy.dtype)
 
 
 def _dw_product(x: torch.Tensor, dy: torch.Tensor, w: BlockCSR,
                 backend: str) -> torch.Tensor:
+    experts = x.dim() == 3
     if backend == "cuda":
-        return sddmm_kops.bsr_weight_grad(x, dy, w)
-    return sddmm_kops.bsr_weight_grad_ref(x, dy, w)
+        return (sddmm_kops.bsr_weight_grad_experts(x, dy, w) if experts
+                else sddmm_kops.bsr_weight_grad(x, dy, w))
+    return (sddmm_kops.bsr_weight_grad_experts_ref(x, dy, w) if experts
+            else sddmm_kops.bsr_weight_grad_ref(x, dy, w))
 
 
 class _SparseMatmul(torch.autograd.Function):
     """y = x @ W' with W a BlockCSR whose block store ``data`` is an input
     of its own (the BlockCSR is not a tensor, so autograd would not see
-    it); the index and gather tables travel through ``ctx``."""
+    it); the index and gather tables travel through ``ctx``. A 3-D x
+    against an E-stacked W runs the expert forms of all three products."""
 
     @staticmethod
     def forward(ctx, x, data, w, backend):
@@ -124,18 +133,10 @@ class _PaletteMatmul(torch.autograd.Function):
 
 
 def sparse_matmul(x: torch.Tensor, w, backend: str = "auto") -> torch.Tensor:
-    """y = x @ w.T for a compressed w (the paper's dense x compressed').
-    Differentiable in x and, for a BlockCSR, in ``w.data``; a 3-D x against
-    E-stacked experts is forward-only."""
+    """y = x @ w.T for a compressed w (the paper's dense x compressed'), or
+    y[e] = x[e] @ w[e].T for a 3-D x against E-stacked experts.
+    Differentiable in x and, for a BlockCSR, in ``w.data``."""
     backend = resolve_backend(backend, x)
-    if x.dim() == 3:
-        store = w.codes if isinstance(w, PaletteBCSR) else w.data
-        if torch.is_grad_enabled() and (x.requires_grad
-                                        or store.requires_grad):
-            raise NotImplementedError(
-                "gradients through compressed MoE experts are not ported "
-                "yet: they come with MoE training (ROADMAP Queue 1 item 8c)")
-        return _forward(x, w, backend)
     if torch.is_grad_enabled():
         if isinstance(w, PaletteBCSR):
             if x.requires_grad:

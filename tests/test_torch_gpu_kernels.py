@@ -797,3 +797,86 @@ def test_cuda_palettes_match_the_cpu(bits):
                                atol=1e-3, rtol=0)
     same = (q_dev.codes.cpu() == q_cpu.codes).float().mean()
     assert float(same) > 0.999
+
+
+# ---------------------------------------------------------------------------
+# The expert axis of the backward: spmm_t and the SDDMM over E stacked
+# matrices in one launch each (MoE training through compressed experts)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e", [1, 5, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [8, 17, 80, 129])
+@pytest.mark.parametrize("n,k,block", [(256, 384, (8, 128)), (100, 70, (8, 64)),
+                                       (96, 160, (32, 32))])
+def test_cuda_expert_backward_matches_plain(e, dtype, m, n, k, block):
+    """``spmm_t_experts`` and ``bsr_weight_grad_experts`` over E experts
+    (expert 0 with no resident block; the stores padded to the widest
+    expert; M not a multiple of 16 or 64; f32 and bf16 operands and store):
+    one launch each, within tolerance of their plain versions (loops of
+    the single-matrix plain versions), every padded slot of every expert
+    zero, bit-equal run to run."""
+    dev = _cuda()
+    rng = np.random.default_rng(35)
+    w = _expert_stack(rng, e, n, k, block, dev, str(dtype).split(".")[-1])
+    assert int(w.gather_nnz[0].sum()) == 0
+    x = torch.tensor(rng.normal(size=(e, m, k)), dtype=dtype, device=dev)
+    dy = torch.tensor(rng.normal(size=(e, m, n)), dtype=dtype, device=dev)
+    before = (ops.launches["spmm_t_experts"],
+              sddmm_ops.launches["bsr_sddmm_experts"])
+    dx = ops.spmm_t_experts(dy, w)
+    dw = sddmm_ops.bsr_weight_grad_experts(x, dy, w)
+    assert (ops.launches["spmm_t_experts"],
+            sddmm_ops.launches["bsr_sddmm_experts"]) == (before[0] + 1,
+                                                         before[1] + 1)
+    again = (ops.spmm_t_experts(dy, w),
+             sddmm_ops.bsr_weight_grad_experts(x, dy, w))
+    torch.cuda.synchronize()
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    assert dx.shape == (e, m, k) and dw.shape == (e,) + tuple(w.data.shape[1:])
+    torch.testing.assert_close(dx, ref.spmm_experts_bwd_ref(dy, w), atol=ATOL,
+                               rtol=RTOL)
+    torch.testing.assert_close(
+        dw, sddmm_ops.bsr_weight_grad_experts_ref(x, dy, w),
+        atol=ATOL * max(1, m / 32), rtol=RTOL)
+    _, _, valid = sddmm_ops.slot_coordinates(w)
+    assert valid.shape == w.data.shape[:2]
+    assert (dw[~valid] == 0).all() and (dw[0] == 0).all() and (dx[0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_expert_backward_one_expert_is_the_single_call(dtype):
+    """E = 1: bit-equal to the single-matrix ``spmm_t`` and SDDMM on the
+    same slice."""
+    dev = _cuda()
+    rng = np.random.default_rng(36)
+    w = _expert_stack(rng, 2, 1024, 2048, (8, 128), dev,
+                      str(dtype).split(".")[-1])
+    w1 = w.map(lambda t: t[1:2].contiguous())
+    for m in (8, 80):
+        x = torch.tensor(rng.normal(size=(1, m, 2048)), dtype=dtype, device=dev)
+        dy = torch.tensor(rng.normal(size=(1, m, 1024)), dtype=dtype,
+                          device=dev)
+        assert torch.equal(ops.spmm_t_experts(dy, w1)[0],
+                           ops.spmm_t(dy[0], w1[0]))
+        assert torch.equal(sddmm_ops.bsr_weight_grad_experts(x, dy, w1)[0],
+                           sddmm_ops.bsr_weight_grad(x[0], dy[0], w1[0]))
+
+
+@pytest.mark.gpu
+def test_cuda_expert_backward_rejects_mismatched_stacks():
+    dev = _cuda()
+    rng = np.random.default_rng(37)
+    w = _expert_stack(rng, 3, 64, 128, (8, 64), dev)
+    with pytest.raises(ValueError):
+        ops.spmm_t_experts(torch.ones(2, 4, 64, device=dev), w)        # 2 != 3
+    with pytest.raises(ValueError):
+        ops.spmm_t(torch.ones(4, 64, device=dev), w)                   # a stack
+    with pytest.raises(ValueError):
+        sddmm_ops.bsr_weight_grad_experts(torch.ones(2, 4, 128, device=dev),
+                                          torch.ones(2, 4, 64, device=dev), w)
+    with pytest.raises(ValueError):
+        sddmm_ops.bsr_weight_grad(torch.ones(4, 128, device=dev),
+                                  torch.ones(4, 64, device=dev), w)

@@ -39,19 +39,6 @@ def test_logits_match_jax(arch, weights, block):
     check_logits_match(arch, weights, block)
 
 
-def test_train_cli_refuses_moe_naming_item_8c():
-    """Every layer kind builds now; what is left of MoE is training, which
-    ``launch/train`` refuses (compressed or not) with the ROADMAP item
-    that ports it."""
-    from repro_torch.launch import train
-    for arch in ("olmoe-1b-7b", "llama4-scout-17b-a16e"):
-        build(arch, reduced=True, device="cpu")
-        for extra in ([], ["--sparse", "--compress", "group_l1:0.1"]):
-            with pytest.raises(SystemExit, match="Queue 1 item 8c"):
-                train.main(["--arch", arch, "--reduced", "--device", "cpu",
-                            "--steps", "1", *extra])
-
-
 def test_cuda_default_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

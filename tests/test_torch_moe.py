@@ -208,13 +208,6 @@ def test_cpu_expert_wrapper_launches_nothing():
         kops.spmm_experts(x[0], tsp["ewi"])
 
 
-def test_compressed_experts_under_autograd_raise_naming_8c():
-    _, tcfg, _, _, tp, tsp = _moe_params("olmoe-1b-7b", "bcsr", (8, 64))
-    x = torch.zeros(2, 4, tcfg.d_model, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        tmoe.apply_moe(tp, x, tcfg, sparse=tsp)
-
-
 def test_dense_experts_train_through_autograd():
     """Dense experts take gradients (plain ``torch.bmm``), and the aux
     losses of ``apply_train`` are the sum over layers of the reference's."""
