@@ -101,9 +101,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
      paged kernel at that shape against its plain versions; in f32 at a
      cut depth (one super-block and the two remainder layers), the kernel
      path against the plain path and the engine against ``generate``;
+ 11b. recurrentgemma-9b training: ``spmm_t`` and the SDDMM at its layer-0
+     mlp.wi ((12288, 4096), (8, 128) blocks at 0.9, M = 512, bf16 and f32)
+     against their plain versions, timed beside them, the dense library
+     yardsticks and their bounds (kernel-table rows 1br / 4r); SpC-Retrain
+     (``train/loop.run_spc_retrain_pipeline``) at full width on its first
+     super-block in bf16 from weights whose blocks have spread norms (the
+     RG-LRU projections among them): step times, peak memory, the
+     recurrent projections' block sparsity (0.8-0.95), the seconds of
+     ``compress_params``, one launch of spmm, spmm_t and the SDDMM per
+     compressed matrix a debias step; in f32 at that depth, the kernel
+     path against the plain path over 3 debias steps (every kernel call
+     held to its plain version; losses, step 1's dx and dw, the stores'
+     updates); debias at full width and depth on phase 11's model, with
+     the launch counters per step and one step profiled; and
+     ``launch/train --reduced --sparse`` from a planted checkpoint (its
+     RG-LRU projections compress) and ``launch/serve --sparse --ckpt-dir``
+     on its checkpoint;
  12. rwkv6-3b at full width and depth (32 layers, d 2560, 40 WKV heads of
      64, d_ff 8960, vocab 65,536), the same runs and checks, on a mix whose
      prompts RWKV's 64-token WKV chunks take;
+ 12b. rwkv6-3b training: the runs of 11b but the kernel rows, SpC-Retrain
+     on 2 of 32 layers, the block sparsity held over the time- and
+     channel-mix projections;
  13. olmoe-1b-7b at full width and depth (16 layers, d 2048, 16 heads of
      128 with QK-norm, 64 experts of d_ff 1024, top-8, vocab 50,304): seed-0
      weights pruned at 0.9 on (8, 128) blocks, built on the card by
@@ -159,7 +179,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      recurrentgemma-9b's prefill tick, flash at recurrentgemma-9b's local
      attention and smollm-360m's prefill, the expert launch at
      olmoe-1b-7b's ewi (rows 1e / 2e) and the expert backward there (rows
-     1be / 4e), with the spmm and paged bounds also at the bf16
+     1be / 4e), the single-matrix backward at recurrentgemma-9b's mlp.wi
+     (rows 1br / 4r), with the spmm and paged bounds also at the bf16
      tensor-core rate) and the contract line.
 
 It imports nothing of JAX or of the JAX package, and exits with an error
@@ -209,7 +230,7 @@ from repro_torch.serve.engine import HOST_LOCK, EngineConfig, ServeEngine  # noq
 from repro_torch.serve.router import Router  # noqa: E402
 from repro_torch.serve.step import generate  # noqa: E402
 from repro_torch.sparse import ops as sparse_ops  # noqa: E402
-from repro_torch.core.metrics import model_size_bytes  # noqa: E402
+from repro_torch.core.metrics import model_size_bytes, tree_leaves  # noqa: E402
 from repro_torch.sparse.compress import (CompressionPlan,  # noqa: E402
                                          _prune_blocks_2d,
                                          bcsr_equiv_size_bytes,
@@ -459,13 +480,30 @@ MOE_TRAIN_TABLE = ("ewi", 80, torch.bfloat16)
 # about 19 GB. Debias starts from the compressed model, which fits at full
 # depth (3.17 GB of BCSR and residue).
 MOE_TRAIN_LAYERS = 2
-MOE_DEBIAS_STEPS = 5
-# launch/train --sparse on reduced olmoe (experts of 64 x 64) from a planted
-# checkpoint: (8, 16) blocks at lr 3e-3; the group-l1 threshold lr * lam
-# (0.06) must pass lr sqrt(8 * 16) (0.034), the norm one Adam step gives a
-# zeroed block, or pruned blocks grow back and nothing compresses.
-MOE_CLI_BLOCK, MOE_CLI_LR, MOE_CLI_LAM = (8, 16), 3e-3, 20.0
-MOE_CLI_STEPS, MOE_CLI_DEBIAS, MOE_CLI_GEN = 6, 3, 8
+# launch/train --sparse on a reduced model (olmoe's experts of 64 x 64, the
+# recurrent families) from a planted checkpoint: (8, 16) blocks at lr 3e-3;
+# the group-l1 threshold lr * lam (0.06) must pass lr sqrt(8 * 16) (0.034),
+# the norm one Adam step gives a zeroed block, or pruned blocks grow back
+# and nothing compresses.
+CLI_BLOCK, CLI_LR, CLI_LAM = (8, 16), 3e-3, 20.0
+CLI_STEPS, CLI_DEBIAS, CLI_GEN = 6, 3, 8
+# Recurrent-family training. SpC-Retrain at full width runs a cut depth:
+# recurrentgemma-9b's first super-block (3 layers: RG-LRU, RG-LRU, local
+# attention; with the tied 256,000 x 4096 embedding 1.64 B parameters,
+# whose f32 master, Adam's moments and grads take about 26 GB), rwkv6-3b's
+# first 2 of 32 layers; the f32 kernel-against-plain check runs the same
+# cut. Debias runs the serving phase's 0.9-pruned model at full depth. The
+# block sparsity is held over the recurrent projections (``where``). Rows
+# 1br / 4r of the kernel table: spmm_t and the SDDMM at recurrentgemma-9b's
+# layer-0 mlp.wi, (12288, 4096), M = 512, bf16; launches per full-depth
+# debias run.
+RECURRENT_TRAIN_LAYERS = {HYBRID: 3, RWKV: 2}
+RECURRENT_WHERE = {HYBRID: ("/rec/",), RWKV: ("/tm/", "/cm/")}
+# launch/train --reduced --sparse compresses every recurrent projection:
+# recurrentgemma-9b's 3 in each of its 2 stacked and 2 remainder RG-LRU
+# layers, rwkv6-3b's 5 time-mix and 3 channel-mix stacks
+RECURRENT_CLI_COMPRESSED = {HYBRID: 12, RWKV: 8}
+RECURRENT_TRAIN_TABLE = ("layers/b0_rglru/mlp/wi", torch.bfloat16)
 
 def log(*a):
     print(*a, flush=True)
@@ -799,8 +837,8 @@ def _held_calls(what: str):
     forward = sparse_ops._forward
     errs = []
 
-    def held(x, w, backend):
-        y = forward(x, w, backend)
+    def held(x, w, backend, f32=False):
+        y = forward(x, w, backend, f32)
         if backend == "cuda":
             palette = isinstance(w, PaletteBCSR)
             if x.dim() == 3:                 # an MoE layer's experts
@@ -1864,6 +1902,64 @@ def _check(name, got, want, atol, rtol):
     return err
 
 
+def _bwd_kernel_rows(mat_name: str, w, dy, x,
+                     plain_calls: int = TIMED_CALLS) -> dict:
+    """The backward kernels on one weight ``w`` (bf16 store): ``spmm_t``
+    (dX = dY W) and the SDDMM (dW at the resident slots), each against its
+    plain version on the card, timed beside it (over ``plain_calls``
+    calls: a plain version that densifies a large weight costs
+    milliseconds a call, and ``time_ms`` holds the device for three times
+    the host's time of the calls), a library yardstick (dense ``dY @ W``
+    and ``dY' X`` in the operands' type, which the port never calls) and
+    the least time the card could take; rows keyed (kernel, ``mat_name``,
+    dtype)."""
+    rows = {}
+    n, k = w.shape
+    dt = dy.dtype
+    wd = bcsr_to_dense(w)[:n, :k].to(dt).contiguous()
+    lib = str(dt).split(".")[-1]
+    # spmm_t: dX = dY @ W
+    err = _check(f"spmm_t {mat_name} {dt}", ops.spmm_t(dy, w),
+                 ref.spmm_bwd_ref(dy, w), KERNEL_ATOL, KERNEL_RTOL)
+    sets = copies(lambda: (dy.clone(), w.map(torch.clone)),
+                  tensor_bytes(dy, w.data))
+    row = {"kernel": "bsr_spmm_t", "matrix": mat_name, "shape": [n, k],
+           "M": dy.shape[0], "dy": lib, "store": "bfloat16",
+           "resident_blocks": int(w.gather_t_nnz.sum()),
+           "max_abs_err": err, "atol": KERNEL_ATOL,
+           "rtol": KERNEL_RTOL, "ms": time_ms(ops.spmm_t, sets),
+           "plain_ms": time_ms(ref.spmm_bwd_ref, sets, plain_calls),
+           "library_ms": time_ms(torch.matmul, copies(
+               lambda: (dy.clone(), wd.clone()),
+               tensor_bytes(dy, wd))),
+           "library": f"torch.matmul(dY, densified W) {lib}"}
+    row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                   _spmm_t_bound(w, dy)))
+    log(json.dumps(row))
+    rows[("bsr_spmm_t", mat_name, dt)] = row
+    # SDDMM: dW at the resident slots
+    err = _check(f"bsr_sddmm {mat_name} {dt}",
+                 sddmm_ops.bsr_weight_grad(x, dy, w),
+                 sddmm_ops.bsr_weight_grad_ref(x, dy, w),
+                 SDDMM_ATOL, SDDMM_RTOL)
+    sets = copies(lambda: (x.clone(), dy.clone(), w), tensor_bytes(x, dy))
+    row = {"kernel": "bsr_sddmm", "matrix": mat_name, "shape": [n, k],
+           "M": x.shape[0], "x": lib, "slots": int(w.data.shape[0]),
+           "max_abs_err": err, "atol": SDDMM_ATOL, "rtol": SDDMM_RTOL,
+           "ms": time_ms(sddmm_ops.bsr_weight_grad, sets),
+           "plain_ms": time_ms(sddmm_ops.bsr_weight_grad_ref, sets,
+                               plain_calls),
+           "library_ms": time_ms(lambda a, b: torch.matmul(a.T, b),
+                                 copies(lambda: (dy.clone(), x.clone()),
+                                        tensor_bytes(x, dy))),
+           "library": f"torch.matmul(dY', X) {lib} (dense dW)"}
+    row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                   _sddmm_bound(w, x, dy)))
+    log(json.dumps(row))
+    rows[("bsr_sddmm", mat_name, dt)] = row
+    return rows
+
+
 def train_kernel_phase(dev) -> dict:
     phase("train kernels")
     rng = np.random.default_rng(1)
@@ -1876,49 +1972,7 @@ def train_kernel_phase(dev) -> dict:
         for dt in (torch.float32, torch.bfloat16):
             dy = torch.randn(TRAIN_M, n, device=dev).to(dt)
             x = torch.randn(TRAIN_M, k, device=dev).to(dt)
-            wd = bcsr_to_dense(w)[:n, :k].to(dt).contiguous()
-            lib = str(dt).split(".")[-1]
-            # spmm_t: dX = dY @ W
-            err = _check(f"spmm_t {mat_name} {dt}", ops.spmm_t(dy, w),
-                         ref.spmm_bwd_ref(dy, w), KERNEL_ATOL, KERNEL_RTOL)
-            sets = copies(lambda: (dy.clone(), w.map(torch.clone)),
-                          tensor_bytes(dy, w.data))
-            row = {"kernel": "bsr_spmm_t", "matrix": mat_name, "shape": [n, k],
-                   "M": TRAIN_M, "dy": str(dt).split(".")[-1],
-                   "store": "bfloat16",
-                   "resident_blocks": int(w.gather_t_nnz.sum()),
-                   "max_abs_err": err, "atol": KERNEL_ATOL,
-                   "rtol": KERNEL_RTOL, "ms": time_ms(ops.spmm_t, sets),
-                   "plain_ms": time_ms(ref.spmm_bwd_ref, sets),
-                   "library_ms": time_ms(torch.matmul, copies(
-                       lambda: (dy.clone(), wd.clone()),
-                       tensor_bytes(dy, wd))),
-                   "library": f"torch.matmul(dY, densified W) {lib}"}
-            row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
-                           _spmm_t_bound(w, dy)))
-            log(json.dumps(row))
-            rows[("bsr_spmm_t", mat_name, dt)] = row
-            # SDDMM: dW at the resident slots
-            err = _check(f"bsr_sddmm {mat_name} {dt}",
-                         sddmm_ops.bsr_weight_grad(x, dy, w),
-                         sddmm_ops.bsr_weight_grad_ref(x, dy, w),
-                         SDDMM_ATOL, SDDMM_RTOL)
-            sets = copies(lambda: (x.clone(), dy.clone(), w),
-                          tensor_bytes(x, dy))
-            row = {"kernel": "bsr_sddmm", "matrix": mat_name, "shape": [n, k],
-                   "M": TRAIN_M, "x": str(dt).split(".")[-1],
-                   "slots": int(w.data.shape[0]), "max_abs_err": err,
-                   "atol": SDDMM_ATOL, "rtol": SDDMM_RTOL,
-                   "ms": time_ms(sddmm_ops.bsr_weight_grad, sets),
-                   "plain_ms": time_ms(sddmm_ops.bsr_weight_grad_ref, sets),
-                   "library_ms": time_ms(lambda a, b: torch.matmul(a.T, b),
-                                         copies(lambda: (dy.clone(), x.clone()),
-                                                tensor_bytes(x, dy))),
-                   "library": f"torch.matmul(dY', X) {lib} (dense dW)"}
-            row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
-                           _sddmm_bound(w, x, dy)))
-            log(json.dumps(row))
-            rows[("bsr_sddmm", mat_name, dt)] = row
+            rows.update(_bwd_kernel_rows(mat_name, w, dy, x))
     # prox_adam at every leaf size of the debias tree: the seven block
     # stores (32 layers each), the embedding, the stacked norms, the final
     # norm and the stacked placeholders of the compressed projections
@@ -1968,25 +2022,33 @@ def train_kernel_phase(dev) -> dict:
     return rows
 
 
+_PROJECTIONS = (("attn", ("wq", "wk", "wv", "wo")), ("mlp", ("wi", "wg", "wo")),
+                ("moe", ("ewi", "ewg", "ewo")),
+                ("rec", ("lru_in", "lru_gate", "lru_out")),
+                ("tm", ("rwkv_r", "rwkv_k", "rwkv_v", "rwkv_g", "rwkv_o")),
+                ("cm", ("cm_k", "cm_v", "cm_r")))
+
+
 def _projections(params):
-    """The (in, out) view of every compressible projection: attention and
-    MLP of every stacked layer, each expert of an MoE layer (the (L, E)
-    axes lead), and an untied head."""
-    for layer in params["layers"].values():
-        for sub, names in (("attn", ("wq", "wk", "wv", "wo")),
-                           ("mlp", ("wi", "wg", "wo")),
-                           ("moe", ("ewi", "ewg", "ewo"))):
-            for name in names:
-                t = layer.get(sub, {}).get(name)
-                if t is None:
-                    continue
-                s = t.shape
-                if sub == "attn" and name in ("wq", "wk", "wv"):
-                    yield t.view(s[0], s[1], s[2] * s[3])
-                elif sub == "attn":
-                    yield t.view(s[0], s[1] * s[2], s[3])
-                else:
-                    yield t
+    """The (in, out) view of every compressible projection: attention, MLP,
+    the RG-LRU's and RWKV's time- and channel-mix projections of every
+    stacked layer (the layer axis leads) and of every remainder layer,
+    each expert of an MoE layer (the (L, E) axes lead), and an untied
+    head."""
+    for group, n_lead in (("layers", 1), ("rem", 0)):
+        for layer in params.get(group, {}).values():
+            for sub, names in _PROJECTIONS:
+                for name in names:
+                    t = layer.get(sub, {}).get(name)
+                    if t is None:
+                        continue
+                    lead, s = t.shape[:n_lead], t.shape[n_lead:]
+                    if sub == "attn" and name in ("wq", "wk", "wv"):
+                        yield t.view(*lead, s[0], s[1] * s[2])
+                    elif sub == "attn":
+                        yield t.view(*lead, s[0] * s[1], s[2])
+                    else:
+                        yield t
     if "head" in params:
         yield params["head"]
 
@@ -2030,12 +2092,13 @@ class _TimedWatchdog(train_loop.StragglerWatchdog):
         _TimedWatchdog.phases.append(self.times)
 
 
-def _block_sparsity(cp, where: str = "") -> tuple:
+def _block_sparsity(cp, where=("",)) -> tuple:
     """(block sparsity, resident, total) over the compressed weights whose
-    path holds ``where``, every stacked slice (layer, expert) counted."""
+    path holds one of the substrings ``where``, every stacked slice (layer,
+    expert) counted."""
     resident = total = 0
     for path, m in iter_bcsr(cp):
-        if where in path:
+        if any(w in path for w in where):
             resident += int(m.gather_nnz.sum())
             total += m.gather_nnz.numel() * m.block_grid[1]
     return 1.0 - resident / max(total, 1), resident, total
@@ -2156,8 +2219,8 @@ def _dx_taps(sink: list):
     """Record dx of every ``sparse_matmul``, in the order of the backward."""
     orig = sparse_ops.sparse_matmul
 
-    def tapped(x, w, backend="auto"):
-        return orig(_Tap.apply(x, sink), w, backend)
+    def tapped(x, w, backend="auto", f32=False):
+        return orig(_Tap.apply(x, sink), w, backend, f32)
 
     sparse_ops.sparse_matmul = tapped
     try:
@@ -2502,14 +2565,16 @@ def _check_counts(what, counts, want: dict) -> None:
 
 
 def recurrent_phase(dev, arch: str, prompts, f32_layers=None,
-                    kv_splits: int = 1) -> dict:
+                    kv_splits: int = 1) -> tuple:
     """One recurrent family at full width: the compressed model built on
     the card (BlockCSR, then palette-8); ``generate`` (batch 4, prompt 16,
     32 new tokens) and the engine on the request mix ``prompts`` in bf16,
     each with the launch counters set to 0 just before and read just
     after; where the time goes (torch.profiler); then in f32 the kernel
     path against the plain path and the engine against ``generate``, at
-    the depth ``f32_layers`` (all layers when None)."""
+    the depth ``f32_layers`` (all layers when None). Returns (the results,
+    the BlockCSR params, for the training phase; the palette-8 copy is
+    freed)."""
     cfg = get_config(arch)
     phase(f"{arch}: the compressed model, built on the card")
     t0 = time.perf_counter()
@@ -2664,9 +2729,9 @@ def recurrent_phase(dev, arch: str, prompts, f32_layers=None,
                   for rid, r in enumerate(requests))
     log(f"{arch}: f32 engine {matched}/{len(requests) * ENGINE_GEN} tokens of "
         "the kernel path (spmm and paged kernels) match the plain path")
-    del cp, p32
+    del p32
     torch.cuda.empty_cache()
-    return result
+    return result, cp
 
 
 # ---------------------------------------------------------------------------
@@ -2771,10 +2836,11 @@ def _moe_expert_rows(dev, formats) -> dict:
     return rows
 
 
-def _moe_per_pass(cp) -> tuple:
-    """(spmm, expert spmm) launches of one forward pass: a compressed
-    matrix of the stacked layers once per layer, an expert stack once per
-    layer for all its experts, the head once."""
+def _per_pass(cp) -> tuple:
+    """(spmm, expert spmm) launches of one forward pass of any family: a
+    compressed matrix of the stacked layers once per layer, one of ``rem``
+    or the head once, an expert stack once per layer for all its experts
+    (0 for a family without experts)."""
     single = experts = 0
     for path, m in iter_bcsr(cp):
         n_layers = m.gather_nnz.shape[0] if path.startswith("layers/") else 1
@@ -2959,7 +3025,7 @@ def moe_phase(dev) -> dict:
     formats = {"bcsr": cp, "pal8": quantize_compressed(cp, 8),
                "pal4": quantize_compressed(cp, 4)}
     torch.cuda.synchronize()
-    single, experts = _moe_per_pass(cp)
+    single, experts = _per_pass(cp)
     dense_b = model_size_bytes(model.init(device="meta"))
     sizes = {"dense": dense_b, "bcsr": bcsr_equiv_size_bytes(cp),
              "pal8": compressed_size_bytes(formats["pal8"]),
@@ -3238,21 +3304,15 @@ def _check_train_counts(what, counts, steps, single, experts) -> None:
                          "and some prox_adam")
 
 
-def _moe_spc_retrain(dev) -> tuple:
-    """SpC-Retrain of olmoe-1b-7b at full width on MOE_TRAIN_LAYERS layers
-    in bf16, through ``train/loop.run_spc_retrain_pipeline`` (the function
-    ``launch/train --sparse`` calls) with the plan's group-l1 prox, from
-    seed-0 weights whose blocks have spread norms (``_spread_norms``: every
-    projection, each expert's (out, in) view and the head): SPC_STEPS SpC
-    steps, compression, MOE_DEBIAS_STEPS debias steps on the compressed
-    experts; then ``generate`` from the result."""
-    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_TRAIN_LAYERS)
-    phase(f"{MOE} training: SpC-Retrain at full width, {MOE_TRAIN_LAYERS} of "
-          f"16 layers (the main path)")
-    model = build(cfg, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = model.init(gen)
-    _spread_norms(params, BLOCK, gen)
+def _timed_spc_retrain(dev, model, params, debias_steps: int) -> dict:
+    """``train/loop.run_spc_retrain_pipeline`` (the function ``launch/train
+    --sparse`` calls) on ``model`` from ``params`` (consumed) in the
+    config's dtype, batch TRAIN_BATCH x TRAIN_SEQ: SPC_STEPS SpC steps with
+    the plan's group-l1 prox at LAM, compression (``compress_params``
+    timed), ``debias_steps`` debias steps; the launch counters set to 0
+    just before and read just after, each step's wall time per phase, the
+    peak memory."""
+    cfg = model.cfg
     plan = CompressionPlan(block=BLOCK)
     data = TokenStreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                              global_batch=TRAIN_BATCH)
@@ -3282,7 +3342,7 @@ def _moe_spc_retrain(dev) -> tuple:
                                  prox_fn=make_plan_prox(plan)),
             optimizers.prox_adam(TRAIN_LR, lam=0.0),
             lambda step: token_batch(data, step, device=dev),
-            spc_steps=SPC_STEPS, debias_steps=MOE_DEBIAS_STEPS, plan=plan,
+            spc_steps=SPC_STEPS, debias_steps=debias_steps, plan=plan,
             log_every=1)
         torch.cuda.synchronize()
     finally:
@@ -3296,12 +3356,37 @@ def _moe_spc_retrain(dev) -> tuple:
         f"{report['dense_bytes'] / 1e6:.1f} MB, bcsr "
         f"{report['bcsr_bytes'] / 1e6:.1f} MB")
     for name, hist in (("spc", hist_spc), ("debias", hist_db)):
-        log(f"  {name} losses {[round(h['loss'], 4) for h in hist]}, "
-            f"load balance {[round(h['load_balance'], 4) for h in hist]}")
+        log(f"  {name} losses {[round(h['loss'], 4) for h in hist]}"
+            + (f", load balance {[round(h['load_balance'], 4) for h in hist]}"
+               if cfg.moe is not None else ""))
     for name, times in zip(("spc", "debias"), _TimedWatchdog.phases):
         log(f"  {name} step times (s, host clock, the loss read every step): "
             f"{[round(t, 4) for t in times]}")
-    sparsity, resident, total = _block_sparsity(cp, "/moe/")
+    losses = [h["loss"] for h in hist_spc + hist_db]
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"non-finite training loss: {losses}")
+    return {"cp": cp, "launches": counts, "compress_s": compress_s[0],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "step_times": _TimedWatchdog.phases}
+
+
+def _moe_spc_retrain(dev) -> tuple:
+    """SpC-Retrain of olmoe-1b-7b at full width on MOE_TRAIN_LAYERS layers
+    in bf16 (``_timed_spc_retrain``), from seed-0 weights whose blocks have
+    spread norms (``_spread_norms``: every projection, each expert's (out,
+    in) view and the head), DEBIAS_STEPS debias steps on the
+    compressed experts; then ``generate`` from the result."""
+    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_TRAIN_LAYERS)
+    phase(f"{MOE} training: SpC-Retrain at full width, {MOE_TRAIN_LAYERS} of "
+          f"16 layers (the main path)")
+    model = build(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    _spread_norms(params, BLOCK, gen)
+    run = _timed_spc_retrain(dev, model, params, DEBIAS_STEPS)
+    del params
+    cp = run.pop("cp")
+    sparsity, resident, total = _block_sparsity(cp, ("/moe/",))
     log(f"  expert block sparsity after SpC: {sparsity:.4f} ({resident} of "
         f"{total} (8, 128) blocks resident), all compressed weights "
         f"{_block_sparsity(cp)[0]:.4f}, band {SPARSITY_BAND}")
@@ -3309,14 +3394,11 @@ def _moe_spc_retrain(dev) -> tuple:
         raise SystemExit(f"expert block sparsity {sparsity:.4f} outside the "
                          "band")
     single = 4 * cfg.n_layers + 1
-    if _moe_per_pass(cp) != (single, 3 * cfg.n_layers):
+    if _per_pass(cp) != (single, 3 * cfg.n_layers):
         raise SystemExit(f"expected every projection compressed, got "
                          f"{[p for p, _ in iter_bcsr(cp)]}")
-    _check_train_counts("SpC-Retrain", counts, MOE_DEBIAS_STEPS, single,
-                        3 * cfg.n_layers)
-    losses = [h["loss"] for h in hist_spc + hist_db]
-    if not all(math.isfinite(v) for v in losses):
-        raise SystemExit(f"non-finite training loss: {losses}")
+    _check_train_counts("SpC-Retrain", run["launches"], DEBIAS_STEPS,
+                        single, 3 * cfg.n_layers)
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                            device=dev)
     ops.reset_launches()
@@ -3330,19 +3412,17 @@ def _moe_spc_retrain(dev) -> tuple:
             ops.launches["spmm"] != single * TRAIN_GEN:
         raise SystemExit("generate from the trained params: tokens or "
                          "launches")
-    return cp, {"launches": counts, "sparsity": sparsity,
-                "compress_s": compress_s[0],
-                "peak_bytes": torch.cuda.max_memory_allocated(),
-                "step_times": _TimedWatchdog.phases}
+    return cp, dict(run, sparsity=sparsity)
 
 
-def _moe_debias_full(dev, cp) -> dict:
-    """Debias of the phase-13 model at full width and depth in bf16:
-    ``split_trainable`` / ``rebuild`` and ``make_train_step`` with
-    prox-Adam at lam 0, MOE_DEBIAS_STEPS steps; the launch counters per
-    step; one step profiled. Trains ``cp``'s stores in place."""
-    cfg = get_config(MOE)
-    phase(f"{MOE} training: debias at full width and depth (bf16)")
+def _debias_full(dev, cfg, cp, what: str) -> dict:
+    """Debias of ``cp`` (a model of ``cfg``) at full width and depth in the
+    config's dtype: ``split_trainable`` / ``rebuild`` and
+    ``make_train_step`` with prox-Adam at lam 0, DEBIAS_STEPS steps of
+    batch TRAIN_BATCH x TRAIN_SEQ; the launch counters per step, held to
+    one launch of each training kernel per compressed matrix (or expert
+    stack) and layer; one step profiled. Trains ``cp``'s stores in
+    place."""
     model = build(cfg, device=dev)
     trainable, rebuild = split_trainable(cp)
     opt = optimizers.prox_adam(TRAIN_LR, lam=0.0)
@@ -3351,8 +3431,7 @@ def _moe_debias_full(dev, cp) -> dict:
     step = make_train_step(model, opt, param_transform=rebuild)
     data = TokenStreamConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                              global_batch=TRAIN_BATCH)
-    batches = [token_batch(data, i, device=dev)
-               for i in range(MOE_DEBIAS_STEPS)]
+    batches = [token_batch(data, i, device=dev) for i in range(DEBIAS_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_all()
@@ -3367,8 +3446,8 @@ def _moe_debias_full(dev, cp) -> dict:
     log(f"  losses {[round(v, 4) for v in losses]}; step times (s, host "
         f"clock, the loss read) {[round(t, 4) for t in times]}; peak memory "
         f"{peak / 2**30:.2f} GiB")
-    _check_train_counts("full-depth debias", counts, MOE_DEBIAS_STEPS,
-                        4 * cfg.n_layers + 1, 3 * cfg.n_layers)
+    _check_train_counts(f"{what} full-depth debias", counts, DEBIAS_STEPS,
+                        *_per_pass(cp))
     if not all(math.isfinite(v) for v in losses):
         raise SystemExit(f"non-finite debias loss: {losses}")
 
@@ -3376,7 +3455,8 @@ def _moe_debias_full(dev, cp) -> dict:
         holder[0], met = step(holder[0], batches[0])
         float(met["loss"])
 
-    _profile(f"{MOE} debias step (batch 8 x 64, 16 layers)", 0, one, top=10)
+    _profile(f"{what} debias step (batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+             f"{cfg.n_layers} layers)", 0, one, top=10)
     del holder, trainable, step
     torch.cuda.empty_cache()
     return {"launches": counts, "step_times": times, "peak_bytes": peak}
@@ -3523,25 +3603,27 @@ def _moe_train_compare(dev, cp) -> dict:
     return result
 
 
-def _moe_train_cli(dev) -> dict:
-    """``launch/train --arch olmoe-1b-7b --reduced --sparse`` on the card,
-    resumed from a planted checkpoint so that the experts compress, with
-    the launch counters read around it; then ``launch/serve --sparse
-    --ckpt-dir`` on its checkpoint."""
-    phase(f"{MOE} training: launch/train --reduced --sparse and launch/serve "
+def _reduced_train_cli(dev, arch: str, where: tuple, n_where: int) -> dict:
+    """``launch/train --arch <arch> --reduced --sparse`` on the card,
+    resumed from a planted checkpoint so that the projections compress,
+    with the launch counters read around it: ``n_where`` compressed
+    weights whose path holds one of ``where``, one launch of each training
+    kernel per compressed matrix (or expert stack) and layer a debias
+    step; then ``launch/serve --sparse --ckpt-dir`` on its checkpoint."""
+    phase(f"{arch} training: launch/train --reduced --sparse and launch/serve "
           "--ckpt-dir")
-    cfg = get_config(MOE).reduced()
-    ckpt_dir = OUT_DIR / "moe_train_ckpt"
+    cfg = get_config(arch).reduced()
+    ckpt_dir = OUT_DIR / f"{arch}_train_ckpt"
     if ckpt_dir.exists():
         import shutil
         shutil.rmtree(ckpt_dir)
-    _plant_checkpoint(dev, ckpt_dir, MOE, MOE_CLI_BLOCK, MOE_CLI_LR,
-                      MOE_CLI_LAM, reduced=True)
-    argv = ["--arch", MOE, "--reduced", "--sparse", "--steps",
-            str(MOE_CLI_STEPS), "--debias-steps", str(MOE_CLI_DEBIAS),
+    _plant_checkpoint(dev, ckpt_dir, arch, CLI_BLOCK, CLI_LR, CLI_LAM,
+                      reduced=True)
+    argv = ["--arch", arch, "--reduced", "--sparse", "--steps",
+            str(CLI_STEPS), "--debias-steps", str(CLI_DEBIAS),
             "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr",
-            str(MOE_CLI_LR), "--compress", f"group_l1:{MOE_CLI_LAM}",
-            "--block", *map(str, MOE_CLI_BLOCK), "--log-every", "1",
+            str(CLI_LR), "--compress", f"group_l1:{CLI_LAM}",
+            "--block", *map(str, CLI_BLOCK), "--log-every", "1",
             "--ckpt-dir", str(ckpt_dir)]
     buf = io.StringIO()
     _reset_all()
@@ -3553,17 +3635,18 @@ def _moe_train_cli(dev) -> dict:
     for line in buf.getvalue().splitlines():
         if line.startswith(("arch=", "loss:", "model size", "compressed ")):
             log(f"  {line}")
-    experts = sorted(q for q, _ in iter_bcsr(cp) if "/moe/" in q)
-    log(f"  compressed experts {experts}, expert block sparsity "
-        f"{_block_sparsity(cp, '/moe/')[0]:.4f}")
-    if len(experts) != 3:
-        raise SystemExit("launch/train --reduced --sparse compressed no expert "
-                         "stack")
-    _check_train_counts("launch/train --reduced --sparse", counts,
-                        MOE_CLI_DEBIAS, *(_moe_per_pass(cp)))
-    argv = ["--arch", MOE, "--reduced", "--sparse", "--ckpt-dir",
+    hits = sorted(q for q, _ in iter_bcsr(cp) if any(w in q for w in where))
+    log(f"  compressed {hits}, their block sparsity "
+        f"{_block_sparsity(cp, where)[0]:.4f}")
+    if len(hits) != n_where:
+        raise SystemExit(f"launch/train --reduced --sparse compressed {hits}, "
+                         f"expected {n_where} weights under {where}")
+    single, experts = _per_pass(cp)
+    _check_train_counts(f"{arch} launch/train --reduced --sparse", counts,
+                        CLI_DEBIAS, single, experts)
+    argv = ["--arch", arch, "--reduced", "--sparse", "--ckpt-dir",
             str(ckpt_dir), "--batch", str(BATCH), "--prompt-len", str(PROMPT),
-            "--gen", str(MOE_CLI_GEN)]
+            "--gen", str(CLI_GEN)]
     buf = io.StringIO()
     _reset_all()
     with contextlib.redirect_stdout(buf):
@@ -3574,9 +3657,10 @@ def _moe_train_cli(dev) -> dict:
         log(f"  {line}")
     log(f"  launches spmm {ops.launches['spmm']} spmm_experts "
         f"{ops.launches['spmm_experts']}")
-    if tuple(out.shape) != (BATCH, MOE_CLI_GEN) or ops.launches[
-            "spmm_experts"] != 3 * cfg.n_layers * MOE_CLI_GEN:
-        raise SystemExit(f"serving the trained MoE checkpoint: tokens "
+    if tuple(out.shape) != (BATCH, CLI_GEN) or \
+            ops.launches["spmm_experts"] != experts * CLI_GEN or \
+            ops.launches["spmm"] != single * CLI_GEN:
+        raise SystemExit(f"serving the trained {arch} checkpoint: tokens "
                          f"{tuple(out.shape)}, launches {ops.launches}")
     return {"launches": counts}
 
@@ -3596,9 +3680,214 @@ def moe_train_phase(dev, cp) -> dict:
     result["compare"] = _moe_train_compare(dev, cp2)
     del cp2
     torch.cuda.empty_cache()
-    result["debias_full"] = _moe_debias_full(dev, cp)
-    result["cli"] = _moe_train_cli(dev)
+    phase(f"{MOE} training: debias at full width and depth (bf16)")
+    result["debias_full"] = _debias_full(dev, get_config(MOE), cp, MOE)
+    result["cli"] = _reduced_train_cli(dev, MOE, ("/moe/",), 3)
     return result
+
+
+def _recurrent_train_rows(dev, cp) -> dict:
+    """Rows 1br / 4r: ``spmm_t`` and the SDDMM at recurrentgemma-9b's
+    layer-0 mlp.wi of the serving phase's model ((12288, 4096), (8, 128)
+    blocks at 0.9, the store in bf16), M = 512, dY and x in bf16 and f32
+    (``_bwd_kernel_rows``)."""
+    path, _ = RECURRENT_TRAIN_TABLE
+    w32 = dict(iter_bcsr(cp))[path][0]
+    w = dataclasses.replace(w32, data=w32.data.to(torch.bfloat16))
+    n, k = w.shape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dy = torch.randn(TRAIN_M, n, generator=gen, device=dev).to(dt)
+        x = torch.randn(TRAIN_M, k, generator=gen, device=dev).to(dt)
+        rows.update(_bwd_kernel_rows(path, w, dy, x, plain_calls=3))
+    del w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _recurrent_spc_retrain(dev, arch: str) -> tuple:
+    """SpC-Retrain of ``arch`` at full width on RECURRENT_TRAIN_LAYERS[arch]
+    layers in bf16 (``_timed_spc_retrain``), from seed-0 weights whose
+    blocks have spread norms (``_spread_norms``: every projection, the
+    recurrent ones and an untied head included): the block sparsity of the
+    recurrent projections in SPARSITY_BAND, every projection of the plan's
+    min_size or more compressed, one launch of each training kernel per compressed matrix and layer a
+    debias step."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=RECURRENT_TRAIN_LAYERS[arch])
+    phase(f"{arch} training: SpC-Retrain at full width, {cfg.n_layers} of "
+          f"{full.n_layers} layers (the main path)")
+    model = build(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    _spread_norms(params, BLOCK, gen)
+    min_size = CompressionPlan(block=BLOCK).min_size
+    n_proj = sum(t.shape[0] if t.dim() == 3 else 1
+                 for t in _projections(params)
+                 if t.shape[-2] * t.shape[-1] >= min_size)
+    log(f"  {sum(t.numel() for t in tree_leaves(params)):,} parameters, "
+        f"{n_proj} projections a pass")
+    run = _timed_spc_retrain(dev, model, params, DEBIAS_STEPS)
+    del params
+    cp = run.pop("cp")
+    where = RECURRENT_WHERE[arch]
+    sparsity, resident, total = _block_sparsity(cp, where)
+    log(f"  block sparsity of the recurrent projections {where} after SpC: "
+        f"{sparsity:.4f} ({resident} of {total} (8, 128) blocks resident), "
+        f"all compressed weights {_block_sparsity(cp)[0]:.4f}, band "
+        f"{SPARSITY_BAND}")
+    if not SPARSITY_BAND[0] <= sparsity <= SPARSITY_BAND[1]:
+        raise SystemExit(f"{arch}: recurrent block sparsity {sparsity:.4f} "
+                         "outside the band")
+    if _per_pass(cp) != (n_proj, 0):
+        raise SystemExit(f"{arch}: expected all {n_proj} projections "
+                         f"compressed, got {[p for p, _ in iter_bcsr(cp)]}")
+    _check_train_counts(f"{arch} SpC-Retrain", run["launches"], DEBIAS_STEPS,
+                        n_proj, 0)
+    return cp, dict(run, sparsity=sparsity)
+
+
+def _recurrent_train_compare(dev, arch: str, cp) -> dict:
+    """The kernel path against the plain path in f32 (``sparse_backend``
+    'auto' against 'ref') on the SpC-Retrain result (its cut depth), over
+    COMPARE_STEPS debias steps from the same stores, every kernel call of
+    the kernel path (forward and backward) held to its plain version on
+    its inputs: the losses within LOSS_RTOL, step 1's dx per projection
+    call and dw per layer within GRAD_RTOL of their largest |value|, and
+    the stores' updates after COMPARE_STEPS steps within UPDATE_RTOL of
+    their norm."""
+    f32 = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                              n_layers=RECURRENT_TRAIN_LAYERS[arch])
+    phase(f"{arch} training: kernel path vs plain path (f32 debias, "
+          f"{f32.n_layers} layers)")
+    data = TokenStreamConfig(vocab=f32.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH)
+    trainable, rebuild = split_trainable(cp)
+    base = {"dense": tree_map(torch.clone, trainable["dense"]),
+            "bcsr_data": {p: d.clone() for p, d in
+                          trainable["bcsr_data"].items()}}
+    del trainable
+    runs = {}
+    for backend in ("auto", "ref"):
+        model = build(f32, device=dev, sparse_backend=backend)
+        tr = {"dense": tree_map(torch.clone, base["dense"]),
+              "bcsr_data": {p: d.clone() for p, d in base["bcsr_data"].items()}}
+        loss0, dxs, dws = _first_grads(model, tr, rebuild,
+                                       token_batch(data, 0, device=dev))
+        opt = optimizers.prox_adam(COMPARE_LR, lam=0.0)
+        state = TrainState(params=tr, opt_state=opt.init(tr),
+                           mask=masks.zero_mask(tr), step=0)
+        step = make_train_step(model, opt, param_transform=rebuild)
+        losses = []
+        held = contextlib.ExitStack()
+        fwd_errs = bwd_errs = []
+        if backend == "auto":
+            fwd_errs = held.enter_context(_held_calls(f"{arch} f32 debias"))
+            bwd_errs = held.enter_context(_held_backward(f"{arch} f32 debias"))
+        with held:
+            _reset_all()
+            for i in range(COMPARE_STEPS):
+                state, met = step(state, token_batch(data, i, device=dev))
+                losses.append(float(met["loss"]))
+        log(f"  {backend}: losses {losses}, launches {_all_launches()}"
+            + (f"; {len(fwd_errs)} forward and {len(bwd_errs)} backward "
+               f"kernel calls held to their plain versions, max |diff| "
+               f"{max(fwd_errs, default=0.0):.3e} / "
+               f"{max(bwd_errs, default=0.0):.3e}"
+               if backend == "auto" else ""))
+        if backend == "auto" and dev.type == "cuda" and not (
+                fwd_errs and bwd_errs):
+            raise SystemExit(f"{arch} f32 debias: no kernel call was held")
+        runs[backend] = (loss0, dxs, dws, losses,
+                         {p: v - base["bcsr_data"][p] for p, v in
+                          state.params["bcsr_data"].items()})
+        del state, step, model, tr
+        torch.cuda.empty_cache()
+    k, p = runs["auto"], runs["ref"]
+    for a, b in zip(k[3], p[3]):
+        if abs(a - b) > LOSS_RTOL * abs(b):
+            raise SystemExit(f"{arch} debias losses differ: {k[3]} vs {p[3]}")
+    n_calls = sum(_per_pass(cp))
+    if len(k[1]) != len(p[1]) or len(k[1]) != n_calls:
+        raise SystemExit(f"dx taps: {len(k[1])} and {len(p[1])}, expected "
+                         f"{n_calls}")
+    dx_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                 for a, b in zip(k[1], p[1]))
+    dw_err = 0.0
+    for path, gk in k[2].items():
+        gp = p[2][path]
+        for idx in np.ndindex(*gk.shape[:-3]):
+            scale = gp[idx].abs().max().clamp_min(1e-30)
+            dw_err = max(dw_err, float((gk[idx] - gp[idx]).abs().max()
+                                       / scale))
+    upd_err = max(float((k[4][q] - p[4][q]).norm()
+                        / p[4][q].norm().clamp_min(1e-30)) for q in k[4])
+    log(f"  f32 debias, kernels vs plain: step-1 loss {k[0]:.6f} vs "
+        f"{p[0]:.6f}; dx max err / max|dx| per call {dx_err:.3e}, dw per "
+        f"layer {dw_err:.3e} (bound {GRAD_RTOL}); block-store updates after "
+        f"{COMPARE_STEPS} steps: |diff| / |update| {upd_err:.3e} (bound "
+        f"{UPDATE_RTOL})")
+    if dx_err > GRAD_RTOL or dw_err > GRAD_RTOL or upd_err > UPDATE_RTOL:
+        raise SystemExit(f"{arch}: kernel path and plain path disagree")
+    return {"losses": (k[3], p[3]), "dx_err": dx_err, "dw_err": dw_err,
+            "upd_err": upd_err}
+
+
+def recurrent_train_phase(dev, arch: str, cp) -> dict:
+    """Recurrent-family training (``arch``): for recurrentgemma-9b the
+    backward kernels at its mlp.wi (rows 1br / 4r, on ``cp``, the serving
+    phase's BlockCSR); SpC-Retrain at full width on a cut depth; the
+    kernel path against the plain path in f32 there; debias at full width
+    and depth on ``cp`` (trained in place); and the training and serving
+    CLIs on the reduced family."""
+    result = {}
+    if arch == HYBRID:
+        phase(f"{arch} training: the backward kernels at mlp.wi (rows "
+              "1br / 4r)")
+        result["kernel_rows"] = _recurrent_train_rows(dev, cp)
+    cp2, result["spc_retrain"] = _recurrent_spc_retrain(dev, arch)
+    torch.cuda.empty_cache()
+    result["compare"] = _recurrent_train_compare(dev, arch, cp2)
+    del cp2
+    torch.cuda.empty_cache()
+    phase(f"{arch} training: debias at full width and depth (bf16)")
+    result["debias_full"] = _debias_full(dev, get_config(arch), cp, arch)
+    result["cli"] = _reduced_train_cli(dev, arch, RECURRENT_WHERE[arch],
+                                       RECURRENT_CLI_COMPRESSED[arch])
+    return result
+
+
+def _recurrent_train_table_rows(table, rt, card) -> None:
+    """Rows 1br / 4r: ``spmm_t`` and the SDDMM at recurrentgemma-9b's
+    layer-0 mlp.wi ((12288, 4096), bf16 dY, x and store, M = 512); launches
+    are the full-depth debias run's, and the cut-depth SpC-Retrain run's
+    beside them."""
+    path, dt = RECURRENT_TRAIN_TABLE
+    for name, key, source, replaces in (
+            ("bsr_spmm_t_recurrent", "bsr_spmm_t",
+             "src/repro_torch/csrc/bsr_spmm.cu",
+             "src/repro/kernels/bsr_spmm/bsr_spmm.py:163"),
+            ("bsr_sddmm_recurrent", "bsr_sddmm",
+             "src/repro_torch/csrc/bsr_sddmm.cu",
+             "src/repro/kernels/bsr_sddmm/bsr_sddmm.py:44")):
+        rows = rt["kernel_rows"]
+        r = rows[(key, path, dt)]
+        launch = "spmm_t" if key == "bsr_spmm_t" else "bsr_sddmm"
+        table.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": rt["debias_full"]["launches"][launch],
+            "spc_retrain_launches": rt["spc_retrain"]["launches"][launch],
+            "max_abs_err": max(v["max_abs_err"] for q, v in rows.items()
+                               if q[0] == key),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": f"{HYBRID} layer 0 mlp.wi {r['shape']} M={TRAIN_M} "
+                     f"{'dy' if key == 'bsr_spmm_t' else 'x'}=bfloat16 "
+                     "store=bfloat16",
+            "card": card})
 
 
 def _moe_train_rows(table, mt, card) -> None:
@@ -3823,18 +4112,28 @@ def main() -> int:
     train_counts, cdir = train_phase(dev)
     train_compare_phase(dev, cdir)
     _train_rows(table, train_rows, train_counts, card)
-    hybrid = recurrent_phase(dev, HYBRID, HYBRID_PROMPTS,
-                             f32_layers=HYBRID_F32_LAYERS,
-                             kv_splits=HYBRID_KV_SPLITS)
+    hybrid, cp = recurrent_phase(dev, HYBRID, HYBRID_PROMPTS,
+                                 f32_layers=HYBRID_F32_LAYERS,
+                                 kv_splits=HYBRID_KV_SPLITS)
     log(f"{HYBRID}: {json.dumps({k: v for k, v in hybrid.items() if k != 'spmm_1c'}, default=str)}")
+    hybrid_train = recurrent_train_phase(dev, HYBRID, cp)
+    del cp
+    torch.cuda.empty_cache()
+    log(f"{HYBRID} training: {json.dumps({k: v for k, v in hybrid_train.items() if k != 'kernel_rows'}, default=str)}")
+    _recurrent_train_table_rows(table, hybrid_train, card)
     r = next(x for x in hybrid["paged_rows"] if x["case"] == "hd256 prefill"
              and x["kv_splits"] == HYBRID_KV_SPLITS)
     _paged_row(table, "paged_flash_attention_hd256_prefill", r,
                hybrid["engine_bcsr"]["paged"],
                max(x["max_abs_err"] for x in hybrid["paged_rows"]), card)
     _spmm_rows(table, rows, launches, hybrid, card)
-    rwkv = recurrent_phase(dev, RWKV, RWKV_PROMPTS, f32_layers=RWKV_F32_LAYERS)
+    rwkv, cp = recurrent_phase(dev, RWKV, RWKV_PROMPTS,
+                               f32_layers=RWKV_F32_LAYERS)
     log(f"{RWKV}: {json.dumps(rwkv, default=str)}")
+    rwkv_train = recurrent_train_phase(dev, RWKV, cp)
+    del cp
+    torch.cuda.empty_cache()
+    log(f"{RWKV} training: {json.dumps(rwkv_train, default=str)}")
     moe, cp = moe_phase(dev)
     log(f"{MOE}: {json.dumps({k: v for k, v in moe.items() if k != 'expert_rows'}, default=str)}")
     _moe_table_rows(table, moe, card)

@@ -4,7 +4,8 @@ Port of ``repro.core.quantize.kmeans_palette``: Lloyd k-means over the
 NONZERO entries of a weight, from a linspace init over their range, with a
 chunked assignment step. It runs in torch on the weight's own device.
 ``kmeans_palettes`` runs the same k-means for many slices at once (the
-layers and experts of a stacked store), each with its own palette.
+layers and experts of a stacked store), each with its own palette, in
+groups of slices bounded in bytes.
 
 The Deep-Compression size accounting rides on it (port of the rest of
 ``repro.core.quantize``): ``quantize_tree`` palette-quantizes every
@@ -58,28 +59,55 @@ def nearest_sorted(v: torch.Tensor, pal: torch.Tensor) -> torch.Tensor:
     return first.gather(1, c)
 
 
+# Device bytes that clustering takes per entry of a slice, counting every
+# entry as nonzero: the f32 copy and its mask, the int64 slice and column of
+# each nonzero, its value, its place in the padded row layout, its bucket
+# and its assignment, and the search's temporaries.
+_BYTES_PER_ENTRY = 64
+GROUP_BYTES = 1 << 31
+
+
 def kmeans_palettes(slices: torch.Tensor, n_clusters: int, iters: int = 25,
                     chunk: int = 1 << 15):
     """Lloyd k-means over the nonzero entries of each slice of ``slices``
-    (S, ...) on its own, all slices at once.
+    (S, ...) on its own, many slices at once.
 
     Returns (palettes (S, n_clusters) f32, per-entry assignment (S, n)
-    int32 of the nonzero entries, 0 at the zeros). Each slice's sums take
-    its values in the order they are stored, as one slice alone would, so
-    on the CPU the result equals ``kmeans_palette`` slice by slice. On the
-    card the sums are atomic, in no fixed order, and the assignment step
-    is ``nearest_sorted`` on each slice's values laid out in a row (Lloyd
-    steps keep a palette sorted; where rounding unsorts one, that step
-    takes the full argmin): the full argmin materializes n x P distances a
-    step, 5.5 TB over 25 steps for olmoe-1b-7b's experts at 8 bits. On the
-    CPU the assignment is the full argmin, chunked."""
+    int32 of the nonzero entries, 0 at the zeros). The slices are taken in
+    groups of as many as fit ``GROUP_BYTES`` at ``_BYTES_PER_ENTRY`` an
+    entry (at least one), so the working memory stays bounded however many
+    (layer, expert) slices a stack holds. Each slice's sums take its values
+    in the order they are stored, as one slice alone would, so on the CPU
+    the result equals ``kmeans_palette`` slice by slice, whatever the
+    grouping. On the card the sums are atomic, in no fixed order, and the
+    assignment step is ``nearest_sorted`` on each slice's values laid out
+    in a row (Lloyd steps keep a palette sorted; where rounding unsorts
+    one, that step takes the full argmin): the full argmin materializes n
+    x P distances a step, 5.5 TB over 25 steps for olmoe-1b-7b's experts
+    at 8 bits. On the CPU the assignment is the full argmin, chunked."""
+    s = slices.shape[0]
+    per_slice = max(1, slices[0].numel() * _BYTES_PER_ENTRY) if s else 1
+    g = max(1, GROUP_BYTES // per_slice)
+    palettes = torch.empty((s, n_clusters), device=slices.device)
+    out = torch.empty((s, slices[0].numel() if s else 0), dtype=torch.int32,
+                      device=slices.device)
+    for i in range(0, s, g):
+        palettes[i:i + g], out[i:i + g] = _lloyd(slices[i:i + g], n_clusters,
+                                                 iters, chunk)
+    return palettes, out
+
+
+def _lloyd(slices: torch.Tensor, n_clusters: int, iters: int, chunk: int):
+    """``kmeans_palettes`` on one group of slices, all at once."""
     s = slices.shape[0]
     flat = slices.reshape(s, -1).float()
     nz_mask = flat != 0
     seg, col = nz_mask.nonzero(as_tuple=True)
     vals = flat[seg, col]
+    cuda, shape = flat.is_cuda, flat.shape
+    del flat, nz_mask
     palettes = _init_palettes(vals, seg, s, n_clusters)
-    if flat.is_cuda and vals.numel():
+    if cuda and vals.numel():
         # each slice's values in a row of a padded (S, n_max) layout
         counts = torch.bincount(seg, minlength=s)
         pos = torch.arange(seg.numel(), device=seg.device) \
@@ -89,7 +117,7 @@ def kmeans_palettes(slices: torch.Tensor, n_clusters: int, iters: int = 25,
         chunk = max(chunk, (1 << 25) // n_clusters)
 
     def assign(pal):
-        if flat.is_cuda and vals.numel() \
+        if cuda and vals.numel() \
                 and not bool((pal[:, 1:] < pal[:, :-1]).any()):
             return nearest_sorted(rows, pal)[seg, pos]
         return torch.cat([
@@ -106,7 +134,7 @@ def kmeans_palettes(slices: torch.Tensor, n_clusters: int, iters: int = 25,
         counts = vals.new_zeros(s * n_clusters).index_add_(0, a, ones)
         palettes = torch.where(counts > 0, sums / counts.clamp(min=1),
                                palettes.reshape(-1)).reshape(s, n_clusters)
-    out = torch.zeros(flat.shape, dtype=torch.int32, device=flat.device)
+    out = torch.zeros(shape, dtype=torch.int32, device=vals.device)
     out[seg, col] = assign(palettes).to(torch.int32)
     return palettes, out
 

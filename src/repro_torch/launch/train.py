@@ -13,8 +13,12 @@ llama4-scout-17b-a16e) train with the router's aux losses (load balance,
 z-loss) in the loss; under ``--sparse`` the plan prox shrinks blocks of
 each expert's (out, in) view, and debias trains the compressed experts,
 each projection's backward one launch of the expert ``spmm_t`` and one of
-the expert SDDMM. Recurrent architectures are refused, naming the ROADMAP
-item that ports their training.
+the expert SDDMM. The recurrent architectures (recurrentgemma-9b's RG-LRU
+and local attention, rwkv6-3b's time and channel mixing) train through
+autograd of their sequence forms, the RG-LRU's doubling scan and RWKV's
+chunked WKV; under ``--sparse`` the plan prox shrinks blocks of their
+``rec`` / ``tm`` / ``cm`` projections too, and debias runs each compressed
+projection through the same single-matrix kernels as attention's.
 
 ``--sparse`` switches to SpC-Retrain, training *into* BlockCSR: the prox is
 the plan-aligned block group-l1 (exact zero blocks on the serving (out, in)
@@ -50,7 +54,6 @@ from repro_torch.core.optimizers import prox_adam, prox_rmsprop, prox_sgd
 from repro_torch.data.synthetic import TokenStreamConfig, token_batch
 from repro_torch.models import frontends
 from repro_torch.models.model_zoo import build
-from repro_torch.models.transformer import RECURRENT_KINDS, layer_kinds
 from repro_torch.sparse.compress import (CompressionPlan, compressed_size_bytes,
                                          compression_summary, format_size_report,
                                          make_plan_prox, quantize_compressed)
@@ -121,11 +124,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     model = build(args.arch, reduced=args.reduced, device=device)
     cfg = model.cfg
-    recurrent = sorted(set(RECURRENT_KINDS) & set(layer_kinds(cfg)))
-    if recurrent:
-        raise SystemExit(f"{cfg.name}: training layer kinds {recurrent} is "
-                         "not ported yet; it comes with recurrent-family "
-                         "training (ROADMAP Queue 1 item 14)")
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(gen)
     n_params = sum(p.numel() for p in metrics_lib.tree_leaves(params))

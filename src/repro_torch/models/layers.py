@@ -131,16 +131,20 @@ def apply_head(p: dict, x: Tensor, tie: bool, softcap: Optional[float],
 
 
 def apply_proj(p: dict, x: Tensor, name: str,
-               sparse: Optional[dict] = None, backend: str = "auto") -> Tensor:
-    """y = x @ p[name] for a stored 2D (in, out) projection, in x's dtype.
-    A BlockCSR / PaletteBCSR entry in ``sparse`` (stored (out, in)) runs
-    ``sparse_matmul`` instead: the dense-or-compressed dispatch of the
-    RWKV time / channel mix and the RG-LRU block."""
+               sparse: Optional[dict] = None, backend: str = "auto",
+               f32: bool = False) -> Tensor:
+    """y = x @ p[name] for a stored 2D (in, out) projection, in x's dtype,
+    or with ``f32`` the f32 product of x and the weight in x's dtype,
+    unrounded. A BlockCSR / PaletteBCSR entry in ``sparse`` (stored (out,
+    in)) runs ``sparse_matmul`` instead: the dense-or-compressed dispatch
+    of the RWKV time / channel mix and the RG-LRU block."""
     if sparse and name in sparse:
         y = sparse_ops.sparse_matmul(x.reshape(-1, x.shape[-1]), sparse[name],
-                                     backend)
-        return y.reshape(*x.shape[:-1], -1).to(x.dtype)
-    return x @ p[name].to(x.dtype)
+                                     backend, f32)
+        y = y.reshape(*x.shape[:-1], -1)
+        return y.float() if f32 else y.to(x.dtype)
+    w = p[name].to(x.dtype)
+    return x.float() @ w.float() if f32 else x @ w
 
 
 # ---------------------------------------------------------------------------

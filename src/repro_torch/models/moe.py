@@ -93,14 +93,25 @@ def _router_and_aux(router_w: Tensor, xt: Tensor, e: MoEConfig):
     return gate, expert_idx, aux
 
 
+def _positions(flat_e: Tensor, n_experts: int) -> Tensor:
+    """int32 position of each flat (token, choice) pair among the pairs
+    routed to its expert (token-major, choice-minor). The reference's
+    int32 running count of the one-hot, taken over an (E, T * k) one-hot so
+    that the scan runs along the contiguous axis; positions are integers,
+    so the result is the reference's exactly."""
+    eoh = (flat_e[None, :] == torch.arange(
+        n_experts, device=flat_e.device)[:, None]).to(torch.int32)
+    count = eoh.cumsum(1, dtype=torch.int32)
+    return count.gather(0, flat_e[None].long())[0] - 1
+
+
 def _dispatch(expert_idx: Tensor, n_experts: int, cap: int) -> Tensor:
     """Row of each flat (token, choice) pair in the (E * cap + 1, d) buffer:
     expert * cap + its position among the pairs routed to that expert
     (token-major, choice-minor), or E * cap, the overflow row, at or past
     the capacity."""
     flat_e = expert_idx.reshape(-1)
-    eoh = F.one_hot(flat_e, n_experts)
-    pos = (eoh.cumsum(0) * eoh).sum(-1) - 1
+    pos = _positions(flat_e, n_experts)
     return torch.where(pos < cap, flat_e * cap + pos,
                        torch.full_like(pos, n_experts * cap))
 

@@ -16,6 +16,11 @@ elementwise products each, where a Python loop over S would launch
 thousands of small kernels at full width. It combines the same pairs
 ``(a2 * a1, a2 * b1 + b2)`` as the associative scan in another order, so
 the two agree to f32 rounding (the CPU tests hold them to 1e-5).
+
+Training differentiates the scan by autograd: each doubling step saves its
+(a, b) pair, so a layer keeps ceil(log2 S) pairs of (B, S, w) f32 tensors
+for the backward, about 100 MB a layer at recurrentgemma-9b's width (w
+4096) and a batch of 8 x 64 (6 pairs of 8.4 MB).
 """
 from __future__ import annotations
 

@@ -38,8 +38,11 @@ def _lora(d: int, out: int, generator, device, r: int = _LORA_R) -> dict:
 
 
 def _apply_lora(p: dict, x: Tensor) -> Tensor:
-    h = torch.tanh(x.float() @ p["lora_a"])
-    return h @ p["lora_b"]
+    """tanh(x A) B in f32. Training casts the LoRA's f32 masters to the
+    compute dtype; the reference's einsum promotes them back against the
+    f32 activation, as the ``float()`` calls do here."""
+    h = torch.tanh(x.float() @ p["lora_a"].float())
+    return h @ p["lora_b"].float()
 
 
 def init_time_mix(cfg: ModelConfig, generator=None, device=None) -> dict:
@@ -178,10 +181,14 @@ def _time_mix_inputs(p: dict, x: Tensor, cfg: ModelConfig, shift,
         return (x32 + xx * p["mu"][name]).to(dt)
 
     xr, xk, xv, xg, xw = (mix(nm) for nm in ("r", "k", "v", "g", "w"))
-    r = apply_proj(p, xr, "rwkv_r", sparse, backend)
-    k = apply_proj(p, xk, "rwkv_k", sparse, backend)
-    v = apply_proj(p, xv, "rwkv_v", sparse, backend)
-    g = F.silu(apply_proj(p, xg, "rwkv_g", sparse, backend))
+    # r, k, v and the gate's pre-activation stay in f32: XLA, as the
+    # reference is compiled, drops the bf16 round trip between these
+    # products and the f32 math that reads them, and the WKV's
+    # exponentials amplify that rounding into the gradients
+    r = apply_proj(p, xr, "rwkv_r", sparse, backend, f32=True)
+    k = apply_proj(p, xk, "rwkv_k", sparse, backend, f32=True)
+    v = apply_proj(p, xv, "rwkv_v", sparse, backend, f32=True)
+    g = F.silu(apply_proj(p, xg, "rwkv_g", sparse, backend, f32=True)).to(dt)
 
     tdecay = p["time_decay_base"] + _apply_lora(p["lora_w"], xw)
     logw = -torch.exp(tdecay.float())               # (B, S, d), <= 0

@@ -414,9 +414,10 @@ def quantize_bcsr(m: BlockCSR, bits: int, iters: int = 25) -> PaletteBCSR:
     Each leading-axis slice (layer, expert) gets its own palette: the
     nonzero entries are clustered to 2**bits - 1 values and code 0 is kept
     for exact zero, so intra-block zeros, the pad slot and padding slots
-    reproduce exactly and the index tables are shared unchanged. All slices
-    are clustered at once (``kmeans_palettes``). At 4 bits the codes are
-    nibble-packed two per byte."""
+    reproduce exactly and the index tables are shared unchanged. The slices
+    are clustered many at a time, in groups bounded in bytes
+    (``kmeans_palettes``). At 4 bits the codes are nibble-packed two per
+    byte."""
     if bits not in (4, 8):
         raise ValueError(f"palette bits must be 4 or 8, got {bits}")
     if bits == 4 and m.block[1] % 2:
@@ -427,7 +428,7 @@ def quantize_bcsr(m: BlockCSR, bits: int, iters: int = 25) -> PaletteBCSR:
     n_levels = (1 << bits) - 1                  # code 0 is reserved for 0.0
     palettes, assign = quantize_lib.kmeans_palettes(slices, n_levels,
                                                     iters=iters)
-    codes = torch.where(slices.reshape(assign.shape) != 0, assign + 1, 0)
+    codes = assign.add_(1).masked_fill_(slices.reshape(assign.shape) == 0, 0)
     codes = codes.to(torch.uint8).reshape(data.shape)
     pal = torch.cat([palettes.new_zeros(palettes.shape[0], 1), palettes], 1)
     pal = pal.reshape(lead + (1 << bits,))

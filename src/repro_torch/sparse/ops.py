@@ -22,7 +22,7 @@ Backends (``resolve_backend`` is the one point that decides):
             the tensor's device, never by whether a card is present.
 
 The kernel path returns f32 and the ref path x's dtype, as in the
-reference; every caller casts. An explicit 'ref' on a CUDA tensor is
+reference, or f32 with ``f32=True``; every caller casts. An explicit 'ref' on a CUDA tensor is
 allowed so the two can be compared on the card.
 
 A ``PaletteBCSR`` is serving-only: dx goes through ``w.dequantize()`` and
@@ -59,7 +59,8 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
     return backend
 
 
-def _forward(x: torch.Tensor, w, backend: str) -> torch.Tensor:
+def _forward(x: torch.Tensor, w, backend: str,
+             f32: bool = False) -> torch.Tensor:
     quantized = isinstance(w, PaletteBCSR)
     if x.dim() == 3:
         if backend == "cuda":
@@ -67,11 +68,12 @@ def _forward(x: torch.Tensor, w, backend: str) -> torch.Tensor:
                     else kops.spmm_experts(x, w))
         y = (kref.spmm_palette_experts_fwd_ref(x, w) if quantized
              else kref.spmm_experts_fwd_ref(x, w))
-        return y.to(x.dtype)
-    if backend == "cuda":
+    elif backend == "cuda":
         return kops.spmm_palette(x, w) if quantized else kops.spmm(x, w)
-    y = kref.spmm_palette_fwd_ref(x, w) if quantized else kref.spmm_fwd_ref(x, w)
-    return y.to(x.dtype)
+    else:
+        y = (kref.spmm_palette_fwd_ref(x, w) if quantized
+             else kref.spmm_fwd_ref(x, w))
+    return y if f32 else y.to(x.dtype)
 
 
 def _dx_product(dy: torch.Tensor, w: BlockCSR, backend: str) -> torch.Tensor:
@@ -100,10 +102,10 @@ class _SparseMatmul(torch.autograd.Function):
     against an E-stacked W runs the expert forms of all three products."""
 
     @staticmethod
-    def forward(ctx, x, data, w, backend):
+    def forward(ctx, x, data, w, backend, f32):
         ctx.w, ctx.backend = w, backend
         ctx.save_for_backward(x)
-        return _forward(x, w, backend)
+        return _forward(x, w, backend, f32)
 
     @staticmethod
     def backward(ctx, dy):
@@ -114,36 +116,38 @@ class _SparseMatmul(torch.autograd.Function):
             dx = _dx_product(dy, w, backend).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = _dw_product(x, dy, w, backend).to(w.data.dtype)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 class _PaletteMatmul(torch.autograd.Function):
     """y = x @ dequant(W)'; differentiable in x only."""
 
     @staticmethod
-    def forward(ctx, x, w, backend):
+    def forward(ctx, x, w, backend, f32):
         ctx.w, ctx.backend = w, backend
         ctx.x_dtype = x.dtype
-        return _forward(x, w, backend)
+        return _forward(x, w, backend, f32)
 
     @staticmethod
     def backward(ctx, dy):
         dx = _dx_product(dy, ctx.w.dequantize(), ctx.backend)
-        return dx.to(ctx.x_dtype), None, None
+        return dx.to(ctx.x_dtype), None, None, None
 
 
-def sparse_matmul(x: torch.Tensor, w, backend: str = "auto") -> torch.Tensor:
+def sparse_matmul(x: torch.Tensor, w, backend: str = "auto",
+                  f32: bool = False) -> torch.Tensor:
     """y = x @ w.T for a compressed w (the paper's dense x compressed'), or
     y[e] = x[e] @ w[e].T for a 3-D x against E-stacked experts.
-    Differentiable in x and, for a BlockCSR, in ``w.data``."""
+    Differentiable in x and, for a BlockCSR, in ``w.data``. ``f32``: the
+    plain path returns its f32 product unrounded, as the kernels do."""
     backend = resolve_backend(backend, x)
     if torch.is_grad_enabled():
         if isinstance(w, PaletteBCSR):
             if x.requires_grad:
-                return _PaletteMatmul.apply(x, w, backend)
+                return _PaletteMatmul.apply(x, w, backend, f32)
         elif x.requires_grad or w.data.requires_grad:
-            return _SparseMatmul.apply(x, w.data, w, backend)
-    return _forward(x, w, backend)
+            return _SparseMatmul.apply(x, w.data, w, backend, f32)
+    return _forward(x, w, backend, f32)
 
 
 def sparse_matmul_t(dy: torch.Tensor, w, backend: str = "auto") -> torch.Tensor:

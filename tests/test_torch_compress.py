@@ -156,3 +156,43 @@ def test_nearest_sorted_is_the_full_argmin(seed):
         v[:, p:2 * p - 1] = (pal[:, 1:] + pal[:, :-1]) / 2
         want = torch.argmin((v[..., None] - pal[:, None, :]).abs(), dim=-1)
         assert torch.equal(nearest_sorted(v, pal), want)
+
+
+
+@pytest.mark.parametrize("group_bytes", [1, 3 * 64 * 20 * 8 * 16])
+def test_kmeans_palettes_in_bounded_groups_equal_one_group(group_bytes,
+                                                           monkeypatch):
+    """A byte bound that splits the (layer, expert) slices of a stack into
+    many groups (one slice a group, or three) gives the palettes and
+    assignments of one group of all slices, exactly: each slice's
+    arithmetic is its own."""
+    from repro_torch.core import quantize
+    rng = np.random.default_rng(21)
+    slices = rng.standard_normal((7, 20, 8, 16)).astype(np.float32)
+    slices[rng.random(slices.shape) < 0.5] = 0.0
+    slices[4] = 0.0                                  # a slice with no value
+    t = torch.from_numpy(slices)
+    monkeypatch.setattr(quantize, "GROUP_BYTES", 1 << 40)
+    want = quantize.kmeans_palettes(t, 15)
+    monkeypatch.setattr(quantize, "GROUP_BYTES", group_bytes)
+    got = quantize.kmeans_palettes(t, 15)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1].dtype == torch.int32
+    assert (got[1][t.reshape(7, -1) == 0] == 0).all()
+
+
+def test_quantize_bcsr_in_bounded_groups_equals_one_group(monkeypatch):
+    """``quantize_bcsr`` on reduced olmoe's (L, E) expert stacks: the codes
+    and palettes with one slice a group equal those with one group."""
+    from repro_torch.core import quantize
+    plan = _port_plan(jc.CompressionPlan(block=(8, 16), min_sparsity=0.3))
+    tcp = tc.compress_params(tc.prune_blocks_for_plan(
+        to_port(_params("olmoe-1b-7b")), plan, 0.6), plan)
+    stacks = [m for path, m in tc.iter_bcsr(tcp) if "/moe/" in path]
+    assert stacks and all(m.data.dim() == 5 for m in stacks)
+    want = [tc.quantize_bcsr(m, 4) for m in stacks]
+    monkeypatch.setattr(quantize, "GROUP_BYTES", 1)
+    for m, w in zip(stacks, want):
+        got = tc.quantize_bcsr(m, 4)
+        assert torch.equal(got.codes, w.codes)
+        assert torch.equal(got.palette, w.palette)

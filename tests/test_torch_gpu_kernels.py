@@ -880,3 +880,59 @@ def test_cuda_expert_backward_rejects_mismatched_stacks():
     with pytest.raises(ValueError):
         sddmm_ops.bsr_weight_grad(torch.ones(4, 128, device=dev),
                                   torch.ones(4, 64, device=dev), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-3b"])
+def test_cuda_recurrent_debias_step_matches_plain(arch):
+    """One debias step of the reduced recurrent family (f32, (8, 16) blocks
+    pruned at 0.6, batch 4 x 64) on the kernels (``sparse_backend``
+    'auto': the spmm forward, ``spmm_t`` and the SDDMM on every compressed
+    projection) against the plain path ('ref') from the same params: the
+    loss within 1e-5 relative, every leaf's gradient within 1e-3 of its
+    largest |value| (the training agreement of ``chip_smoke.py``), one
+    launch of each kernel per compressed matrix and layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import flatten_with_path, unflatten_like
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.kernels.bsr_sddmm import ops as sddmm_ops
+    from repro_torch.models.model_zoo import build
+    from repro_torch.sparse import compress as tc
+    from repro_torch.train.step import make_loss_fn
+    dev = _cuda()
+    cfg = get_config(arch).reduced()
+    plan = tc.CompressionPlan(block=(8, 16), min_sparsity=0.3)
+    params = build(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    cp = tc.compress_params(tc.prune_blocks_for_plan(params, plan, 0.6), plan)
+    per_pass = sum(m.data.shape[0] if m.data.dim() == 4 else 1
+                   for _, m in tc.iter_bcsr(cp))
+    assert any("/rec/" in p or "/tm/" in p for p, _ in tc.iter_bcsr(cp))
+    trainable, rebuild = tc.split_trainable(cp)
+    batch = token_batch(TokenStreamConfig(vocab=cfg.vocab, seq_len=64,
+                                          global_batch=4), 0, device=dev)
+    runs = {}
+    for backend in ("auto", "ref"):
+        model = build(cfg, device=dev, sparse_backend=backend)
+        flat = flatten_with_path(trainable)
+        leaves = [p.detach().clone().requires_grad_(True) for _, p in flat]
+        ops.reset_launches()
+        sddmm_ops.reset_launches()
+        loss, _ = make_loss_fn(model, param_transform=rebuild)(
+            unflatten_like(trainable, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        runs[backend] = (float(loss), dict(ops.launches),
+                         dict(sddmm_ops.launches),
+                         {"/".join(k): g for (k, _), g in zip(flat, grads)})
+    (lk, fwd, dw, gk), (lp, plain_fwd, _, gp) = runs["auto"], runs["ref"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    assert fwd["spmm"] == fwd["spmm_t"] == dw["bsr_sddmm"] == per_pass > 0
+    assert plain_fwd["spmm"] == 0
+    for k, want in gp.items():
+        got = gk[k]
+        if want is None:
+            assert got is None, k
+            continue
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-3 * scale, k

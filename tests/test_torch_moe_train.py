@@ -45,6 +45,7 @@ from repro.train.state import TrainState as JState
 from repro_torch.core import masks, optimizers
 from repro_torch.data import synthetic as tdata
 from repro_torch.launch import train
+from repro_torch.models import moe as tmoe
 from repro_torch.models.model_zoo import build
 from repro_torch.serve.step import generate
 from repro_torch.sparse import compress as tc
@@ -127,6 +128,29 @@ def _assert_params(ts, js, steps: int, g_min: dict):
         assert float(err[good].max(initial=0)) <= P_TOL, k
         assert float(err.max(initial=0)) <= LR * steps, k
         np.testing.assert_array_equal(a[k] == 0, b[k] == 0, err_msg=k)
+
+
+def test_dispatch_counts_positions_in_int32_as_the_reference():
+    """The dispatch's position of each (token, choice) pair within its
+    expert, on a skewed routing that overflows the capacity: equal to the
+    reference's int32 count (``repro/models/moe.py``'s one-hot cumsum, as
+    written there), counted in int32; the rows it gives follow, with the
+    overflow row past the capacity."""
+    rng = np.random.default_rng(21)
+    n_e, t, k, cap = 8, 40, 2, 9
+    flat = rng.choice(n_e, size=t * k, p=[0.4, 0.2, 0.1, 0.1, 0.1, 0.05,
+                                          0.05, 0.0]).astype(np.int32)
+    eoh = jax.nn.one_hot(jnp.asarray(flat), n_e, dtype=jnp.int32)
+    want = np.asarray(jnp.sum(jnp.cumsum(eoh, axis=0) * eoh, axis=-1) - 1)
+    got = tmoe._positions(torch.tensor(flat, dtype=torch.int64), n_e)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    keep = want < cap
+    assert (~keep).any() and keep.any()
+    rows = tmoe._dispatch(torch.tensor(flat, dtype=torch.int64).reshape(t, k),
+                          n_e, cap)
+    np.testing.assert_array_equal(
+        rows.numpy(), np.where(keep, flat * cap + want, n_e * cap))
 
 
 def _expert_paths(cp, iter_fn):

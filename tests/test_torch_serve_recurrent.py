@@ -1,10 +1,10 @@
 """The recurrent families (rwkv6-3b, recurrentgemma-9b) end to end on the
 CPU: the bridge carries their ``rec`` / ``tm`` / ``cm`` subtrees across,
 dense and compressed; a compressed JAX checkpoint of them is served by the
-port with the JAX package's greedy tokens; the port's serve CLI runs them
-with and without ``--engine``, ``--sparse`` and ``--quantize-bits``; and
-``launch/train`` refuses them, naming the ROADMAP item that will port
-recurrent-family training."""
+port with the JAX package's greedy tokens; and the port's serve CLI runs
+them with and without ``--engine``, ``--sparse`` and ``--quantize-bits``.
+Their training is held in ``test_torch_rglru_train.py`` and
+``test_torch_rwkv_train.py``."""
 import dataclasses
 
 import jax
@@ -19,7 +19,7 @@ from repro.serve import step as jstep
 from repro.sparse.compress import iter_bcsr as jax_iter_bcsr
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core.metrics import tree_leaves
-from repro_torch.launch import serve, train
+from repro_torch.launch import serve
 from repro_torch.models.model_zoo import build
 from repro_torch.serve import step
 from repro_torch.sparse.compress import CompressedParams, iter_bcsr
@@ -130,13 +130,6 @@ def test_cli_engine_parity(arch, extra, capsys):
 def test_cli_engine_refuses_prefix_cache(arch):
     with pytest.raises(NotImplementedError, match="not position-sliceable"):
         serve.main(ENGINE + ["--arch", arch, "--prefix-cache"])
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_cli_refuses_recurrent_families(arch):
-    with pytest.raises(SystemExit, match="Queue 1 item 14"):
-        train.main(["--arch", arch, "--reduced", "--steps", "1",
-                    "--device", "cpu"])
 
 
 def test_recurrent_caches_are_state_sized():
