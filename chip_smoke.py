@@ -172,6 +172,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (which the port never calls) and its bound; then its entry point
      ``ops.flash_attention`` (no model code calls it: the serving and
      training phases launch it 0 times);
+ 14b. cnn, the paper's pipeline: ``launch/paper_cnn`` at its full
+     constants (LeNet-5: reference, SpC, SpC(Retrain), Pru, Pru(Retrain)
+     and MM; 250 and 100 steps) on the card, its table printed, with
+     6 x 700 prox_adam launches and no other kernel; a cut
+     ``spc_with_retrain`` on LeNet-5 (20 + 10 steps, f32, cuDNN
+     deterministic) with every prox_adam call on the kernel and held
+     bit-equal to its plain version, against the same run on the plain
+     version: losses per step, compression rates and params equal; one
+     SpC step at batch 128 of each net at full width (LeNet-5, AlexNet,
+     VGG16, ResNet-32): step time, peak memory, one launch a leaf; and
+     prox_adam at LeNet-5's fc1 and VGG16's largest filter against its
+     plain version and its bytes bound (kernel-table row 5c);
  15. the kernel table (one JSON line: the decode spmm kernels at
      smollm-360m's decode, the tile kernels at recurrentgemma-9b's prefill
      tick (palette-4 at smollm-360m's M = 512), the paged kernel at a
@@ -180,8 +192,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      attention and smollm-360m's prefill, the expert launch at
      olmoe-1b-7b's ewi (rows 1e / 2e) and the expert backward there (rows
      1be / 4e), the single-matrix backward at recurrentgemma-9b's mlp.wi
-     (rows 1br / 4r), with the spmm and paged bounds also at the bf16
-     tensor-core rate) and the contract line.
+     (rows 1br / 4r), prox_adam at the CNN leaves (row 5c), with the spmm
+     and paged bounds also at the bf16 tensor-core rate) and the contract
+     line.
 
 It imports nothing of JAX or of the JAX package, and exits with an error
 when no CUDA device is visible.
@@ -194,6 +207,7 @@ import contextlib
 import dataclasses
 import faulthandler
 import functools
+import gc
 import io
 import json
 import math
@@ -221,7 +235,11 @@ from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as paged_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.data.synthetic import image_batch  # noqa: E402
+from repro_torch.launch import paper_cnn, serve, train  # noqa: E402
+from repro_torch.models.cnn import CNN_ZOO  # noqa: E402
+from repro_torch.models.cnn import weight_count as cnn_weight_count  # noqa: E402
+from repro_torch.train import cnn as cnn_train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.model_zoo import build  # noqa: E402
 from repro_torch.obs.profile import Profiler  # noqa: E402
@@ -238,7 +256,7 @@ from repro_torch.sparse.compress import (CompressionPlan,  # noqa: E402
                                          init_compressed, iter_bcsr,
                                          make_plan_prox, quantize_bcsr,
                                          quantize_compressed, split_trainable)
-from repro_torch.core.tree import tree_map  # noqa: E402
+from repro_torch.core.tree import flatten_with_path, tree_map  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train.state import TrainState  # noqa: E402
 from repro_torch.train.step import make_loss_fn, make_train_step  # noqa: E402
@@ -504,6 +522,19 @@ RECURRENT_WHERE = {HYBRID: ("/rec/",), RWKV: ("/tm/", "/cm/")}
 # layers, rwkv6-3b's 5 time-mix and 3 channel-mix stacks
 RECURRENT_CLI_COMPRESSED = {HYBRID: 12, RWKV: 8}
 RECURRENT_TRAIN_TABLE = ("layers/b0_rglru/mlp/wi", torch.bfloat16)
+# The paper's CNN pipeline (launch/paper_cnn at its constants: LeNet-5;
+# reference, SpC and Pru(Retrain)'s steps and SpC(Retrain)'s take one
+# prox_adam launch per leaf, 6 leaves; MM launches none). The kernel path
+# against the plain path runs a cut spc_with_retrain (20 + 10 steps); one
+# SpC step is timed per net at batch 128 (leaves: weights and biases).
+CNN_RUN_LAUNCHES = 6 * (2 * paper_cnn.STEPS + 2 * paper_cnn.RETRAIN_STEPS)
+CNN_CUT = (20, 10)
+CNN_BATCH, CNN_TIMED_STEPS = 128, 5
+CNN_LEAVES = {"lenet5": 6, "alexnet-cifar": 11, "vgg16-cifar": 19,
+              "resnet32-cifar": 35}
+# row 5c: prox_adam at LeNet-5's fc1 and VGG16's largest filter (HWIO)
+CNN_ADAM_LEAVES = (("lenet5 fc1/w", (800, 500)),
+                   ("vgg16-cifar conv4-2/w", (3, 3, 512, 512)))
 
 def log(*a):
     print(*a, flush=True)
@@ -4084,6 +4115,241 @@ def _train_rows(table, train_rows, train_counts, card) -> None:
         "card": card})
 
 
+# ---------------------------------------------------------------------------
+# the paper's CNN pipeline
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _adam_calls(plain: bool):
+    """Within the block, every ``prox_adam`` call of the optimizers either
+    runs the kernel and is held bit-equal to the plain version on a copy of
+    its inputs (``plain`` False; yields the count of held calls), or runs
+    the plain version on the card (``plain`` True)."""
+    kernel = adam_ops.fused_update_leaf
+    held = [0]
+
+    def call(w, g, m, v, scalars, *, rule="adam", apply_prox=True):
+        want = adam_ops.fused_prox_update_ref(w, g, m, v, scalars, rule=rule,
+                                              apply_prox=apply_prox)
+        if plain:
+            for t, x in zip((w, m, v), want):
+                t.copy_(x)
+            return w, m, v
+        got = kernel(w, g, m, v, scalars, rule=rule, apply_prox=apply_prox)
+        held[0] += 1
+        for name, a, b in zip("wmv", got, want):
+            if not torch.equal(a, b):
+                raise SystemExit(
+                    f"cnn: prox_adam call {held[0]} ({name}, "
+                    f"{tuple(w.shape)}) differs from plain, max err "
+                    f"{float((a.float() - b.float()).abs().max())}")
+        return got
+
+    adam_ops.fused_update_leaf = call
+    try:
+        yield held
+    finally:
+        adam_ops.fused_update_leaf = kernel
+
+
+def _cnn_pipeline_run() -> dict:
+    """``python -m repro_torch.launch.paper_cnn`` at its full constants,
+    in process, with the launch counters read around it."""
+    _reset_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = paper_cnn.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_launches()
+    log(f"cnn: launch/paper_cnn in {wall:.2f} s, launches {counts}")
+    if counts["prox_adam"] != CNN_RUN_LAUNCHES or \
+            any(v for k, v in counts.items() if k != "prox_adam"):
+        raise SystemExit(f"cnn: expected {CNN_RUN_LAUNCHES} prox_adam "
+                         f"launches and no other, got {counts}")
+    names = [r[0] for r in rows]
+    if names != ["reference", "SpC", "SpC(Retrain)", "Pru", "Pru(Retrain)",
+                 "MM"] or not all(0.0 <= a <= 1.0 and 0.0 <= c <= 1.0
+                                  for _, a, c in rows) or rows[1][2] <= 0:
+        raise SystemExit(f"cnn: unexpected table {rows}")
+    return {"rows": rows, "wall_s": wall, "launches": counts["prox_adam"]}
+
+
+def _cnn_compare(dev) -> dict:
+    """A cut ``spc_with_retrain`` on LeNet-5 (f32, cuDNN deterministic)
+    twice from the same seed: with every prox_adam call on the kernel, held
+    bit-equal to its plain version, and with the plain version; losses per
+    step, compression rates and final params equal."""
+    model = CNN_ZOO["lenet5"]
+    steps, retrain = CNN_CUT
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    make = cnn_train.make_cnn_step
+    runs = {}
+    try:
+        for plain in (False, True):
+            losses = []
+
+            def recorded(m, opt, losses=losses):
+                step = make(m, opt)
+
+                def run(*a, **kw):
+                    out = step(*a, **kw)
+                    losses.append(out[2])
+                    return out
+                return run
+
+            cnn_train.make_cnn_step = recorded
+            with _adam_calls(plain) as held:
+                out = cnn_train.spc_with_retrain(model, lam=paper_cnn.LAM,
+                                                 steps=steps,
+                                                 retrain_steps=retrain,
+                                                 device=dev)
+            runs[plain] = (out, [float(x) for x in losses], held[0])
+    finally:
+        cnn_train.make_cnn_step = make
+        torch.backends.cudnn.deterministic = det
+    (k_out, k_loss, held), (p_out, p_loss, _) = runs[False], runs[True]
+    n_leaves = CNN_LEAVES["lenet5"]
+    if held != n_leaves * (steps + retrain):
+        raise SystemExit(f"cnn: {held} prox_adam calls held, expected "
+                         f"{n_leaves * (steps + retrain)}")
+    if k_loss != p_loss:
+        raise SystemExit(f"cnn: losses differ, kernel {k_loss}, plain {p_loss}")
+    diff = 0.0
+    for key in ("spc", "retrain"):
+        if k_out[f"{key}_compression"] != p_out[f"{key}_compression"]:
+            raise SystemExit(f"cnn: {key} compression differs")
+        for (path, a), (_, b) in zip(
+                flatten_with_path(k_out[f"{key}_params"]),
+                flatten_with_path(p_out[f"{key}_params"])):
+            diff = max(diff, float((a - b).abs().max()))
+            if not torch.equal(a, b):
+                raise SystemExit(f"cnn: {key} params {path} differ")
+    res = {"held_calls": held, "losses": k_loss,
+           "spc_compression": k_out["spc_compression"],
+           "retrain_compression": k_out["retrain_compression"],
+           "max_param_diff": diff}
+    log(f"cnn: kernel path vs plain path: {json.dumps(res)}")
+    return res
+
+
+def _cnn_steps(dev) -> dict:
+    """One SpC step (prox_adam, lr 1e-3, lam 1) at batch 128 for each net at
+    full width: host-clock step time (synchronized), the net's peak memory
+    (params, Adam's moments, a batch and the step's activations: the peak
+    over what was allocated before its init) and prox_adam launches per
+    step."""
+    out = {}
+    for name, model in CNN_ZOO.items():
+        # garbage of earlier phases (and nets) freed now, not during the
+        # step, where it would hide the net's own peak
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        opt = optimizers.prox_adam(1e-3, lam=paper_cnn.LAM)
+        state = opt.init(params)
+        step = cnn_train.make_cnn_step(model, opt)
+        data = cnn_train.data_for(model, CNN_BATCH)
+        batches = [image_batch(data, s, device=dev)
+                   for s in range(CNN_TIMED_STEPS + 1)]
+        params, state, _ = step(params, state, batches[0])   # warm-up
+        torch.cuda.synchronize()
+        _reset_all()
+        times = []
+        for b in batches[1:]:
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_step = adam_ops.launches["prox_adam"] / CNN_TIMED_STEPS
+        # (the reference's He init takes a filter's height as its fan-in,
+        # so the deeper nets' random logits are huge: the loss is logged,
+        # not held)
+        if per_step != CNN_LEAVES[name]:
+            raise SystemExit(f"cnn: {name} step: {per_step} prox_adam "
+                             "launches a step")
+        out[name] = {"step_ms": sorted(times), "launches_per_step": per_step,
+                     "peak_gib": (torch.cuda.max_memory_allocated() - base)
+                     / 2**30,
+                     "weights": cnn_weight_count(params), "loss": float(loss)}
+        log(f"cnn: {name} SpC step at batch {CNN_BATCH}: "
+            f"{json.dumps(out[name])}")
+        del params, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cnn_adam_rows(dev) -> dict:
+    """Row 5c: prox_adam (with the prox) at LeNet-5's fc1 and at VGG16's
+    largest filter, against its plain version and its bytes bound."""
+    sc = adam_ops.make_scalars(1e-3, PROX_TAU / 1e-3, 0.9, 0.999, 1e-8, 3)
+    rows = {}
+    for leaf, shape in CNN_ADAM_LEAVES:
+        numel = math.prod(shape)
+
+        def make():
+            return (torch.randn(shape, device=dev),
+                    torch.randn(shape, device=dev),
+                    torch.randn(shape, device=dev) * 0.1,
+                    torch.rand(shape, device=dev) * 0.01)
+
+        def kernel(w, g, m, v, sc):
+            return adam_ops.fused_update_leaf(w, g, m, v, sc)
+
+        def plain(w, g, m, v, sc):
+            return adam_ops.fused_prox_update_ref(w, g, m, v, sc)
+        w, g, m, v = make()
+        want = plain(w, g, m, v, sc)
+        got = kernel(w.clone(), g, m.clone(), v.clone(), sc)
+        err = max(_check(f"prox_adam {leaf}", a, b, ADAM_ATOL, ADAM_ATOL)
+                  for a, b in zip(got, want))
+        sets = copies(lambda: make() + (sc,), 16 * numel)
+        row = {"kernel": "prox_adam", "leaf": leaf, "shape": list(shape),
+               "numel": numel, "max_abs_err": err,
+               "bit_equal": all(torch.equal(a, b) for a, b in zip(got, want)),
+               "ms": time_ms(kernel, sets), "plain_ms": time_ms(plain, sets),
+               "library_ms": None}
+        row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                       _ops_bound(28 * numel, 10 * numel)))
+        log(json.dumps(row))
+        rows[leaf] = row
+    return rows
+
+
+def cnn_phase(dev) -> dict:
+    phase("cnn: launch/paper_cnn (the paper's pipeline)")
+    t0 = time.perf_counter()
+    res = {"run": _cnn_pipeline_run()}
+    phase("cnn: kernel path vs plain path (f32, LeNet-5, cuDNN deterministic)")
+    res["compare"] = _cnn_compare(dev)
+    phase(f"cnn: one SpC step at batch {CNN_BATCH} per net, full width")
+    res["steps"] = _cnn_steps(dev)
+    phase("cnn: prox_adam at the CNN leaves (row 5c)")
+    res["adam_rows"] = _cnn_adam_rows(dev)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"cnn: phase took {res['phase_s']:.1f} s")
+    return res
+
+
+def _cnn_rows(table, cnn, card) -> None:
+    """Row 5c: prox_adam at the CNN leaves; launches per launch/paper_cnn
+    run."""
+    for leaf, r in cnn["adam_rows"].items():
+        table.append({
+            "name": "prox_adam_cnn", "route": "cuda",
+            "source": "src/repro_torch/csrc/prox_adam.cu",
+            "replaces": "src/repro/kernels/prox_adam/prox_adam.py:69",
+            "launches": cnn["run"]["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "shape": f"{leaf} {tuple(r['shape'])} f32, with the prox",
+            "card": card})
+
+
 def main() -> int:
     faulthandler.enable()       # a hard crash prints every thread's stack
     if not torch.cuda.is_available():
@@ -4149,6 +4415,8 @@ def main() -> int:
     _flash_row(table, "flash_attention_smollm_prefill",
                flash_rows[FLASH_PREFILL_ROW], flash_launches, model_launches,
                flash_err, card)
+    cnn = cnn_phase(dev)
+    _cnn_rows(table, cnn, card)
 
     phase("kernel table")
     print(json.dumps({"kernels": table}))

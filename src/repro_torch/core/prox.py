@@ -36,6 +36,11 @@ def soft_threshold(z: Tensor, tau) -> Tensor:
     return torch.minimum(torch.clamp_min(z - tau, 0), z + tau)
 
 
+def prox_l1(z: Tensor, tau) -> Tensor:
+    """Alias matching the paper's notation prox_{tau*||.||_1}."""
+    return soft_threshold(z, tau)
+
+
 def hard_threshold(z: Tensor, tau) -> Tensor:
     """Zero out |z| <= tau (the magnitude-pruning baseline's threshold)."""
     return torch.where(z.abs() > _as(tau, z), z, torch.zeros_like(z))

@@ -12,7 +12,7 @@ class-conditional blobs (MNIST / CIFAR stand-ins for the CNN experiments).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -45,6 +45,15 @@ def token_batch(cfg: TokenStreamConfig, step: int, host_start: int = 0,
     labels = np.ascontiguousarray(base[:, 1:].astype(np.int32))
     return {"inputs": torch.from_numpy(tokens).to(device),
             "labels": torch.from_numpy(labels).to(device)}
+
+
+def token_stream(cfg: TokenStreamConfig, start_step: int = 0,
+                 device="cpu") -> Iterator[dict]:
+    """The whole global batch of every step from ``start_step`` on."""
+    step = start_step
+    while True:
+        yield token_batch(cfg, step, device=device)
+        step += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +96,7 @@ def image_batch(cfg: ImageStreamConfig, step: int, device="cpu") -> dict:
                                       device=device),
             "labels": torch.as_tensor(labels.astype(np.int32),
                                       device=device)}
+
+
+MNIST_LIKE = ImageStreamConfig(image_shape=(28, 28, 1), n_classes=10, batch=128)
+CIFAR_LIKE = ImageStreamConfig(image_shape=(32, 32, 3), n_classes=10, batch=128)

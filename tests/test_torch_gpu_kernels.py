@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.optimizers import prox_adam
 from repro_torch.kernels.bsr_spmm import ops, ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
@@ -682,6 +683,43 @@ def test_cuda_prox_adam_unaligned_view():
     adam_ops.fused_update_leaf(w, g, m, v, sc)
     torch.cuda.synchronize()
     torch.testing.assert_close(w, want[0], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 3, 512, 512), (5, 5, 20, 50), (10,)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_prox_adam_cnn_leaves_match_plain(shape, masked):
+    """The CNN pipeline's leaves through ``core.optimizers.prox_adam``:
+    VGG16's largest filter (HWIO, 2,359,296 entries), LeNet-5's conv2 and
+    a 10-entry bias (no prox), with and without a debias mask. Three steps
+    on the card (one launch a leaf a step) against the same steps on a
+    copy on the CPU, the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(7)
+    name = "bias" if len(shape) == 1 else "w"
+    w = rng.normal(size=shape).astype(np.float32) * 0.05
+    grads = [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+    mask = (np.abs(w) > 0.02).astype(np.float32) if masked else None
+    opt = prox_adam(1e-3, lam=1.0)
+    out = {}
+    for d in ("cuda", "cpu"):
+        p = {"leaf": {name: torch.from_numpy(w).to(d)}}
+        state = opt.init(p)
+        mk = None if mask is None else {
+            "leaf": {name: torch.from_numpy(mask).to(d)}}
+        before = adam_ops.launches["prox_adam"]
+        for g in grads:
+            with torch.no_grad():
+                p, state = opt.update({"leaf": {name: torch.from_numpy(g)
+                                                .to(d)}}, state, p, mask=mk)
+        if d == "cuda":
+            assert adam_ops.launches["prox_adam"] == before + 3
+        out[d] = (p["leaf"][name].cpu(), state.m["leaf"][name].cpu(),
+                  state.v["leaf"][name].cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+    if masked:
+        assert (out["cuda"][0][torch.from_numpy(mask) == 0] == 0).all()
 
 
 # ---------------------------------------------------------------------------

@@ -41,26 +41,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as jax_config
-from repro.data import synthetic as jdata
 from repro.models import rwkv6 as jrwkv
-from repro.models.model_zoo import build as jax_build
-from repro.train import step as jstep
 from repro_torch.configs import get_config
-from repro_torch.core.tree import flatten_with_path, tree_map, unflatten_like
 from repro_torch.data import synthetic as tdata
 from repro_torch.models import rwkv6
-from repro_torch.models.model_zoo import build
-from repro_torch.train import step as tstep
 from test_torch_moe_train import RTOL, _data
 from test_torch_train import _flat_np, _jflat_np
 from torch_parity import to_port
-from torch_recurrent_train import (Family, check_cli, check_dense_cli,
+from torch_recurrent_train import (Family, check_bf16_grad_drift,
+                                   check_cli, check_dense_cli,
                                    check_grads_at_equal_params,
                                    check_no_dense_weight_grad,
                                    check_pipeline, check_plan_prox,
-                                   check_spc_then_debias, grad_norm,
-                                   port_grads)
+                                   check_spc_then_debias, grad_norm)
 
 ARCH = "rwkv6-3b"
 VJP_TOL = 1e-5
@@ -68,9 +61,6 @@ LATER_RTOL = 5e-4
 PIPELINE_GN_RTOL = 1e-2
 PIPELINE_STORE_RTOL = 1e-3
 CLAMP = 25.0           # the chunked WKV's bound on |cumulative log-decay|
-# a leaf's bf16 gradient drift: the reference's plus a quarter of it, and
-# at least one bf16 rounding of the leaf's largest |g|
-BF16_MARGIN_SHARE, BF16_MARGIN_FLOOR = 0.25, 2.0 ** -8
 
 
 @pytest.fixture(scope="module")
@@ -240,36 +230,6 @@ def test_debias_step_makes_no_dense_weight_gradient(monkeypatch):
     check_no_dense_weight_grad(cfg, monkeypatch)
 
 
-def _bf16_grads(arch, jp, seq=64):
-    """(loss, {leaf: gradient}) of the training loss in bf16 in each
-    package, at the JAX params ``jp``: the f32 masters of rank >= 2 cast
-    to bf16, as both train steps cast them."""
-    jm = jax_build(dataclasses.replace(jax_config(arch).reduced(),
-                                       compute_dtype="bfloat16"))
-    tm = build(dataclasses.replace(get_config(arch).reduced(),
-                                   compute_dtype="bfloat16"), device="cpu")
-    jcfg, tcfg = _data(jm, seq=seq)
-
-    def jloss(p, b):
-        cast = jax.tree.map(lambda x: x.astype(jnp.bfloat16)
-                            if x.ndim >= 2 else x, p)
-        return jstep.make_loss_fn(jm)(cast, b)[0]
-
-    jl, jg = jax.jit(jax.value_and_grad(jloss))(jp, jdata.token_batch(jcfg, 0))
-    tp = to_port(jp)
-    flat = flatten_with_path(tp)
-    leaves = [t.detach().clone().requires_grad_(True) for _, t in flat]
-    cast = tree_map(lambda t: t.to(torch.bfloat16) if t.dim() >= 2 else t,
-                    unflatten_like(tp, leaves))
-    tl, _ = tstep.make_loss_fn(tm)(cast, tdata.token_batch(tcfg, 0))
-    tg = torch.autograd.grad(tl, leaves, allow_unused=True)
-    return ((float(tl.detach()),
-             {"/".join(k): (torch.zeros_like(t) if g is None else g)
-              .float().numpy() for (k, _), g, t in zip(flat, tg, leaves)}),
-            (float(jl), {k: v.astype(np.float32)
-                         for k, v in _jflat_np(jg).items()}))
-
-
 def test_bf16_training_step_runs_and_tracks_jax(fam):
     """A bf16 training step of reduced rwkv (the f32 masters of rank >= 2
     cast to bf16, the decay LoRA's included, which the port's LoRA product
@@ -286,18 +246,4 @@ def test_bf16_training_step_runs_and_tracks_jax(fam):
     run with ``XLA_FLAGS=--xla_allow_excess_precision=false`` and ``-s``
     to see the reference's drift with every bf16 round trip of its code
     kept). Printed (``-s``): each leaf's two drifts."""
-    (tl, tg), (jl, jg) = _bf16_grads(ARCH, fam.jp)
-    print(f"bf16 loss: port {tl:.7g}, JAX {jl:.7g} ({tl / jl - 1:+.2e})")
-    assert abs(tl - jl) <= 2 ** -8 * abs(jl)
-    jcfg, tcfg = _data(fam.jm, seq=64)
-    want = _jflat_np(fam.jgrad(fam.jp, jdata.token_batch(jcfg, 0)))
-    got = port_grads(fam.tm, to_port(fam.jp), tdata.token_batch(tcfg, 0))
-    assert tg.keys() == jg.keys() == want.keys() == got.keys()
-    for k in sorted(want, key=lambda k: -np.abs(want[k]).max()):
-        scale = float(np.abs(want[k]).max()) or 1.0
-        port = float(np.abs(tg[k] - got[k]).max()) / scale
-        ref = float(np.abs(jg[k] - want[k]).max()) / scale
-        margin = max(BF16_MARGIN_SHARE * ref, BF16_MARGIN_FLOOR)
-        print(f"{k}: bf16 gradient error / max|g| of f32: port {port:.2e}, "
-              f"JAX {ref:.2e}")
-        assert port <= ref + margin, (k, port, ref)
+    check_bf16_grad_drift(ARCH, fam.jp)

@@ -4,7 +4,11 @@ SpC-Retrain runs of a reduced model (f32) in the port and in the JAX
 package, from weights the JAX package made and pruned (``pruned``:
 ``prune_blocks_for_plan`` at 0.6 on (8, 16) blocks), carried across as
 numpy. The tolerances and the ``_recording`` / ``_assert_params`` holds are
-the MoE training tests' (``test_torch_moe_train.py``)."""
+the MoE training tests' (``test_torch_moe_train.py``).
+
+``check_bf16_grad_drift`` holds a family's bf16 training gradients to the
+reference's; ``test_torch_rwkv_train.py`` and
+``test_torch_bf16_grad_drift.py`` (the other families) share it."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,6 +24,7 @@ import torch
 import torch.utils._python_dispatch
 
 from repro.checkpoint.checkpointer import Checkpointer as JaxCheckpointer
+from repro.configs import get_config as jax_config
 from repro.core import optimizers as jopt
 from repro.data import synthetic as jdata
 from repro.launch import serve as jax_serve
@@ -29,6 +34,7 @@ from repro.sparse import compress as jc
 from repro.train import loop as jloop
 from repro.train import step as jstep
 from repro.train.state import TrainState as JState
+from repro_torch.configs import get_config
 from repro_torch.core import masks, optimizers
 from repro_torch.core.tree import flatten_with_path, tree_map, unflatten_like
 from repro_torch.data import synthetic as tdata
@@ -45,6 +51,9 @@ from test_torch_train import _jflat_np
 from torch_parity import to_port
 
 GRAD_RTOL = 1e-4          # a leaf's gradient, of its largest |g|
+# a leaf's bf16 gradient drift: the reference's plus a quarter of it, and
+# at least one bf16 rounding of the leaf's largest |g|
+BF16_MARGIN_SHARE, BF16_MARGIN_FLOOR = 0.25, 2.0 ** -8
 LATER_RTOL = 1e-4         # grad_norm after a phase's first step
 RECURRENT = ("/rec/", "/tm/", "/cm/")
 
@@ -487,3 +496,93 @@ def check_no_dense_weight_grad(cfg, monkeypatch, seq: int = 40,
             trainable["bcsr_data"][path].shape)
     assert shapes.shapes and not shapes.shapes & dense_shapes, \
         shapes.shapes & dense_shapes
+
+
+def _bf16_models(arch, adjust, dtype):
+    jc_ = adjust(dataclasses.replace(jax_config(arch).reduced(),
+                                     compute_dtype=dtype))
+    tc_ = adjust(dataclasses.replace(get_config(arch).reduced(),
+                                     compute_dtype=dtype))
+    return jax_build(jc_), build(tc_, device="cpu")
+
+
+def _bf16_grads(jm, tm, jp, seq):
+    """(loss, {leaf: gradient}) of the training loss in bf16 in each
+    package, at the JAX params ``jp``: the f32 masters of rank >= 2 cast
+    to bf16, as both train steps cast them."""
+    jcfg, tcfg = _data(jm, seq=seq)
+
+    def jloss(p, b):
+        cast = jax.tree.map(lambda x: x.astype(jnp.bfloat16)
+                            if x.ndim >= 2 else x, p)
+        return jstep.make_loss_fn(jm)(cast, b)[0]
+
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(jp, jdata.token_batch(jcfg, 0))
+    tp = to_port(jp)
+    flat = flatten_with_path(tp)
+    leaves = [t.detach().clone().requires_grad_(True) for _, t in flat]
+    cast = tree_map(lambda t: t.to(torch.bfloat16) if t.dim() >= 2 else t,
+                    unflatten_like(tp, leaves))
+    tl, _ = tstep.make_loss_fn(tm)(cast, tdata.token_batch(tcfg, 0))
+    tg = torch.autograd.grad(tl, leaves, allow_unused=True)
+    return ((float(tl.detach()),
+             {"/".join(k): (torch.zeros_like(t) if g is None else g)
+              .float().numpy() for (k, _), g, t in zip(flat, tg, leaves)}),
+            (float(jl), {k: v.astype(np.float32)
+                         for k, v in _jflat_np(jg).items()}))
+
+
+def check_bf16_grad_drift(arch: str, jp, seq: int = 64,
+                          adjust=lambda cfg: cfg, norm: str = "max") -> dict:
+    """One bf16 loss-and-gradient of reduced ``arch`` (its config through
+    ``adjust`` in both packages) at the JAX params ``jp``, in each
+    package. The loss agrees with the JAX package's within 2^-8 relative
+    (one bf16 rounding). Two packages that round at different places do
+    not give the same bf16 gradients, so each package's bf16 gradient is
+    compared with its own f32 gradient at the same params: for every
+    leaf, the port's drift is held to the reference's plus max(a quarter
+    of it, 2^-8) (``test_torch_bf16_drift.py``'s rule for logits). The
+    drift is the largest |bf16 - f32| over the largest f32 |g| (``norm=
+    "max"``) or the l2 norm of bf16 - f32 over that of f32 (``"l2"``). A
+    bf16-only fault in the port, such as a product rounded to bf16 where
+    XLA, compiling the reference, keeps it in f32, shows as a larger
+    drift; run with ``XLA_FLAGS=--xla_allow_excess_precision=false`` to
+    see the reference's drift with every bf16 round trip of its code
+    kept. Printed (``-s``): each leaf's two drifts by both measures.
+    Returns {leaf: (port, reference)} by ``norm``."""
+    jm16, tm16 = _bf16_models(arch, adjust, "bfloat16")
+    jm32, tm32 = _bf16_models(arch, adjust, "float32")
+    (tl, tg), (jl, jg) = _bf16_grads(jm16, tm16, jp, seq)
+    print(f"{arch} bf16 loss: port {tl:.7g}, JAX {jl:.7g} ({tl / jl - 1:+.2e})")
+    assert abs(tl - jl) <= 2 ** -8 * abs(jl)
+    jcfg, tcfg = _data(jm32, seq=seq)
+    want = _jflat_np(jax.jit(jax.grad(
+        lambda p, b: jstep.make_loss_fn(jm32)(p, b)[0]))(
+            jp, jdata.token_batch(jcfg, 0)))
+    got = port_grads(tm32, to_port(jp), tdata.token_batch(tcfg, 0))
+    assert tg.keys() == jg.keys() == want.keys() == got.keys()
+
+    def drift(bf16, f32, kind):
+        if kind == "max":
+            return float(np.abs(bf16 - f32).max() / (np.abs(f32).max() or 1.0))
+        return float(np.linalg.norm(bf16 - f32) / (np.linalg.norm(f32) or 1.0))
+
+    def above(a, b):
+        return a > b + max(BF16_MARGIN_SHARE * b, BF16_MARGIN_FLOOR)
+
+    drifts, over = {}, []
+    for k in sorted(want, key=lambda k: -np.abs(want[k]).max()):
+        both = {kind: (drift(tg[k], got[k], kind), drift(jg[k], want[k], kind))
+                for kind in ("max", "l2")}
+        drifts[k] = both[norm]
+        # which package is above the other's rule, by each measure
+        flags = [f"{who} above by {kind}" for kind, (p, r) in both.items()
+                 for who, a, b in (("port", p, r), ("JAX", r, p))
+                 if above(a, b)]
+        print(f"{k}: bf16 gradient drift from f32, port / JAX: largest "
+              "|error| / largest |g| {:.2e} / {:.2e}, l2 {:.2e} / {:.2e}  {}"
+              .format(*both["max"], *both["l2"], "; ".join(flags)))
+        if above(*drifts[k]):
+            over.append((k, *drifts[k]))
+    assert not over, over
+    return drifts
