@@ -49,11 +49,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      --route least-loaded`` (N engine replicas, each a worker thread on
      its own CUDA stream, one copy of the weights) for N = 2 and 4 in bf16
      at full depth, beside the single engine, with the launch counters
-     held to the replicas' ticks; the mix through ``Router.build`` for N =
-     1, 2 and 4 unprofiled (at N = 1 in turn with one engine, for the
-     router's own cost; allocated device memory while serving held to N
-     ticks' activations), the live allocations at the N = 4 peak by stream and
-     by allocating line (the allocator's trace), and a run with two
+     held to the replicas' ticks; the mix's first 4 requests through
+     ``Router.build`` for N = 1, 2 and 4 unprofiled (at N = 1 in turn with
+     one engine, for the router's own cost; allocated device memory while
+     serving held to N ticks' activations), the live allocations at the
+     N = 4 peak by stream and by allocating line (the allocator's trace), and a run with two
      windows: the device busy share (the union of the device events'
      intervals, torch.profiler alone) and the launch counters held to the
      kernel-call profiler's counts (``--profile``'s); ``Router.build``
@@ -62,6 +62,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      fleet whose replica 0 fails after 4 tokens streams ``generate``'s
      tokens with contiguous indices, and the prefix route puts requests
      sharing a 4-page prefix on one replica, which hits its cache;
+ 7c. mesh: ``--mesh 2,2``, 4 ranks (one process each, spawned once)
+     sharing the card, their collectives through gloo, each rank holding
+     its part of the params (the compressed stores split by block rows)
+     and running the kernels on it, against the same runs with ``--mesh
+     none`` in this process: (a) ``launch/serve --sparse --ckpt-dir
+     --logits-out`` on a checkpoint of phase 5's model (each rank restores
+     its shard), bf16 at full depth (logits within 2% of the largest
+     |logit|, greedy tokens equal but at near ties) and f32 at 4 layers
+     (1e-4, tokens equal); (b) the same with ``--engine`` (tokens equal);
+     (c) per rank the spmm launches per pass (equal to one process's),
+     the compressed store bytes and the peak memory; (d) ``launch/train
+     --sparse`` at full width cut to 2 layers, f32, 5 SpC and 3 debias
+     steps from a planted checkpoint (losses within 1e-5 relative, stores
+     within 1% of their norm; each rank's spmm_t, SDDMM and prox_adam
+     launches); (e) olmoe-1b-7b's MoE layer at full width, f32, dense
+     experts, on mesh (1, 2) of the first two ranks: the expert-parallel
+     path against the single-program path;
   8. train kernels: the training kernels at smollm-360m's seven
      projection shapes (M = 512 rows, (8, 128) blocks at 0.9 block
      sparsity, a bf16 block store, f32 and bf16 activations): ``spmm_t``
@@ -340,10 +357,13 @@ PREFIX_LEN = 64           # shared by the prefix-cache run's 8 requests
 # ticks (width 32) and 5 decode ticks (width 1), near the run's 50 to 44.
 PROFILE_TICKS = (30, 42)
 # The router phase: the engine mix through N replicas (one worker thread
-# and CUDA stream each) at full depth in bf16. The fleet's streamed tokens
-# (of 512) mark two windows: ROUTER_BUSY_WINDOW, where torch.profiler alone
-# records the device (the busy share), and ROUTER_COUNT_WINDOW, where the
-# kernel-call profiler's counts are held to the launch counters.
+# and CUDA stream each) at full depth in bf16; the CLI runs serve the
+# whole mix, the Router.build runs its first ROUTER_REQUESTS requests (cut
+# from 16 to keep the script within its time limit). The fleet's streamed
+# tokens (of 128) mark two windows: ROUTER_BUSY_WINDOW, where
+# torch.profiler alone records the device (the busy share), and
+# ROUTER_COUNT_WINDOW, where the kernel-call profiler's counts are held to
+# the launch counters.
 # Router.build may grow device memory by the replicas' pools and at most
 # ROUTER_MEM_SLACK more (the allocator rounds each of a replica's 64 pool
 # tensors up to 512 bytes; 4 MiB is far above that); serving N replicas
@@ -351,8 +371,9 @@ PROFILE_TICKS = (30, 42)
 # ROUTER_MEM_SLACK. Failover fails replica 0 once it has streamed
 # ROUTER_FAIL_AFTER tokens.
 ROUTER_REPLICAS = (2, 4)
-ROUTER_BUSY_WINDOW = (128, 192)
-ROUTER_COUNT_WINDOW = (256, 320)
+ROUTER_REQUESTS = 4
+ROUTER_BUSY_WINDOW = (32, 48)
+ROUTER_COUNT_WINDOW = (64, 80)
 ROUTER_MEM_SLACK = 4 * 2**20
 ROUTER_TRACE_ENTRIES = 3_000_000     # the allocator trace of the N = 4 run
 ROUTER_FAIL_AFTER = 4
@@ -401,6 +422,26 @@ LOSS_RTOL = 1e-5
 # an element's step (up to lr). The two updates (final - initial) are held
 # to 1% of the update's norm instead.
 UPDATE_RTOL = 1e-2
+# The mesh phase: --mesh 2,2 (4 ranks, one process each, sharing the card;
+# their collectives go through gloo) against --mesh none. Serving: the
+# model phase's BlockCSR model from a checkpoint, MESH_GEN new tokens at
+# batch 4, bf16 at full depth and f32 at MESH_F32_LAYERS layers; the engine
+# on MESH_ENGINE_PROMPTS. Training: launch/train --sparse at full width cut
+# to MESH_TRAIN_LAYERS layers in f32, MESH_SPC SpC and MESH_DEBIAS debias
+# steps from a planted step-1 checkpoint. The expert-parallel MoE at
+# olmoe-1b-7b's width, one layer, f32, on mesh MESH_EP_SHAPE (the first 2
+# ranks), MESH_EP_BATCH tokens.
+MESH, MESH_SHAPE, MESH_RANKS = "2,2", (2, 2), 4
+MESH_GEN = 4
+MESH_F32_LAYERS = 4
+MESH_ENGINE_PROMPTS = (16, 48)
+MESH_TRAIN_LAYERS, MESH_SPC, MESH_DEBIAS = 2, 5, 3
+MESH_EP_SHAPE, MESH_EP_BATCH = (1, 2), 64
+# the expert-parallel y against the single-program y: 1e-4 of the largest
+# |y| (the reference's 1e-4 at its reduced width, where |y| is about 1; the
+# seed-0 init at full width gives |y| in the hundreds, and the two paths
+# sum each token's k expert outputs in another order)
+MESH_EP_RTOL = 1e-4
 # where the engine runs write their request file, metrics and traces
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
@@ -1734,6 +1775,9 @@ def router_phase(dev, formats, single) -> None:
             f" paged {r['counts']['paged_flash_fwd']}")
 
     phase("router: Router.build, unprofiled, N = 1, 2, 4, and one engine")
+    requests = requests[:ROUTER_REQUESTS]
+    log(f"the Router.build runs serve the mix's first {ROUTER_REQUESTS} "
+        f"requests ({ROUTER_REQUESTS * ENGINE_GEN} new tokens)")
     model = build(cfg, device=dev)
     params = formats["bcsr"]
     bare, routed = [], []
@@ -1866,6 +1910,327 @@ def router_phase(dev, formats, single) -> None:
         raise SystemExit(f"router prefix route: {per}")
     del fleet, kernel_f32, params, model
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the device mesh
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _cut_build(module, n_layers: int, f32: bool):
+    """``module.build`` (a launcher's) giving the architecture cut to
+    ``n_layers`` layers, and in f32 where ``f32``: the CLI then runs the
+    first layers of whatever params it is given."""
+    saved = module.build
+
+    def cut(arch, reduced=False, device=None):
+        m = saved(arch, reduced=reduced, device=device)
+        cfg = dataclasses.replace(m.cfg, n_layers=n_layers, **(
+            {"compute_dtype": "float32"} if f32 else {}))
+        return build(cfg, device=m.device)
+
+    module.build = cut
+    try:
+        yield
+    finally:
+        module.build = saved
+
+
+def _mesh_record(fn) -> tuple:
+    """``fn()`` with every launch counter set to 0 just before it and read
+    just after; (its result, {seconds, launches, peak GiB})."""
+    torch.cuda.synchronize()
+    _reset_all()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"s": time.perf_counter() - t0,
+                 "launches": {**_all_launches(), **ops.variant_launches},
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "before_gib": before / 2**30}
+
+
+def _mesh_ranks(spec: dict) -> None:
+    """The mesh phase's runs on each rank of one spawned 4-rank group: the
+    launchers' ``--mesh`` runs join it. Every record is gathered to rank
+    0, which writes them to ``spec["out"]``."""
+    import torch.distributed as dist
+    from repro_torch.distributed import parallel, sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe as moe_lib
+    recs: dict = {}
+
+    def run(tag, fn):
+        out, rec = _mesh_record(fn)
+        per = [None] * dist.get_world_size()
+        dist.all_gather_object(per, rec)
+        recs[tag] = per
+        return out
+
+    def tokens(out):
+        return [[int(t) for t in row] for row in out.tolist()]
+
+    res = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    res["a_bf16"] = tokens(run("a_bf16", lambda: serve.main(spec["a_bf16"])))
+    with _cut_build(serve, MESH_F32_LAYERS, f32=True):
+        res["a_f32"] = tokens(run("a_f32", lambda: serve.main(spec["a_f32"])))
+    out = run("b_engine", lambda: serve.main(spec["b_engine"]))
+    res["b_engine"] = _engine_tokens(out)
+    mesh = mesh_lib.make_host_mesh(*MESH_SHAPE)
+    with sharding.use_mesh(mesh):
+        local = Checkpointer(spec["ckpt"]).restore_compressed(mesh=mesh)
+    mine = {path: m.nbytes for path, m in iter_bcsr(local)}
+    per = [None] * dist.get_world_size()
+    dist.all_gather_object(per, mine)
+    res["c_store_bytes"] = per
+    res["c_axes"] = {path: mesh.layout[("bcsr", path)] for path in mine}
+    del local
+    with _cut_build(train, MESH_TRAIN_LAYERS, f32=True):
+        cp, hist_spc, hist_db, _ = run("d_train",
+                                       lambda: train.main(spec["d_train"]))
+    res["d_losses"] = [h["loss"] for h in hist_spc + hist_db]
+    if dist.get_rank() == 0:
+        torch.save({path: m.data.cpu() for path, m in iter_bcsr(cp)},
+                   spec["d_stores"])
+    del cp
+    torch.cuda.empty_cache()
+
+    # (e) the expert-parallel MoE at olmoe-1b-7b's width, one layer, on the
+    # first two ranks, against the single-program path on rank 0
+    ep = mesh_lib.make_host_mesh(*MESH_EP_SHAPE)
+    if ep is not None:
+        cfg = dataclasses.replace(get_config(MOE), n_layers=1,
+                                  compute_dtype="float32")
+        dev = ep.device
+        p = moe_lib.init_moe(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        x = torch.randn(MESH_EP_BATCH, cfg.d_model, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+        x = x.reshape(4, -1, cfg.d_model)
+        with sharding.use_mesh(ep), torch.inference_mode():
+            local = sharding.shard_params({"moe": p}, ep)["moe"]
+            hits = []
+            saved = moe_lib._apply_moe_ep
+
+            def counted(*a, **kw):
+                hits.append(1)
+                return saved(*a, **kw)
+            moe_lib._apply_moe_ep = counted
+            try:
+                y_ep, aux_ep = moe_lib.apply_moe(
+                    parallel.layer_view(local, "moe"), x, cfg)
+            finally:
+                moe_lib._apply_moe_ep = saved
+        if ep.rank == 0:
+            with torch.inference_mode():
+                y, aux = moe_lib.apply_moe(p, x, cfg, impl="gspmd")
+            res["e"] = {
+                "ep_path": len(hits),
+                "experts_per_rank": local["ewi"].shape[0],
+                "y_err": float((y_ep - y).abs().max()),
+                "y_max": float(y.abs().max()),
+                "lb_err": abs(float(aux_ep["load_balance"])
+                              - float(aux["load_balance"]))}
+        del p, local, x
+    torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        res["records"] = recs
+        Path(spec["out"]).write_text(json.dumps(res))
+
+
+def _engine_tokens(out: dict) -> list:
+    """An engine run's tokens, request by request."""
+    res = out["results"]
+    return [[int(t) for t in res[i]] for i in range(len(res))]
+
+
+def _mesh_counts(rec: dict) -> dict:
+    keys = ("spmm", "spmm_palette", "spmm_t", "bsr_sddmm", "prox_adam",
+            "paged_flash_fwd")
+    return {k: rec["launches"].get(k, 0) for k in keys}
+
+
+def mesh_phase(dev, cp) -> dict:
+    """``--mesh 2,2``: 4 ranks on the card (one process each, spawned once;
+    the collectives through gloo, as ranks that share a card take) serve
+    a compressed checkpoint of the serving phase's model and train, each
+    rank on its own shard, against the same runs in this process with
+    ``--mesh none``."""
+    phase(f"mesh: launch/serve and launch/train --mesh {MESH} on one card")
+    t_phase = time.perf_counter()
+    mdir = OUT_DIR / "mesh"
+    if mdir.exists():
+        import shutil
+        shutil.rmtree(mdir)
+    cdir = mdir / "serve_ckpt" / "compressed"
+    Checkpointer(str(cdir)).save(1, cp, extra={
+        "plan": dataclasses.asdict(cp.plan), "arch": ARCH, "reduced": False})
+    tdirs = {tag: mdir / f"train_{tag}" for tag in ("none", "mesh")}
+    for d in tdirs.values():
+        _plant_checkpoint(dev, d, n_layers=MESH_TRAIN_LAYERS)
+    req_file = mdir / "requests.json"
+    req_file.write_text(json.dumps(
+        [{"prompt_len": n, "gen": MESH_GEN} for n in MESH_ENGINE_PROMPTS]))
+    log(f"saved the compressed checkpoint and planted two {MESH_TRAIN_LAYERS}"
+        f"-layer train checkpoints in {time.perf_counter() - t_phase:.1f} s")
+
+    def argv(tag: str, mesh: str, **kw) -> dict:
+        serve_base = ["--arch", ARCH, "--sparse", "--ckpt-dir", str(cdir),
+                      "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                      "--gen", str(MESH_GEN), "--mesh", mesh]
+        return {
+            "a_bf16": serve_base + ["--logits-out",
+                                    str(mdir / f"a_bf16_{tag}.npy")],
+            "a_f32": serve_base + ["--logits-out",
+                                   str(mdir / f"a_f32_{tag}.npy")],
+            "b_engine": serve_base + ["--engine", "--requests", str(req_file),
+                                      *ENGINE_FLAGS],
+            "d_train": ["--arch", ARCH, "--sparse", "--steps",
+                        str(1 + MESH_SPC), "--debias-steps", str(MESH_DEBIAS),
+                        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                        "--lr", str(TRAIN_LR), "--compress",
+                        f"group_l1:{LAM}", "--block", *map(str, BLOCK),
+                        "--log-every", "1", "--ckpt-dir", str(tdirs[tag]),
+                        "--mesh", mesh]}
+
+    # the same runs in this process, --mesh none
+    single, srec = {}, {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        a = argv("none", "none")
+        out, srec["a_bf16"] = _mesh_record(lambda: serve.main(a["a_bf16"]))
+        single["a_bf16"] = out.tolist()
+        with _cut_build(serve, MESH_F32_LAYERS, f32=True):
+            out, srec["a_f32"] = _mesh_record(lambda: serve.main(a["a_f32"]))
+        single["a_f32"] = out.tolist()
+        out, srec["b_engine"] = _mesh_record(
+            lambda: serve.main(a["b_engine"]))
+        single["b_engine"] = _engine_tokens(out)
+        with _cut_build(train, MESH_TRAIN_LAYERS, f32=True):
+            (cp1, hs, hd, _), srec["d_train"] = _mesh_record(
+                lambda: train.main(a["d_train"]))
+        single["d_losses"] = [h["loss"] for h in hs + hd]
+    for line in buf.getvalue().splitlines():
+        if line.startswith(("generated", "engine:", "loss:")):
+            log(f"  --mesh none: {line}")
+    single_stores = {path: m.data for path, m in iter_bcsr(cp1)}
+    single_sparsity = _block_sparsity(cp1)
+    single_bytes = {path: m.nbytes for path, m in iter_bcsr(cp)}
+    del cp1
+    torch.cuda.empty_cache()
+    t_single = time.perf_counter() - t_phase
+
+    # the --mesh runs: one spawn of 4 ranks, each joined by the launchers
+    from repro_torch.launch import mesh as mesh_lib
+    spec = {**argv("mesh", MESH), "ckpt": str(cdir),
+            "out": str(mdir / "ranks.json"),
+            "d_stores": str(mdir / "d_stores.pt")}
+    t0 = time.perf_counter()
+    mesh_lib.run_ranks(_mesh_ranks, MESH_RANKS, "cuda", (spec,))
+    t_mesh = time.perf_counter() - t0
+    res = json.loads(Path(spec["out"]).read_text())
+    recs = res["records"]
+    log(f"{res['world']} ranks, backend {res['backend']} (ranks share the "
+        f"card); the --mesh none runs {t_single:.1f} s, the spawned ranks' "
+        f"runs {t_mesh:.1f} s")
+    for tag in ("a_bf16", "a_f32", "b_engine", "d_train"):
+        log(f"{tag}: one process {srec[tag]['s']:.1f} s, peak "
+            f"{srec[tag]['peak_gib']:.2f} GiB ({srec[tag]['before_gib']:.2f} "
+            f"allocated before the run), launches {_mesh_counts(srec[tag])}")
+        for r, rec in enumerate(recs[tag]):
+            log(f"  rank {r}: {rec['s']:.1f} s, peak {rec['peak_gib']:.2f} "
+                f"GiB, launches {_mesh_counts(rec)}")
+
+    # (a) prefill logits and greedy tokens, bf16 at full depth, f32 at 4
+    model = build(get_config(ARCH), device=dev)
+    for tag, rtol, atol in (("a_bf16", BF16_LOGITS_RTOL, None),
+                            ("a_f32", None, F32_LOGITS_ATOL)):
+        one = np.load(mdir / f"{tag}_none.npy")
+        got = np.load(mdir / f"{tag}_mesh.npy")
+        err = float(np.abs(got - one).max())
+        bound = rtol * float(np.abs(one).max()) if rtol else atol
+        same = res[tag] == single[tag]
+        log(f"(a) {tag}: prefill logits {got.shape}, max |mesh - one| "
+            f"{err:.3e} (bound {bound:.3e}; bit-equal "
+            f"{bool(np.array_equal(got, one))}), greedy tokens equal {same}")
+        if not np.isfinite(got).all() or err > bound:
+            raise SystemExit(f"(a) {tag}: logits off by {err}")
+        if not same:
+            if tag == "a_f32":
+                raise SystemExit("(a) f32: greedy tokens differ")
+            # bf16: held to a near tie of the one-process run, whose
+            # prompt is the CLI's first draw from seed 0
+            ckpt = Checkpointer(str(cdir)).restore_compressed(device=dev)
+            prompts = torch.randint(0, model.cfg.vocab, (BATCH, PROMPT),
+                                    generator=torch.Generator(
+                                        device=dev).manual_seed(0),
+                                    device=dev)
+            for row in range(BATCH):
+                _divergence_ok(model, ckpt, prompts[row], single[tag][row],
+                               res[tag][row], f"(a) {tag} row {row}")
+    # (b) the engine
+    log(f"(b) engine: {len(res['b_engine'])} requests, tokens equal to one "
+        f"process {res['b_engine'] == single['b_engine']}")
+    if res["b_engine"] != single["b_engine"]:
+        raise SystemExit("(b) engine tokens under the mesh differ")
+    # (c) per rank: spmm launches per pass (generate's MESH_GEN passes and
+    # the prefill of --logits-out), store bytes, peak memory
+    passes = MESH_GEN + 1
+    one_pp = srec["a_bf16"]["launches"]["spmm"] / passes
+    log(f"(c) spmm launches per pass: one process {one_pp}, ranks "
+        f"{[r['launches']['spmm'] / passes for r in recs['a_bf16']]}; "
+        f"compressed store bytes one process {sum(single_bytes.values())}, "
+        f"ranks {[sum(b.values()) for b in res['c_store_bytes']]}")
+    by_axis: dict = {}
+    for path, axis in res["c_axes"].items():
+        by_axis.setdefault(str(axis), []).append(path)
+    for axis, paths in sorted(by_axis.items()):
+        names = sorted(".".join(p.split("/")[-2:]) for p in paths)
+        ranks = [sum(b[p] for p in paths) for b in res["c_store_bytes"]]
+        log(f"  leaves split over {axis}: {names}; bytes one process "
+            f"{sum(single_bytes[p] for p in paths)}, ranks {ranks}")
+    model_split = by_axis.get("model", [])
+    half = [sum(b[p] for p in model_split) / max(sum(
+        single_bytes[p] for p in model_split), 1)
+        for b in res["c_store_bytes"]]
+    if any(r["launches"]["spmm"] != srec["a_bf16"]["launches"]["spmm"]
+           for r in recs["a_bf16"]) or not model_split or max(half) > 0.75:
+        raise SystemExit("(c) the ranks' spmm launches differ from one "
+                         "process's, or the model-split stores are not cut "
+                         f"in about half ({half})")
+    # (d) training: losses and stores, launches per rank
+    l1, lm = single["d_losses"], res["d_losses"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l1, lm))
+    stores = torch.load(spec["d_stores"])
+    srel = max(float((stores[p].to(dev) - single_stores[p]).norm()
+                     / single_stores[p].norm()) for p in single_stores)
+    log(f"(d) train: losses one process {[round(v, 6) for v in l1]}, mesh "
+        f"{[round(v, 6) for v in lm]}; max relative {rel:.3e} (bound "
+        f"{LOSS_RTOL}); stores after debias within {srel:.3e} of their norm "
+        f"(bound {UPDATE_RTOL}); block sparsity one process "
+        f"{single_sparsity[0]:.4f}")
+    for r, rec in enumerate(recs["d_train"]):
+        c = rec["launches"]
+        if not (c["spmm_t"] and c["bsr_sddmm"] and c["prox_adam"]):
+            raise SystemExit(f"(d) rank {r} launched {c}")
+    if rel > LOSS_RTOL or srel > UPDATE_RTOL:
+        raise SystemExit("(d) mesh training left the one-process run")
+    # (e) the expert-parallel MoE
+    e = res["e"]
+    bound = MESH_EP_RTOL * e["y_max"]
+    log(f"(e) {MOE}, one layer, f32, dense experts on mesh {MESH_EP_SHAPE}: "
+        f"expert-parallel path taken {e['ep_path']} time(s), "
+        f"{e['experts_per_rank']} experts a rank; max |y_ep - y| "
+        f"{e['y_err']:.3e} (|y| up to {e['y_max']:.3e}, bound {bound:.3e}); "
+        f"load balance off by {e['lb_err']:.3e}")
+    if e["ep_path"] != 1 or e["y_err"] > bound:
+        raise SystemExit("(e) the expert-parallel MoE left the "
+                         "single-program path")
+    wall = time.perf_counter() - t_phase
+    log(f"mesh phase {wall:.1f} s")
+    return {"records": recs, "single": srec, "wall": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -2102,12 +2467,16 @@ def _spread_norms(params, block, gen) -> None:
 
 def _plant_checkpoint(dev, ckpt_dir: Path, arch: str = ARCH, block=BLOCK,
                       lr: float = TRAIN_LR, lam: float = LAM,
-                      reduced: bool = False) -> None:
-    """A step-1 TrainState of ``arch`` whose blocks have spread norms
-    (``_spread_norms``), with the optimizer state ``launch/train --sparse``
-    builds, for the CLI to resume from."""
+                      reduced: bool = False, n_layers=None) -> None:
+    """A step-1 TrainState of ``arch`` (cut to ``n_layers`` where given)
+    whose blocks have spread norms (``_spread_norms``), with the optimizer
+    state ``launch/train --sparse`` builds, for the CLI to resume from."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = build(arch, reduced=reduced, device=dev).init(gen)
+    model = build(arch, reduced=reduced, device=dev)
+    if n_layers is not None:
+        model = build(dataclasses.replace(model.cfg, n_layers=n_layers),
+                      device=dev)
+    params = model.init(gen)
     _spread_norms(params, block, gen)
     opt = optimizers.prox_adam(lr, lam=lam)
     Checkpointer(str(ckpt_dir)).save(1, TrainState(
@@ -4366,6 +4735,7 @@ def main() -> int:
     paged_rows = paged_kernel_phase(dev)
     paged_launches, single = engine_phase(dev, formats)
     router_phase(dev, formats, single)
+    mesh_phase(dev, formats["bcsr"])
     paged_err = max(v["max_abs_err"] for v in paged_rows.values())
     _paged_row(table, "paged_flash_attention", paged_rows[PAGED_TABLE_ROW],
                paged_launches["bcsr"], paged_err, card)

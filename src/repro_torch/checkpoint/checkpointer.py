@@ -206,11 +206,16 @@ class Checkpointer:
         with open(os.path.join(self._path(step), "manifest.json")) as f:
             return json.load(f)
 
-    def restore(self, step: int, like: PyTree) -> PyTree:
+    def restore(self, step: int, like: PyTree, mesh=None) -> PyTree:
         """Restore into the structure of ``like`` (a ``TrainState``, a dict
         tree or a ``CompressedParams``): each tensor leaf comes back on the
         device and in the dtype of ``like``'s leaf, each int leaf as an
-        int."""
+        int. With a rank ``mesh`` each rank keeps only its part
+        (``distributed.sharding.shard_state``): the checkpoint holds whole
+        arrays, so any mesh shape restores it."""
+        if mesh is not None:
+            from repro_torch.distributed import sharding
+            return sharding.shard_state(self.restore(step, like), mesh)
         by_name = {e["name"]: e for e in self.manifest(step)["leaves"]}
         with np.load(os.path.join(self._path(step), "arrays.npz")) as npz:
             def build(node, prefix):
@@ -231,9 +236,15 @@ class Checkpointer:
             return build(like, "")
 
     def restore_compressed(self, step: Optional[int] = None,
-                           device=None) -> CompressedParams:
+                           device=None, mesh=None) -> CompressedParams:
         """The ``CompressedParams`` of a checkpoint, on ``device``, without
-        a template and without densifying a compressed leaf."""
+        a template and without densifying a compressed leaf. With a rank
+        ``mesh`` each rank gets only its part, on the mesh's device: the
+        whole model is read on the host and split there."""
+        if mesh is not None:
+            from repro_torch.distributed import sharding
+            return sharding.shard_params(
+                self.restore_compressed(step, device="cpu"), mesh)
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")

@@ -17,9 +17,10 @@ donates the old ones); ``update`` must run under ``torch.no_grad()``, as
 step ``z = p - eta*d`` goes through ``kernels/prox_adam``'s
 ``fused_update_leaf``, with the soft threshold inside when the prox is l1
 and the predicate holds; otherwise the path-aware or group-l1 prox runs on
-its result. That wrapper launches the kernel for a CUDA leaf and runs its
-plain version for a CPU leaf. ``prox_sgd`` has no kernel: its step is the
-plain ``direction`` arithmetic here.
+its result (under a rank mesh, on the whole leaf: gathered, thresholded,
+and this rank's part taken back). That wrapper launches the kernel for a
+CUDA leaf and runs its plain version for a CPU leaf. ``prox_sgd`` has no
+kernel: its step is the plain ``direction`` arithmetic here.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import prox as prox_lib
-from repro_torch.core.tree import flatten_with_path, keystr, tree_map
+from repro_torch.core.tree import flatten_with_path, keypath, keystr, tree_map
 from repro_torch.kernels.prox_adam import ops as fused_ops
 
 PyTree = Any
@@ -111,14 +112,12 @@ def _make(name: str, learning_rate, lam, prox_name: str = "l1",
                     apply_prox=regular and elementwise_l1)
                 z = p
                 if regular and not elementwise_l1:
-                    z = (prox_fn(p, tau, path=name) if path_aware
-                         else prox_fn(p, tau))
+                    z = _whole_leaf(prox_fn, p, tau, name, path_aware)
             else:
                 d, m2, v2 = direction_fn(g32, m, v, t)
                 z = p.float() - eta * d
                 if regular:
-                    z = (prox_fn(z, tau, path=name) if path_aware
-                         else prox_fn(z, tau))
+                    z = _whole_leaf(prox_fn, z, tau, name, path_aware)
                 if m2 is not m:
                     m.copy_(m2)
             if z is not p:
@@ -128,6 +127,20 @@ def _make(name: str, learning_rate, lam, prox_name: str = "l1",
         return params, ProxState(step=t, m=state.m, v=state.v)
 
     return ProxOptimizer(init=init, update=update, name=name)
+
+
+def _whole_leaf(prox_fn, z, tau, name: str, path_aware: bool):
+    """``prox_fn`` on the whole leaf: under a rank mesh a leaf split over
+    some axes is gathered first and this rank's part taken from the
+    result, so a block that a split cuts in two is thresholded by its
+    whole norm."""
+    from repro_torch.distributed import sharding
+    call = ((lambda t: prox_fn(t, tau, path=name)) if path_aware
+            else (lambda t: prox_fn(t, tau)))
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return call(z)
+    return sharding.on_whole_leaf(call, z, keypath(name), mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ predicates and ``sparse.compress.make_plan_prox`` parse.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Callable
 
 PyTree = Any
@@ -15,6 +16,12 @@ PyTree = Any
 
 def keystr(keys) -> str:
     return "".join(f"[{k!r}]" for k in keys)
+
+
+def keypath(path: str) -> str:
+    """The keystr "['layers']['b0_attn']['mlp']['wi']" as the path
+    "layers/b0_attn/mlp/wi"."""
+    return "/".join(re.findall(r"\['([^']+)'\]", path))
 
 
 def flatten_with_path(tree: PyTree) -> list:

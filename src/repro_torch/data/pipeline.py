@@ -3,8 +3,10 @@
 
 Each process feeds its shard of the global batch: ``ShardedBatcher``
 computes the process's slice from (process_index, process_count), which
-default to ``torch.distributed``'s rank and world size when a process
-group is initialised, and to 0 / 1 otherwise. ``Prefetcher`` overlaps host
+default to the data coordinate and data-parallel degree of the active
+rank mesh (``distributed.sharding.use_mesh``), else to
+``torch.distributed``'s rank and world size when a process group is
+initialised, and to 0 / 1 otherwise. ``Prefetcher`` overlaps host
 batch synthesis with device compute in a background thread. Batches stay
 on the host, as the reference's do: the consumer moves them to its device.
 """
@@ -17,9 +19,17 @@ from typing import Callable, Iterator, Optional
 import torch.distributed as dist
 
 from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+from repro_torch.distributed.sharding import current_mesh
 
 
 def _process_grid() -> tuple[int, int]:
+    """(shard index, shard count) of this process: its data coordinate
+    under a rank mesh (the ranks of one model group feed the same rows),
+    else its rank in the process group."""
+    mesh = current_mesh()
+    if mesh is not None:
+        return mesh.axis_index(mesh.batch_axes), mesh.axis_size(
+            mesh.batch_axes)
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1

@@ -46,6 +46,15 @@ the router's registry with every replica's (JSON, or Prometheus with a
 ``replica`` label), and one tracer and one profiler cover the fleet.
 Requests cross the router as the typed values of ``serve/api.py``, whose
 ``to_json`` / ``from_json`` are the wire format.
+
+``--mesh D,M`` serves on D * M ranks of a ("data", "model") mesh
+(``launch/mesh.py``): spawned here (a ``FileStore`` rendezvous), or
+joined under ``torchrun``. Each rank holds its part of the params
+(``distributed.sharding``): the compressed stores split by block rows,
+"model"-split ones computed split, FSDP ones gathered before use. The
+batch splits over "data", and ``generate`` and ``--engine`` compute what
+one process computes. ``--logits-out F`` saves the prefill logits
+(B, vocab) to F, with or without a mesh. Only rank 0 prints and writes.
 """
 from __future__ import annotations
 
@@ -53,7 +62,6 @@ import argparse
 import contextlib
 import json
 import os
-import sys
 import time
 
 import numpy as np
@@ -61,6 +69,8 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core.metrics import model_size_bytes
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model_zoo import build
 from repro_torch.obs.profile import Profiler
 from repro_torch.obs.trace import Tracer
@@ -68,26 +78,12 @@ from repro_torch.serve import api
 from repro_torch.serve.api import SamplingParams
 from repro_torch.serve.engine import EngineConfig, ServeEngine
 from repro_torch.serve.router import ROUTE_POLICIES, Router
-from repro_torch.serve.step import generate
+from repro_torch.serve.step import generate, prefill_logits
 from repro_torch.sparse.compress import (CompressionPlan, bcsr_equiv_size_bytes,
                                          compressed_size_bytes,
                                          compression_summary, format_size_report,
                                          init_compressed, iter_bcsr)
 from repro_torch.sparse.formats import PaletteBCSR
-
-_NOT_PORTED = {
-    "--mesh": "the multi-device slice (ROADMAP Queue 1 item 12)",
-    "--logits-out": "the multi-device slice (ROADMAP Queue 1 item 12)",
-}
-
-
-def _reject_not_ported(argv) -> None:
-    for a in argv:
-        flag = a.split("=", 1)[0]
-        if flag in _NOT_PORTED:
-            raise SystemExit(f"{flag} is not ported to repro_torch yet; it "
-                             f"comes with {_NOT_PORTED[flag]}")
-
 
 def _report_sizes(cp, dense_b: int) -> None:
     """Per-matrix breakdown + one-line byte report: ``bcsr`` is the fp32
@@ -96,6 +92,13 @@ def _report_sizes(cp, dense_b: int) -> None:
     print(compression_summary(cp))
     print(format_size_report(dense_b, bcsr_equiv_size_bytes(cp),
                              compressed_size_bytes(cp) if quantized else None))
+
+
+def _store_bytes(params) -> int:
+    """Bytes of the compressed stores (block values or codes, palettes,
+    indices) this process holds."""
+    return sum(m.nbytes for _, m in iter_bcsr(params)) \
+        if hasattr(params, "sparse") else 0
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -121,6 +124,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default="",
                     help="serve a compressed checkpoint (looks in "
                          "<dir>/compressed, then <dir>)")
+    ap.add_argument("--mesh", default="none",
+                    help="none | single | multi | DATA,MODEL: serve on the "
+                         "ranks of a device mesh (launch/mesh.py); 'D,M' "
+                         "spawns D*M ranks (or joins torchrun's), each "
+                         "holding its part of the params: compressed "
+                         "stores split by block rows, the batch split over "
+                         "data; tokens and logits match one process")
+    ap.add_argument("--logits-out", default="",
+                    help="save the prefill logits (B, vocab) to this .npy "
+                         "path (the sharded-vs-single parity check)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0,
                     help="top-k truncation when sampling (0 = off)")
@@ -210,15 +223,28 @@ def _profiler(args):
 
 
 def main(argv=None):
-    _reject_not_ported(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
     if args.quantize_bits and (not args.sparse or args.ckpt_dir):
         raise SystemExit(
             "--quantize-bits applies to the --sparse prune path only "
             "(checkpoints carry their own quantization; without --sparse "
             "nothing is compressed to quantize)")
+    shape = mesh_lib.parse_mesh_flag(args.mesh)
+    if shape is None:
+        return _serve(args)
+    if args.replicas > 1:
+        raise SystemExit(
+            "--replicas with --mesh is not supported: the router's "
+            "least-loaded dispatch depends on timing, so the ranks of a "
+            "mesh could route a request to different replicas")
+    return mesh_lib.launch(args.mesh, _serve, args.device, (args,))
 
-    model = build(args.arch, reduced=args.reduced, device=args.device)
+
+def _serve(args, mesh=None):
+    """The run of one process, or of one rank of ``mesh`` (a spawned
+    rank's result is dropped)."""
+    device = mesh.device if mesh is not None else args.device
+    model = build(args.arch, reduced=args.reduced, device=device)
     cfg, dev = model.cfg, model.device
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -237,7 +263,10 @@ def main(argv=None):
                 f"checkpoint was trained with arch={extra.get('arch')!r} "
                 f"reduced={extra.get('reduced')} but serve got "
                 f"arch={args.arch!r} reduced={args.reduced}")
-        params = ckpt.restore_compressed(latest, device=dev)
+        # under a mesh the whole model is read on the host, reported, and
+        # split there (what restore_compressed(mesh=) does)
+        params = ckpt.restore_compressed(
+            latest, device="cpu" if mesh is not None else dev)
         # dense bytes from shapes only: no dense model is allocated
         _report_sizes(params, model_size_bytes(model.init(device="meta")))
     elif args.sparse:
@@ -250,11 +279,21 @@ def main(argv=None):
         _report_sizes(params, model_size_bytes(model.init(device="meta")))
     else:
         params = model.init(gen)
+    if mesh is not None:
+        params = sharding.shard_params(params, mesh)
+        print(f"rank 0 holds {_store_bytes(params) / 2**20:.2f} MiB of "
+              f"compressed stores")
 
-    if args.engine:
-        return _run_engine(model, params, args)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    if args.logits_out:
+        logits = prefill_logits(model, params, prompt,
+                                args.prompt_len + args.gen)
+        if mesh_lib.is_main_rank():
+            np.save(args.logits_out, logits.float().cpu().numpy())
+        print(f"prefill logits -> {args.logits_out}")
+    if args.engine:
+        return _run_engine(model, params, args)
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p)
     profiler = _profiler(args)

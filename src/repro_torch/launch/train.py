@@ -36,6 +36,16 @@ either package serves:
 
 ``--quantize-bits 8|4`` palette-quantizes the block stores after debias;
 the checkpoint then stores, and serving loads, the ``PaletteBCSR`` form.
+
+``--mesh D,M`` trains on D * M ranks of a ("data", "model") mesh
+(``launch/mesh.py``; spawned here, or joined under ``torchrun``): each
+rank holds its part of the master params and moments
+(``distributed.sharding``), each data coordinate trains on its rows of
+the global batch, and the gradients are summed over the data axis, so the
+run computes what one process computes. Under ``--sparse`` the
+compressed pytree is placed again after compression and debias trains
+each rank's block-row shards. Only rank 0 prints and writes checkpoints
+and telemetry.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import json
 import logging
 import os
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -52,6 +63,8 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.optimizers import prox_adam, prox_rmsprop, prox_sgd
 from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+from repro_torch.distributed import parallel, sharding
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import frontends
 from repro_torch.models.model_zoo import build
 from repro_torch.sparse.compress import (CompressionPlan, compressed_size_bytes,
@@ -83,8 +96,13 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["prox_adam", "prox_rmsprop", "prox_sgd"])
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--mesh", default="none",
-                    help="only 'none': device meshes are not ported yet "
-                         "(ROADMAP Queue 1 item 12)")
+                    help="none | single | multi | DATA,MODEL: train on the "
+                         "ranks of a device mesh (launch/mesh.py); 'D,M' "
+                         "spawns D*M ranks (or joins torchrun's): master "
+                         "params split by the placement rules, the batch "
+                         "split over data, gradients summed over it; with "
+                         "--sparse the compressed pytree is placed again "
+                         "and debias trains the block-row shards")
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--telemetry-out", default="",
                     help="stream per-log-step training telemetry to this "
@@ -116,18 +134,43 @@ def main(argv=None):
     if args.quantize_bits and not args.sparse:
         raise SystemExit("--quantize-bits requires --sparse (the palette "
                          "quantizes the compressed BlockCSR block store)")
-    if args.mesh != "none":
-        raise SystemExit("--mesh is not ported to repro_torch yet; it comes "
-                         "with the multi-device slice (ROADMAP Queue 1 item 12)")
+    shape = mesh_lib.parse_mesh_flag(args.mesh)
+    if shape is None:
+        return _train(args)
+    mesh_lib.require_ranks(args.mesh)
+    n_data = int(np.prod(shape[:-1]))
+    if args.batch % n_data:
+        raise SystemExit(f"--batch {args.batch} does not split over the "
+                         f"{n_data} data shards of --mesh {args.mesh}")
+    return mesh_lib.launch(args.mesh, _train, args.device, (args,))
 
+
+class _NoTelemetry:
+    """The telemetry of a rank other than 0: takes records, writes none."""
+    n_records = 0
+
+    def emit(self, rec) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _train(args, mesh=None):
+    """The run of one process, or of one rank of ``mesh`` (a spawned
+    rank's result is dropped)."""
     logging.basicConfig(level=logging.INFO)
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    main_rank = mesh is None or mesh.rank == 0
     model = build(args.arch, reduced=args.reduced, device=device)
     cfg = model.cfg
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(gen)
     n_params = sum(p.numel() for p in metrics_lib.tree_leaves(params))
     print(f"arch={cfg.name} params={n_params:,}")
+    if mesh is not None:
+        # place the master params once; the steps keep the placement
+        params = sharding.shard_params(params, mesh)
 
     kind, lam = parse_compress(args.compress)
     opt_cls = {"prox_adam": prox_adam, "prox_rmsprop": prox_rmsprop,
@@ -156,6 +199,9 @@ def main(argv=None):
                 torch.Generator(device=device).manual_seed(step), cfg,
                 args.batch, args.seq)
             b = {"inputs": emb, "labels": b["labels"]}
+        if mesh is not None:
+            # this data coordinate's rows of the global batch
+            b = {k: parallel.batch_rows(v, mesh) for k, v in b.items()}
         return b
 
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
@@ -174,13 +220,16 @@ def main(argv=None):
     telemetry = None
     if args.telemetry_out:
         from repro_torch.obs.profile import TrainTelemetry
-        telemetry = TrainTelemetry(args.telemetry_out)
+        telemetry = (TrainTelemetry(args.telemetry_out) if main_rank
+                     else _NoTelemetry())
 
     if args.sparse:
         cp, hist_spc, hist_db, report = run_spc_retrain_pipeline(
             params, make_step, opt, opt_debias, batch_fn,
             spc_steps=args.steps, debias_steps=args.debias_steps, plan=plan,
             checkpointer=ckpt, log_every=args.log_every, telemetry=telemetry)
+        if mesh is not None:
+            cp = sharding.gather_params(cp, mesh)
         if args.quantize_bits:
             cp = quantize_compressed(cp, bits=args.quantize_bits)
             report["palette_bytes"] = compressed_size_bytes(cp)
@@ -191,7 +240,7 @@ def main(argv=None):
         print(compression_summary(cp))
         print(format_size_report(report["dense_bytes"], report["bcsr_bytes"],
                                  report.get("palette_bytes")))
-        if args.ckpt_dir:
+        if args.ckpt_dir and main_rank:
             cdir = os.path.join(args.ckpt_dir, "compressed")
             path = Checkpointer(cdir, keep_n=2).save(
                 args.steps + args.debias_steps, cp,
@@ -212,6 +261,8 @@ def main(argv=None):
     print("compression:", json.dumps(report, indent=1))
     if hist_spc:
         print(f"loss: {hist_spc[0]['loss']:.4f} -> {hist_spc[-1]['loss']:.4f}")
+    if mesh is not None:
+        state = sharding.gather_state(state, mesh)
     table = metrics_lib.layer_compression(state.params)
     print(metrics_lib.format_table(table, "layer-wise compression:"))
     if telemetry is not None:

@@ -13,7 +13,9 @@ saves a copy of the whole cache per step). They still return the cache.
 
 The q/k/v/o projections take an optional ``sparse`` dict of BlockCSR /
 PaletteBCSR weights ({"wq"|"wk"|"wv"|"wo": ...} in (out, in) layout) that
-run ``sparse_matmul`` instead of the einsum.
+run ``sparse_matmul`` instead of the einsum. Under a rank mesh q, k and v
+are computed split where their weights are (``distributed.parallel``);
+attention itself runs on the gathered heads.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.kernels.paged_attention import ops as paged_kops
 from repro_torch.kernels.paged_attention import ref as paged_kref
 from repro_torch.models.layers import (apply_norm, apply_rope, init_norm,
@@ -54,10 +57,18 @@ def _project_qkv(p: dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
 
     def proj(name, n_out_heads):
         if sparse and name in sparse:
-            y = sparse_ops.sparse_matmul(x.reshape(-1, x.shape[-1]),
-                                         sparse[name], backend)
+            m = sparse[name]
+            fn = lambda h: sparse_ops.sparse_matmul(  # noqa: E731
+                h, m, backend)
+            h = x.reshape(-1, x.shape[-1])
+            y = (fn(h) if parallel.split_dim(m) is None
+                 else parallel.col_parallel(h, fn))
             return y.reshape(b, s, n_out_heads, hd).to(dt)
-        return torch.einsum("bsd,dhk->bshk", x, p[name].to(dt))
+        w = p[name]
+        fn = lambda h: torch.einsum(  # noqa: E731
+            "bsd,dhk->bshk", h, w.to(dt))
+        return (fn(x) if parallel.split_dim(w) is None
+                else parallel.col_parallel(x, fn, dim=2))
 
     q = proj("wq", cfg.n_heads)
     k = proj("wk", cfg.n_kv_heads)

@@ -10,6 +10,11 @@ the config's compute dtype with the reference's precision at each product:
 ``apply_mlp`` and ``apply_head`` take an optional map of BlockCSR /
 PaletteBCSR weights in (out, in) layout; an entry there runs
 ``sparse_matmul`` instead of the dense product.
+
+Under a rank mesh a weight that ``distributed.parallel`` marks computed
+split gives this rank's slice of the product, gathered over the model
+group (``col_parallel``); a vocab-split embedding looks up its own rows
+and sums them over the group.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import parallel
 from repro_torch.sparse import ops as sparse_ops
 
 Tensor = torch.Tensor
@@ -78,7 +84,17 @@ def apply_embed(p: dict, tokens: Tensor, compute_dtype) -> Tensor:
     whole table and then gathers; gathering first and casting the rows
     gives the same numbers without touching the rest of the table."""
     emb = p["embedding"]
-    rows = torch.index_select(emb, 0, tokens.reshape(-1))
+    ids = tokens.reshape(-1)
+    if parallel.split_dim(emb) == 0:
+        # this rank's vocab rows: the others' tokens read a zero row, and
+        # the sum over the group adds exact zeros to each token's row
+        n = emb.shape[0]
+        local = ids - parallel.model_index() * n
+        mine = (local >= 0) & (local < n)
+        rows = torch.index_select(emb, 0, torch.where(mine, local, 0))
+        rows = parallel.sum_model(rows * mine[:, None].to(rows.dtype))
+    else:
+        rows = torch.index_select(emb, 0, ids)
     return rows.reshape(*tokens.shape, emb.shape[-1]).to(compute_dtype)
 
 
@@ -95,8 +111,10 @@ def _rounded_f32(w: Tensor, dtype) -> Tensor:
     stream behind the stream that wrote it."""
     if dtype == torch.float32:
         return w.float()
-    if w.requires_grad and torch.is_grad_enabled():
-        return w.to(dtype).float()          # training: no memo in the graph
+    if (w.requires_grad and torch.is_grad_enabled()) or w.is_inference():
+        # training: no memo in the graph; an inference tensor (a rank's
+        # gathered table, made anew each pass) keeps no version to key on
+        return w.to(dtype).float()
     key = (dtype, w._version)
     with _MEMO_LOCK:
         memo = getattr(w, "_repro_rounded_f32", None)
@@ -120,11 +138,15 @@ def apply_head(p: dict, x: Tensor, tie: bool, softcap: Optional[float],
     compressed head (vocab, d) runs ``sparse_matmul`` on f32 input."""
     if sparse_weights and "head" in sparse_weights:
         xs = x.reshape(-1, x.shape[-1]).float()
-        logits = sparse_ops.sparse_matmul(xs, sparse_weights["head"], backend)
+        w = sparse_weights["head"]
+        logits = _split_product(
+            xs, w, lambda h: sparse_ops.sparse_matmul(h, w, backend))
         logits = logits.reshape(*x.shape[:-1], -1)
     else:
-        w = _rounded_f32(p["embedding"] if tie else p["head"], x.dtype)
-        logits = x.float() @ (w.T if tie else w)
+        table = p["embedding"] if tie else p["head"]
+        w = _rounded_f32(table, x.dtype)
+        logits = _split_product(x.float(), table,
+                                lambda h: h @ (w.T if tie else w))
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
@@ -139,12 +161,24 @@ def apply_proj(p: dict, x: Tensor, name: str,
     in)) runs ``sparse_matmul`` instead: the dense-or-compressed dispatch
     of the RWKV time / channel mix and the RG-LRU block."""
     if sparse and name in sparse:
-        y = sparse_ops.sparse_matmul(x.reshape(-1, x.shape[-1]), sparse[name],
-                                     backend, f32)
+        m = sparse[name]
+        y = _split_product(x.reshape(-1, x.shape[-1]), m,
+                           lambda h: sparse_ops.sparse_matmul(h, m, backend,
+                                                              f32))
         y = y.reshape(*x.shape[:-1], -1)
         return y.float() if f32 else y.to(x.dtype)
     w = p[name].to(x.dtype)
-    return x.float() @ w.float() if f32 else x @ w
+    return _split_product(x, p[name], lambda h: h.float() @ w.float()
+                          if f32 else h @ w)
+
+
+def _split_product(x: Tensor, w, fn) -> Tensor:
+    """``fn(x)``, the product of x and the weight ``w``: gathered over the
+    model group when ``w`` is computed split (its output dim, the last of
+    the product)."""
+    if parallel.split_dim(w) is None:
+        return fn(x)
+    return parallel.col_parallel(x, fn)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,18 @@
 """Top-k MoE layer with capacity-based dispatch.
 
-Port of ``repro.models.moe``, the single-program (``gspmd``) path: the
+Port of ``repro.models.moe``. The single-program (``gspmd``) path: the
 router in f32, top-k gates renormalised, Switch-style aux losses, then
 capacity dispatch into an (E, cap, d) buffer, the expert FFN over the
-whole buffer, and the gated combine. The expert-parallel ``shard_map``
-path needs a device mesh and comes with ROADMAP Queue 1 item 12.
+whole buffer, and the gated combine. Under a rank mesh whose "model" axis
+divides E, dense experts take the expert-parallel (``shard_map``) path of
+the reference: each rank of a model group holds E / M experts (their
+"embed" dim gathered over "data"), dispatches only the choices routed to
+them at a per-data-shard capacity, and the outputs are summed over the
+group; the aux statistics are averaged over the batch axes. Compressed
+experts always take the single-program dispatch, their projections
+computed split by block rows (``distributed.parallel``), and under data
+parallelism that dispatch runs over the whole batch, gathered from every
+data shard, as the reference's does under GSPMD.
 
 Compressed experts (E-stacked BlockCSR / PaletteBCSR, one (out, in) slice
 per expert) run ``sparse_matmul`` on the 3-D buffer: one launch of the
@@ -33,13 +41,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import activation, truncated_normal_init
+from repro_torch.distributed import parallel
+from repro_torch.distributed.sharding import current_mesh
+from repro_torch.models.layers import (activation, apply_proj,
+                                       truncated_normal_init)
 from repro_torch.sparse import ops as sparse_ops
 
 Tensor = torch.Tensor
-# what the port's message names for the expert-parallel path
-_SHARD_MAP = ("the expert-parallel shard_map MoE path needs a device mesh; "
-              "it comes with the multi-device slice (ROADMAP Queue 1 item 12)")
 
 
 def init_moe(cfg: ModelConfig, gen=None, device=None) -> dict:
@@ -78,19 +86,29 @@ def _top_k(probs: Tensor, k: int) -> tuple[Tensor, Tensor]:
     return vals[:, :k], idx[:, :k]
 
 
-def _router_and_aux(router_w: Tensor, xt: Tensor, e: MoEConfig):
-    """Gates (t, k) renormalised, expert ids (t, k), and the aux losses
-    {load_balance, z_loss} of the f32 router on tokens xt (t, d)."""
+def _router_stats(router_w: Tensor, xt: Tensor, e: MoEConfig):
+    """Gates (t, k) renormalised, expert ids (t, k), and the statistics of
+    the aux losses (mean probs, top-1 share, mean squared logsumexp) of
+    the f32 router on tokens xt (t, d)."""
     logits = xt.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
     gate, expert_idx = _top_k(probs, e.top_k)
     gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
     me = probs.mean(0)
     ce = F.one_hot(expert_idx[:, 0], e.n_experts).float().mean(0)
-    aux = {"load_balance": e.n_experts * (me * ce).sum(),
-           "z_loss": e.router_z_loss * torch.logsumexp(logits, -1)
-           .square().mean()}
-    return gate, expert_idx, aux
+    z = torch.logsumexp(logits, -1).square().mean()
+    return gate, expert_idx, me, ce, z
+
+
+def _aux(me: Tensor, ce: Tensor, z: Tensor, e: MoEConfig) -> dict:
+    return {"load_balance": e.n_experts * (me * ce).sum(),
+            "z_loss": e.router_z_loss * z}
+
+
+def _router_and_aux(router_w: Tensor, xt: Tensor, e: MoEConfig):
+    """Gates, expert ids and the aux losses {load_balance, z_loss}."""
+    gate, expert_idx, me, ce, z = _router_stats(router_w, xt, e)
+    return gate, expert_idx, _aux(me, ce, z, e)
 
 
 def _positions(flat_e: Tensor, n_experts: int) -> Tensor:
@@ -116,6 +134,12 @@ def _dispatch(expert_idx: Tensor, n_experts: int, cap: int) -> Tensor:
                        torch.full_like(pos, n_experts * cap))
 
 
+def _shared_expert(p: dict, xt: Tensor, f) -> Tensor:
+    sp = p["shared"]
+    return apply_proj(sp, f(apply_proj(sp, xt, "wg"))
+                      * apply_proj(sp, xt, "wi"), "wo")
+
+
 def apply_moe(p: dict, x: Tensor, cfg: ModelConfig, impl: str = "auto",
               sparse: Optional[dict] = None,
               backend: str = "auto") -> tuple[Tensor, dict]:
@@ -124,12 +148,42 @@ def apply_moe(p: dict, x: Tensor, cfg: ModelConfig, impl: str = "auto",
     ``sparse`` maps expert projection names ("ewi", "ewg", "ewo") to
     E-stacked BlockCSR / PaletteBCSR weights; those run ``sparse_matmul``
     (with ``backend``) over the whole (E, cap, in) buffer. ``impl``:
-    'auto' and 'gspmd' run the single-program dispatch; 'shard_map' is not
-    ported."""
-    if impl == "shard_map":
-        raise NotImplementedError(_SHARD_MAP)
-    if impl not in ("auto", "gspmd"):
+    'gspmd' the single-program dispatch, 'shard_map' the expert-parallel
+    path (a rank mesh with a "model" axis), 'auto' the latter for dense
+    experts where a mesh's "model" axis divides E, as the reference
+    picks."""
+    if impl not in ("auto", "gspmd", "shard_map"):
         raise ValueError(f"unknown MoE impl {impl!r}")
+    mesh = current_mesh()
+    if sparse:
+        if impl == "shard_map":
+            raise ValueError("compressed (BCSR) experts serve through the "
+                             "gspmd dispatch; shard_map EP does not support "
+                             "sparse expert weights")
+        return _apply_moe_gspmd(p, x, cfg, sparse, backend)
+    if impl == "auto":
+        use_ep = (mesh is not None and "model" in mesh.shape
+                  and cfg.moe.n_experts % mesh.shape["model"] == 0)
+        impl = "shard_map" if use_ep else "gspmd"
+    if impl == "shard_map":
+        if mesh is None or "model" not in mesh.shape:
+            raise ValueError("the expert-parallel MoE path needs a rank mesh "
+                             "with a 'model' axis (distributed.sharding."
+                             "use_mesh)")
+        return _apply_moe_ep(p, x, cfg)
+    return _apply_moe_gspmd(p, x, cfg, None, backend)
+
+
+def _apply_moe_gspmd(p: dict, x: Tensor, cfg: ModelConfig,
+                     sparse: Optional[dict],
+                     backend: str) -> tuple[Tensor, dict]:
+    if parallel.batch_split():
+        # the dispatch and its capacity cover the whole batch, as under
+        # GSPMD: every data shard's rows, then this shard's rows back
+        whole = parallel.gather_batch(x)
+        with parallel.whole_batch():
+            y, aux = _apply_moe_gspmd(p, whole, cfg, sparse, backend)
+        return parallel.batch_rows(y), aux
     e = cfg.moe
     b, s, d = x.shape
     t, k, n_e = b * s, e.top_k, e.n_experts
@@ -150,8 +204,15 @@ def apply_moe(p: dict, x: Tensor, cfg: ModelConfig, impl: str = "auto",
     def emm(name: str, inp: Tensor) -> Tensor:
         """(E, cap, in) x per-expert (in, out) -> (E, cap, out) in dt."""
         if sparse and name in sparse:
-            return sparse_ops.sparse_matmul(inp, sparse[name], backend).to(dt)
-        return torch.bmm(inp, p[name].to(dt))
+            w = sparse[name]
+            fn = lambda h: sparse_ops.sparse_matmul(  # noqa: E731
+                h, w, backend).to(dt)
+        else:
+            w = p[name]
+            fn = lambda h: torch.bmm(h, w.to(dt))  # noqa: E731
+        if parallel.split_dim(w) is None:
+            return fn(inp)
+        return parallel.col_parallel(inp, fn)
 
     h = f(emm("ewg", buf)) * emm("ewi", buf)
     out_buf = emm("ewo", h)
@@ -163,8 +224,53 @@ def apply_moe(p: dict, x: Tensor, cfg: ModelConfig, impl: str = "auto",
     y = weighted.view(t, k, d).sum(1)
 
     if "shared" in p:
-        sp = p["shared"]
-        hs = f(xt @ sp["wg"].to(dt)) * (xt @ sp["wi"].to(dt))
-        y = y + hs @ sp["wo"].to(dt)
+        y = y + _shared_expert(p, xt, f)
     return y.reshape(b, s, d), aux
 
+
+def _apply_moe_ep(p: dict, x: Tensor, cfg: ModelConfig) -> tuple[Tensor,
+                                                                  dict]:
+    """The expert-parallel path (``repro.models.moe._apply_moe_shard_map``)
+    on this rank's experts and this data shard's tokens."""
+    e = cfg.moe
+    b, s, d = x.shape
+    t, k = b * s, e.top_k
+    dt = x.dtype
+    f = activation(cfg.act)
+    cap = _capacity(t, e)                   # this data shard's tokens
+    split = parallel.split_dim(p["ewi"]) == 0
+    e_loc = p["ewi"].shape[0]
+    col = parallel.model_index() if split else 0
+
+    xt = x.reshape(t, d)
+    gate, expert_idx, me, ce, z = _router_stats(p["router"], xt, e)
+    if split:
+        # each rank combines only its experts' outputs: the gradients of
+        # the gates and of the dispatched tokens are summed over the group
+        gate = parallel.sum_grad_model(gate)
+        xd = parallel.sum_grad_model(xt)
+    else:
+        xd = xt
+    flat_e = expert_idx.reshape(-1)
+    is_local = (flat_e // e_loc) == col
+    le = torch.where(is_local, flat_e % e_loc, torch.full_like(flat_e, e_loc))
+    pos = _positions(le, e_loc + 1)
+    keep = is_local & (pos < cap)
+    rows = torch.where(keep, le * cap + pos,
+                       torch.full_like(pos, e_loc * cap))
+    buf = xd.new_zeros((e_loc * cap + 1, d))
+    buf[rows] = xd.repeat_interleave(k, dim=0)
+    buf = buf[:e_loc * cap].view(e_loc, cap, d)
+
+    h = (f(torch.bmm(buf, p["ewg"].to(dt)))
+         * torch.bmm(buf, p["ewi"].to(dt)))
+    out_buf = torch.bmm(h, p["ewo"].to(dt))
+    out = torch.cat([out_buf.reshape(e_loc * cap, d), out_buf.new_zeros(1, d)])
+    weighted = out[rows] * (gate.reshape(-1) * keep).reshape(-1, 1).to(dt)
+    y = weighted.view(t, k, d).sum(1)
+    if split:
+        y = parallel.sum_model(y)
+    me, ce, z = (parallel.mean_batch(v) for v in (me, ce, z))
+    if "shared" in p:
+        y = y + _shared_expert(p, xt, f)
+    return y.reshape(b, s, d), _aux(me, ce, z, e)

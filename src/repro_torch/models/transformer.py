@@ -27,6 +27,12 @@ RG-LRU and RWKV projections, head) run ``sparse_matmul`` with the model's
 ``sparse_backend`` ('auto': the CUDA kernels for tensors on the card).
 Caches and engine pools are updated in place: attention writes its K/V
 into them, and a recurrent layer copies its new state over the old one.
+
+Under a rank mesh (``distributed.sharding.use_mesh``) the params are this
+rank's part (``shard_params``): each pass takes a view of every layer
+(``distributed.parallel``) that gathers its stored-split leaves and marks
+its computed-split ones; caches and pools hold every head on every rank
+of a model group, and the batch rows of this rank's data coordinate.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.models import attention, moe as moe_lib, rglru, rwkv6
 from repro_torch.models.layers import (apply_embed, apply_head, apply_mlp,
                                        apply_norm, init_embed, init_mlp,
@@ -202,24 +209,32 @@ class Model:
         """Token ids (B, S), or precomputed frontend embeddings (B, S, d)."""
         if inputs.dim() == 3:
             return inputs.to(self.cdt)
-        return apply_embed(dense["embed"], inputs, self.cdt)
+        return apply_embed(parallel.layer_view(dense["embed"], "embed"),
+                           inputs, self.cdt)
 
     def _layers(self, dense, sparse, cache=None):
         """Yield (kind, layer params, compressed layer weights, layer cache)
         for every layer in order: the stacked ones, then the remainder."""
         n = self.cfg.n_super_blocks
-        p_all = _unbind(dense["layers"], n)
-        sp_all = _unbind((sparse or {}).get("layers", {}), n)
+        view = parallel.layer_view
+        p_all = _unbind(parallel.stacked_view(dense["layers"], "layers"), n)
+        sp_all = _unbind(parallel.stacked_view(
+            (sparse or {}).get("layers", {}), "layers"), n)
         sp_rem = (sparse or {}).get("rem", {})
         for i in range(n):
             p_i, sp_i = p_all[i], sp_all[i]
             c_i = _index(cache["layers"], i) if cache is not None else {}
             for key in p_i:
-                yield (key.split("_", 1)[1], p_i[key], sp_i.get(key) or {},
+                path = f"layers/{key}"
+                yield (key.split("_", 1)[1],
+                       view(p_i[key], path, stacked=True),
+                       view(sp_i.get(key), path, stacked=True) or {},
                        c_i.get(key))
         for key, p in dense.get("rem", {}).items():
             c = cache["rem"][key] if cache is not None else None
-            yield key.split("_", 1)[1], p, sp_rem.get(key) or {}, c
+            path = f"rem/{key}"
+            yield (key.split("_", 1)[1], view(p, path),
+                   view(sp_rem.get(key), path) or {}, c)
 
     def _layer(self, kind: str, p: dict, x: Tensor, sp: dict, mode: str,
                cache: Optional[dict] = None, positions=None, pos=None,
@@ -316,10 +331,13 @@ class Model:
     def head(self, params, x: Tensor) -> Tensor:
         dense, sparse = _split_params(params)
         cfg = self.cfg
-        x = apply_norm(dense["final_norm"], x, cfg.norm)
-        hp = ({"embedding": dense["embed"]["embedding"]} if cfg.tie_embeddings
-              else {"head": dense["head"]})
-        sw = {"head": sparse["head"]} if sparse and "head" in sparse else None
+        view = parallel.layer_view
+        x = apply_norm(view(dense["final_norm"], "final_norm"), x, cfg.norm)
+        hp = ({"embedding": view(dense["embed"]["embedding"],
+                                 "embed/embedding")} if cfg.tie_embeddings
+              else {"head": view(dense["head"], "head")})
+        sw = ({"head": view(sparse["head"], "head")}
+              if sparse and "head" in sparse else None)
         return apply_head(hp, x, cfg.tie_embeddings, cfg.logit_softcap,
                           sparse_weights=sw, backend=self.sparse_backend)
 

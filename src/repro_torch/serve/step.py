@@ -4,6 +4,11 @@ Port of ``repro.serve.step``. ``params`` may be a raw param tree or a
 ``CompressedParams``; every compressed projection then runs the spmm
 kernels. Sampling draws from a ``torch.Generator``; sampled tokens are not
 comparable with the JAX package's, greedy tokens are.
+
+Under a rank mesh (``distributed.sharding.use_mesh``) ``generate`` and
+``prefill_logits`` run each data coordinate on its rows of the batch
+(the whole batch where the data axes do not divide it) and gather the
+rows, so every rank returns the whole result.
 """
 from __future__ import annotations
 
@@ -11,6 +16,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed import parallel
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.models.transformer import Model
 from repro_torch.serve.api import SamplingParams
 
@@ -74,11 +81,47 @@ def make_decode_step(model: Model,
     return decode_step
 
 
+def _data_parallel(batch: int) -> bool:
+    """Whether a batch of ``batch`` rows splits over the mesh's batch
+    axes."""
+    mesh = current_mesh()
+    if mesh is None:
+        return False
+    n = mesh.axis_size(mesh.batch_axes)
+    return n > 1 and batch % n == 0
+
+
+def _sharded(fn, rows: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """``fn(rows, ...)`` on this data coordinate's rows, gathered."""
+    if not _data_parallel(rows.shape[0]):
+        return fn(rows, *args, **kw)
+    mesh = current_mesh()
+    with parallel.data_parallel():
+        out = fn(parallel.batch_rows(rows), *args, **kw)
+    return parallel.all_gather_cat(out, 0, mesh.groups["batch"])
+
+
+def prefill_logits(model: Model, params, prompt: torch.Tensor,
+                   cache_len: int) -> torch.Tensor:
+    """The (B, vocab) f32 logits at the last prompt position of one
+    prefill into a fresh cache of ``cache_len`` positions."""
+    def run(rows):
+        with torch.inference_mode():
+            cache = model.init_cache(rows.shape[0], cache_len)
+            return model.prefill(params, rows, cache)[0]
+    return _sharded(run, prompt)
+
+
 def generate(model: Model, params, prompt: torch.Tensor, steps: int,
              sampling: Optional[SamplingParams] = None,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Batched generation: one prefill of the whole prompt, then
     ``steps - 1`` decode steps. Returns (B, steps) int32 tokens."""
+    return _sharded(_generate, prompt, model, params, steps, sampling,
+                    generator)
+
+
+def _generate(prompt, model, params, steps, sampling, generator):
     sampler = make_sampler(sampling)
     decode = make_decode_step(model, sampling)
     b, s = prompt.shape

@@ -72,9 +72,9 @@ class CompressionPlan:
     overrides:    ((path_substring, (br, bc)), ...), first match wins.
     quantize_bits: None keeps fp BlockCSR; 8 or 4 emits PaletteBCSR.
     quantize_overrides: ((path_substring, bits), ...), bits 0 keeps fp.
-    slot_multiple: pad every slot count up to a multiple of this (the
-                  reference derives it from a device mesh; the port has no
-                  mesh yet, so None means 1).
+    slot_multiple: pad every slot count up to a multiple of this (None:
+                  the lcm of the active rank mesh's axis sizes, or 1
+                  without a mesh, as the reference derives it).
     """
     block: tuple[int, int] = (8, 128)
     min_sparsity: float = 0.5
@@ -244,7 +244,7 @@ def _pad_stack(ms: list, plan: CompressionPlan, lead_shape: tuple,
         return None
     # an all-zero slice gives n_blocks == 0 (only the pad slot): a valid
     # empty BCSR, and padding it alongside the others only appends zeros
-    mult = max(int(plan.slot_multiple or 1), 1)
+    mult = max(int(plan.slot_multiple or _mesh_slot_multiple()), 1)
     n_slots = max(m.data.shape[0] for m in ms)
     n_slots = -(-n_slots // mult) * mult
     jmax = max(m.gather_idx.shape[1] for m in ms)
@@ -253,6 +253,14 @@ def _pad_stack(ms: list, plan: CompressionPlan, lead_shape: tuple,
     if ms[0].nbytes >= dense_nbytes:
         return None                           # dense fallback: no byte win
     return _stack(ms, tuple(lead_shape)) if len(lead_shape) else ms[0]
+
+
+def _mesh_slot_multiple() -> int:
+    """The lcm of the active rank mesh's axis sizes (1 without a mesh), as
+    the reference pads slot counts under a mesh."""
+    from repro_torch.distributed.sharding import current_mesh
+    mesh = current_mesh()
+    return int(np.lcm.reduce(list(mesh.shape.values()))) if mesh else 1
 
 
 def _placeholder(t: torch.Tensor, n_stack: int) -> torch.Tensor:

@@ -11,6 +11,13 @@ Construction (``dense_to_bcsr``) runs on the host in numpy and gives the
 same tables as the JAX package, entry for entry. The formats hold torch
 tensors and move with ``.to(device)``.
 
+``split_rows`` cuts a (stacked) BlockCSR / PaletteBCSR into contiguous
+ranges of block rows, each a self-contained store with its own tables,
+which the kernels run on unchanged (a device mesh's computed-split
+leaves); ``join_rows`` puts such shards back together on the device,
+differentiably in the block store, and ``compact_rows`` renumbers a
+joined store's slots as ``dense_to_bcsr`` numbers them.
+
 ``CSR`` (``dense_to_csr`` / ``csr_to_dense``) is the paper's elementwise
 CSR, which the checkpointer stores sparse dense leaves in and the size
 accounting counts; ``bcsr_density`` is a BlockCSR's resident share of its
@@ -304,6 +311,233 @@ class PaletteBCSR(_TensorFields):
 
 def is_bcsr(x) -> bool:
     return isinstance(x, (BlockCSR, PaletteBCSR))
+
+
+# ---------------------------------------------------------------------------
+# Block-row shards (a device mesh's split along the output)
+# ---------------------------------------------------------------------------
+
+def _store_name(m) -> str:
+    return "codes" if isinstance(m, PaletteBCSR) else "data"
+
+
+def _lead_shape(m) -> tuple:
+    return tuple(m.gather_nnz.shape[:-1])
+
+
+def _split_one(m, n: int) -> list:
+    """Block-row shards of one (unstacked) store, unpadded; numpy tables,
+    the store sliced as a tensor on its own device."""
+    R = m.gather_idx.shape[0]
+    rn = R // n
+    br = m.block[0]
+    rp = m.row_ptr.cpu().numpy().astype(np.int64)
+    g_idx = m.gather_idx.cpu().numpy()
+    g_blk = m.gather_blk.cpu().numpy()
+    g_nnz = m.gather_nnz.cpu().numpy()
+    t_idx = m.gather_t_idx.cpu().numpy()
+    t_blk = m.gather_t_blk.cpu().numpy()
+    t_nnz = m.gather_t_nnz.cpu().numpy()
+    col = m.col_idx.cpu().numpy()
+    jt = t_idx.shape[1]
+    t_valid = np.arange(jt)[None, :] < t_nnz[:, None]
+    store = getattr(m, _store_name(m))
+    out = []
+    for j in range(n):
+        r0, r1 = j * rn, (j + 1) * rn
+        lo, hi = int(rp[r0]), int(rp[r1])
+        slots = np.concatenate([[0], np.arange(lo + 1, hi + 1)])
+        blk = g_blk[r0:r1]
+        blk = np.where(blk > 0, blk - lo, 0).astype(np.int32)
+        # the transposed tables keep the entries of rows r0..r1 in order
+        mine = t_valid & (t_idx >= r0) & (t_idx < r1)
+        order = np.argsort(~mine, axis=1, kind="stable")
+        keep = np.take_along_axis(mine, order, 1)
+        ti = np.where(keep, np.take_along_axis(t_idx, order, 1) - r0, 0)
+        tb = np.where(keep, np.take_along_axis(t_blk, order, 1) - lo, 0)
+        rows = min(rn * br, m.shape[0] - r0 * br)
+        fields = dict(
+            col_idx=torch.from_numpy(col[slots].astype(np.int32)),
+            row_ptr=torch.from_numpy((rp[r0:r1 + 1] - lo).astype(np.int32)),
+            gather_idx=torch.from_numpy(np.ascontiguousarray(g_idx[r0:r1])),
+            gather_blk=torch.from_numpy(blk),
+            gather_nnz=torch.from_numpy(np.ascontiguousarray(g_nnz[r0:r1])),
+            gather_t_idx=torch.from_numpy(ti.astype(np.int32)),
+            gather_t_blk=torch.from_numpy(tb.astype(np.int32)),
+            gather_t_nnz=torch.from_numpy(mine.sum(1).astype(np.int32)))
+        fields = {k: v.to(m.gather_idx.device) for k, v in fields.items()}
+        fields[_store_name(m)] = store[torch.as_tensor(slots,
+                                                       device=store.device)]
+        out.append(dataclasses.replace(m, shape=(rows, m.shape[1]),
+                                       n_blocks=hi - lo, **fields))
+    return out
+
+
+def _pad_any(m, n_slots: int, jmax: int, jmax_t: int):
+    """``pad_bcsr`` for either format (a palette store pads its codes)."""
+    if isinstance(m, BlockCSR):
+        return pad_bcsr(m, n_slots, jmax, jmax_t)
+    padded = pad_bcsr(m.dequantize(), n_slots, jmax, jmax_t)
+    return dataclasses.replace(
+        m, codes=_pad_rows(m.codes, n_slots, 0),
+        **{f: getattr(padded, f) for f in (
+            "col_idx", "gather_idx", "gather_blk", "gather_t_idx",
+            "gather_t_blk")}, n_blocks=n_slots - 1)
+
+
+def _stack_formats(ms: list, lead: tuple):
+    first = ms[0]
+    fields = {f.name: torch.stack([getattr(m, f.name) for m in ms]).reshape(
+        lead + tuple(getattr(first, f.name).shape))
+        for f in dataclasses.fields(first)
+        if isinstance(getattr(first, f.name), Tensor)}
+    return dataclasses.replace(first, **fields)
+
+
+def split_rows(m, n: int) -> list:
+    """``n`` shards of ``m`` by contiguous block rows (``n`` must divide
+    the block-row count). Each shard is a self-contained BlockCSR /
+    PaletteBCSR of logical shape (its rows, in): its own ``row_ptr`` and
+    ``col_idx``, its rows' gather tables and its block columns' transposed
+    tables, with each row's blocks in the original order, so a kernel
+    sums every output element over the same blocks in the same order as on
+    the whole store. Stacked (layer / expert) stores are split slice by
+    slice; every shard of every slice is padded to one slot count and to
+    the whole store's gather width, so the shards stack and gather alike.
+    A palette leaf keeps its palette whole."""
+    R = m.block_grid[0]
+    if R % n:
+        raise ValueError(f"{R} block rows do not split into {n} shards")
+    lead = _lead_shape(m)
+    slices = [m.map(lambda t, i=i: t[i]) for i in np.ndindex(*lead)] \
+        if lead else [m]
+    parts = [_split_one(s, n) for s in slices]          # [slice][shard]
+    flat = [p for ps in parts for p in ps]
+    n_slots = max(getattr(p, _store_name(p)).shape[0] for p in flat)
+    jmax = m.gather_idx.shape[-1]
+    jmax_t = max(max(p.gather_t_idx.shape[1] for p in flat), 1)
+    shards = []
+    for j in range(n):
+        ms = [_pad_any(parts[i][j], n_slots, jmax, jmax_t)
+              for i in range(len(slices))]
+        rows = ms[0].shape
+        ms = [dataclasses.replace(x, shape=rows) for x in ms]
+        shards.append(_stack_formats(ms, lead) if lead else ms[0])
+    return shards
+
+
+def _offset(t: Tensor, valid: Tensor, off: int) -> Tensor:
+    return torch.where(valid, t + off, torch.zeros_like(t))
+
+
+def join_rows(shards: list, tables=None):
+    """The store ``split_rows`` cut into ``shards``, on their device.
+
+    The block store is the pad slot followed by each shard's slots past
+    its own pad, so shard ``j``'s slot ``s`` becomes ``1 + j * (S - 1) +
+    s - 1``; the gather tables follow, and the transposed tables merge each
+    block column's entries shard by shard. Slots that padding added stay
+    in the store, unreferenced (``compact_rows`` drops them). The store is
+    joined with ``torch.cat``, so a gradient reaches each shard's slots.
+    ``tables``, the result of an earlier join of shards with the same
+    tables, is reused as it is (the tables of a trained store never
+    change)."""
+    first = shards[0]
+    name = _store_name(first)
+    stores = [getattr(s, name) for s in shards]
+    store = torch.cat([stores[0][..., :1, :, :]]
+                      + [s[..., 1:, :, :] for s in stores], dim=-3)
+    if tables is None:
+        tables = join_tables(shards)
+    return dataclasses.replace(first, **tables, **{name: store})
+
+
+def join_tables(shards: list) -> dict:
+    """Every field of ``join_rows(shards)`` but the store and the palette
+    (index and gather tables, ``shape``, ``n_blocks``)."""
+    first = shards[0]
+    n = len(shards)
+    s_pad = getattr(first, _store_name(first)).shape[-3]
+    rn = first.gather_idx.shape[-2]
+    jt = first.gather_t_idx.shape[-1]
+    g_blk, t_idx, t_blk, t_ok, row_ptr = [], [], [], [], [first.row_ptr]
+    for j, s in enumerate(shards):
+        off = j * (s_pad - 1)
+        g_blk.append(_offset(s.gather_blk, s.gather_blk > 0, off))
+        ok = (torch.arange(jt, device=s.gather_t_nnz.device)
+              < s.gather_t_nnz[..., None])
+        t_ok.append(ok)
+        t_idx.append(_offset(s.gather_t_idx, ok, j * rn))
+        t_blk.append(_offset(s.gather_t_blk, ok, off))
+        if j:
+            row_ptr.append(s.row_ptr[..., 1:] + off)
+    ok = torch.cat(t_ok, -1)
+    order = torch.sort((~ok).to(torch.int8), dim=-1, stable=True).indices
+    keep = torch.gather(ok, -1, order)
+
+    def merged(parts):
+        t = torch.gather(torch.cat(parts, -1), -1, order)
+        return torch.where(keep, t, torch.zeros_like(t))
+
+    col = torch.cat([first.col_idx[..., :1]]
+                    + [s.col_idx[..., 1:] for s in shards], -1)
+    return dict(
+        col_idx=col, row_ptr=torch.cat(row_ptr, -1),
+        gather_idx=torch.cat([s.gather_idx for s in shards], -2),
+        gather_blk=torch.cat(g_blk, -2),
+        gather_nnz=torch.cat([s.gather_nnz for s in shards], -1),
+        gather_t_idx=merged(t_idx), gather_t_blk=merged(t_blk),
+        gather_t_nnz=sum(s.gather_t_nnz for s in shards),
+        shape=(sum(s.shape[0] for s in shards), first.shape[1]),
+        n_blocks=n * (s_pad - 1))
+
+
+def compact_rows(m):
+    """``m`` with its slots renumbered in row-major order of the blocks
+    its gather tables reference (those of ``dense_to_bcsr``): the slots a
+    join left unreferenced go, and a stacked store is padded back to one
+    slot count across its slices. Host-side; for checkpoints and tests."""
+    lead = _lead_shape(m)
+    slices = [m.map(lambda t, i=i: t[i]) for i in np.ndindex(*lead)] \
+        if lead else [m]
+    name = _store_name(m)
+    out = []
+    for s in slices:
+        nnz = s.gather_nnz.cpu().numpy()
+        blk = s.gather_blk.cpu().numpy()
+        idx = s.gather_idx.cpu().numpy()
+        used = np.concatenate([blk[r, :nnz[r]] for r in range(len(nnz))]
+                              + [np.zeros(0, blk.dtype)]).astype(np.int64)
+        remap = np.zeros(getattr(s, name).shape[0], np.int64)
+        remap[used] = np.arange(1, len(used) + 1)
+        t_blk = s.gather_t_blk.cpu().numpy()
+        rp = np.concatenate([[0], np.cumsum(nnz)]).astype(np.int32)
+        cols = np.concatenate([idx[r, :nnz[r]] for r in range(len(nnz))]
+                              + [np.zeros(0, idx.dtype)])
+        dev = s.gather_idx.device
+        store = getattr(s, name)
+        fields = {
+            name: store[torch.as_tensor(np.concatenate([[0], used]),
+                                        device=store.device)],
+            "col_idx": torch.from_numpy(np.concatenate(
+                [[0], cols]).astype(np.int32)).to(dev),
+            "row_ptr": torch.from_numpy(rp).to(dev),
+            "gather_blk": torch.from_numpy(
+                remap[blk].astype(np.int32)).to(dev),
+            "gather_t_blk": torch.from_numpy(
+                remap[t_blk].astype(np.int32)).to(dev)}
+        jt = max(int(s.gather_t_nnz.max()) if s.gather_t_nnz.numel() else 1,
+                 1)
+        fields["gather_t_idx"] = s.gather_t_idx[..., :jt]
+        fields["gather_t_blk"] = fields["gather_t_blk"][..., :jt]
+        out.append(dataclasses.replace(s, n_blocks=len(used), **fields))
+    if not lead:
+        return out[0]
+    n_slots = max(getattr(x, name).shape[0] for x in out)
+    jmax = max(x.gather_idx.shape[-1] for x in out)
+    jmax_t = max(x.gather_t_idx.shape[-1] for x in out)
+    return _stack_formats([_pad_any(x, n_slots, jmax, jmax_t) for x in out],
+                          lead)
 
 
 # ---------------------------------------------------------------------------

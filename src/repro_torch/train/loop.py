@@ -13,8 +13,11 @@
     stores (and the dense residue) train, the weight gradient reaches them
     through ``sparse_matmul``'s SDDMM backward at the resident slots.
 
-There is no device-mesh branch: meshes are not ported (ROADMAP Queue 1
-item 12).
+Under a rank mesh (``distributed.sharding.use_mesh``) the state holds
+this rank's part: checkpoints gather it and rank 0 writes them in the
+JAX package's format, a resume gives each rank its part again, reports
+and telemetry read the whole params, and SpC-Retrain compresses the whole
+model and places the compressed pytree again before debias.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.optimizers import ProxOptimizer
+from repro_torch.distributed import sharding
 from repro_torch.sparse.compress import (CompressionPlan, compress_params,
                                          compressed_size_bytes,
                                          split_trainable)
@@ -64,6 +68,19 @@ class StragglerWatchdog:
                             step, dt, med)
 
 
+def _whole(tree):
+    """The whole tree of a rank's part under a mesh (every rank calls)."""
+    mesh = sharding.current_mesh()
+    return tree if mesh is None else sharding.gather_state(tree, mesh)
+
+
+def _save(checkpointer, state) -> None:
+    mesh = sharding.current_mesh()
+    whole = _whole(state)
+    if mesh is None or mesh.rank == 0:
+        checkpointer.save(int(state.step), whole)
+
+
 def train_loop(train_step: Callable, state: TrainState,
                batch_fn: Callable[[int], dict], loop_cfg: LoopConfig,
                checkpointer=None,
@@ -81,7 +98,8 @@ def train_loop(train_step: Callable, state: TrainState,
         latest = checkpointer.latest_step()
         if latest is not None and latest > start:
             log.info("resuming from checkpoint step %d", latest)
-            state = checkpointer.restore(latest, state)
+            state = checkpointer.restore(latest, state,
+                                         mesh=sharding.current_mesh())
             start = int(state.step)
 
     watchdog = StragglerWatchdog(loop_cfg.straggler_factor)
@@ -99,14 +117,14 @@ def train_loop(train_step: Callable, state: TrainState,
             if telemetry is not None:
                 rec = {"phase": phase, **metrics}
                 if extra_fn is not None:
-                    rec.update(extra_fn(state.params))
+                    rec.update(extra_fn(_whole(state.params)))
                 telemetry.emit(rec)
         watchdog.record(step, time.perf_counter() - t0)
         if checkpointer is not None and (step + 1) % loop_cfg.ckpt_every == 0:
-            checkpointer.save(int(state.step), state)
+            _save(checkpointer, state)
 
     if checkpointer is not None:
-        checkpointer.save(int(state.step), state)
+        _save(checkpointer, state)
     return state, history
 
 
@@ -128,7 +146,7 @@ def run_spc_pipeline(params, make_train_step: Callable[..., Callable],
     state, hist_spc = train_loop(make_train_step(opt_spc), state, batch_fn,
                                  cfg, checkpointer, telemetry=telemetry,
                                  phase="spc", extra_fn=extra_fn)
-    report = {"spc": metrics_lib.total_compression(state.params)}
+    report = {"spc": metrics_lib.total_compression(_whole(state.params))}
 
     hist_db: list[dict] = []
     if debias_steps:
@@ -140,7 +158,8 @@ def run_spc_pipeline(params, make_train_step: Callable[..., Callable],
         state, hist_db = train_loop(make_train_step(opt_debias), state,
                                     batch_fn, cfg, None, telemetry=telemetry,
                                     phase="debias", extra_fn=extra_fn)
-        report["debias"] = metrics_lib.total_compression(state.params)
+        report["debias"] = metrics_lib.total_compression(
+            _whole(state.params))
     if telemetry is not None:
         telemetry.emit({"phase": "report", **report})
     return state, hist_spc, hist_db, report
@@ -169,11 +188,16 @@ def run_spc_retrain_pipeline(params, make_train_step: Callable,
     state, hist_spc = train_loop(make_train_step(opt_spc), state, batch_fn,
                                  cfg, checkpointer, telemetry=telemetry,
                                  phase="spc", extra_fn=extra_fn)
-    report = {"spc": metrics_lib.total_compression(state.params)}
+    whole = _whole(state.params)
+    report = {"spc": metrics_lib.total_compression(whole)}
 
-    cp = compress_params(state.params, plan)
+    cp = compress_params(whole, plan)
     report["bcsr_bytes"] = compressed_size_bytes(cp)
-    report["dense_bytes"] = metrics_lib.model_size_bytes(state.params)
+    report["dense_bytes"] = metrics_lib.model_size_bytes(whole)
+    del whole
+    mesh = sharding.current_mesh()
+    if mesh is not None:
+        cp = sharding.shard_params(cp, mesh)
     if telemetry is not None:
         telemetry.emit({"phase": "compress",
                         "bcsr_bytes": report["bcsr_bytes"],

@@ -11,6 +11,14 @@ log steps only, so a step does not wait for the device.
 Mixed precision as in the reference: the f32 master leaves of rank >= 2
 are cast once per step to the config's compute dtype, and the gradients
 w.r.t. the cast copies reach the f32 masters unchanged.
+
+Under a rank mesh (``distributed.sharding.use_mesh``) the params are this
+rank's part and the batch this data coordinate's rows. The loss is the
+mean over the whole batch: each rank differentiates its share (its rows'
+mean over the data-parallel degree), the leaves split over the batch axes
+have their gradients summed by the backward of their gather, and every
+other leaf's gradient is summed over the batch axes here. The gradient
+norm counts each replicated leaf once.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ import torch.utils.checkpoint
 
 from repro_torch.core.optimizers import ProxOptimizer
 from repro_torch.core.tree import flatten_with_path, tree_map, unflatten_like
+from repro_torch.distributed import parallel
+from repro_torch.distributed.sharding import current_mesh, leaf_spec
 from repro_torch.train.losses import next_token_loss
 from repro_torch.train.state import TrainState
 
@@ -95,11 +105,16 @@ def make_train_step(model, opt: ProxOptimizer, microbatches: int = 1,
         flat = flatten_with_path(params)
         leaves = [p.detach().requires_grad_(True) for _, p in flat]
         work = unflatten_like(params, leaves)
-        with torch.enable_grad():
+        mesh = current_mesh()
+        dp = mesh.axis_size(mesh.batch_axes) if mesh is not None else 1
+        with torch.enable_grad(), parallel.data_parallel():
             loss, metrics = loss_fn(cast_compute(work), batch)
-            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+            gs = torch.autograd.grad(loss / dp if dp > 1 else loss, leaves,
+                                     allow_unused=True)
         gs = [torch.zeros_like(p) if g is None else g
               for p, g in zip(leaves, gs)]
+        if dp > 1:
+            metrics = {k: _batch_mean(v, mesh) for k, v in metrics.items()}
         return unflatten_like(params, gs), metrics
 
     def compute_grads(params, batch):
@@ -118,9 +133,13 @@ def make_train_step(model, opt: ProxOptimizer, microbatches: int = 1,
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         grads, metrics = compute_grads(state.params, batch)
         with torch.no_grad():
-            gl = [g for _, g in flatten_with_path(grads)]
-            grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                       for g in gl))
+            mesh = current_mesh()
+            if mesh is None:
+                gl = [g for _, g in flatten_with_path(grads)]
+                grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                           for g in gl))
+            else:
+                grad_norm = _reduce_grads(grads, mesh)
             params, opt_state = opt.update(grads, state.opt_state,
                                            state.params, mask=state.mask)
         metrics = dict(metrics, grad_norm=grad_norm)
@@ -128,6 +147,41 @@ def make_train_step(model, opt: ProxOptimizer, microbatches: int = 1,
                           mask=state.mask, step=state.step + 1), metrics
 
     return train_step
+
+
+def _batch_mean(v: torch.Tensor, mesh) -> torch.Tensor:
+    v = v.detach().clone()
+    torch.distributed.all_reduce(v, group=mesh.groups["batch"])
+    return v / mesh.axis_size(mesh.batch_axes)
+
+
+def _split_size(spec, mesh) -> int:
+    n = 1
+    for axes in spec:
+        if axes is not None:
+            n *= mesh.axis_size(axes)
+    return n
+
+
+def _reduce_grads(grads, mesh) -> torch.Tensor:
+    """Sum over the batch axes the gradient of every leaf that is not
+    split over them (in place), and return the global gradient norm: each
+    rank's share of a leaf's squared norm over the number of ranks that
+    hold the same part."""
+    batch = set(mesh.batch_axes)
+    world = mesh.size
+    total = None
+    for keys, g in flatten_with_path(grads):
+        spec = leaf_spec(mesh, "/".join(keys), g)
+        split = {a for axes in spec if axes is not None
+                 for a in ((axes,) if isinstance(axes, str) else axes)}
+        if mesh.axis_size(mesh.batch_axes) > 1 and not split & batch:
+            torch.distributed.all_reduce(g, group=mesh.groups["batch"])
+        sq = torch.sum(torch.square(g.float())) * (
+            _split_size(spec, mesh) / world)
+        total = sq if total is None else total + sq
+    torch.distributed.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def make_eval_step(model) -> Callable:

@@ -30,8 +30,10 @@ from repro.models import moe as jmoe
 from repro.models.model_zoo import build as jax_build
 from repro.serve import api as japi
 from repro.serve import engine as jengine
+from repro_torch.distributed.sharding import use_mesh
 from repro_torch.kernels.bsr_spmm import ops as kops
 from repro_torch.kernels.bsr_spmm import ref as kref
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import moe as tmoe
 from repro_torch.models.model_zoo import build
 from repro_torch.serve import api
@@ -233,10 +235,28 @@ def test_dense_experts_train_through_autograd():
 
 
 def test_shard_map_impl_names_item_12():
-    _, tcfg, _, _, tp, _ = _moe_params("olmoe-1b-7b", "dense", None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmoe.apply_moe(tp, torch.zeros(1, 2, tcfg.d_model), tcfg,
-                       impl="shard_map")
+    """The expert-parallel path: it needs a rank mesh; on a one-rank mesh
+    (no collective runs) its dispatch, at one data shard's capacity,
+    equals the single-program path's, dropped tokens included; compressed
+    experts keep the single-program dispatch, as in the reference."""
+    _, tcfg, _, _, moe_p, _ = _moe_params("olmoe-1b-7b", "dense", None)
+    x = torch.randn(2, 8, tcfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    with pytest.raises(ValueError, match="needs a rank mesh"):
+        tmoe.apply_moe(moe_p, x, tcfg, impl="shard_map")
+    one = mesh_lib.Mesh(shape={"data": 1, "model": 1}, rank=0,
+                        coords={"data": 0, "model": 0}, groups={},
+                        device=torch.device("cpu"), backend="none")
+    with torch.no_grad():
+        y, aux = tmoe.apply_moe(moe_p, x, tcfg, impl="gspmd")
+        with use_mesh(one):
+            y_ep, aux_ep = tmoe.apply_moe(moe_p, x, tcfg)
+    torch.testing.assert_close(y_ep, y, atol=1e-6, rtol=0)
+    for k in aux:
+        torch.testing.assert_close(aux_ep[k], aux[k])
+    with pytest.raises(ValueError, match="gspmd dispatch"):
+        tmoe.apply_moe(moe_p, x, tcfg, impl="shard_map",
+                       sparse={"ewi": object()})
 
 
 # ---------------------------------------------------------------------------

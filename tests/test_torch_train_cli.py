@@ -137,9 +137,17 @@ def test_dense_spc_cli_runs(tmp_path, capsys):
 
 
 def test_cli_rejects_mesh_and_defaults_to_cuda():
-    with pytest.raises(SystemExit, match="Queue 1 item 12"):
-        train.main(["--mesh", "2,2", "--device", "cpu"])
+    """--mesh takes none | single | multi | DATA,MODEL; a global batch the
+    data axis does not split, or a mesh the world cannot fill, exits with
+    a message (tests/test_torch_mesh.py trains on a 2,2 mesh)."""
+    with pytest.raises(SystemExit, match="none|single|multi|DATA,MODEL"):
+        train.main(["--mesh", "2x2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="does not split over the 2 data"):
+        train.main(["--mesh", "2,2", "--batch", "3", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="needs 256 devices"):
+        train.main(["--mesh", "single", "--device", "cpu"])
     assert train._parser().parse_args([]).device == "cuda"
+    assert train._parser().parse_args([]).mesh == "none"
 
 
 def test_jax_train_state_resumes_in_port(tmp_path):
