@@ -145,11 +145,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      128 with QK-norm, 64 experts of d_ff 1024, top-8, vocab 50,304): seed-0
      weights pruned at 0.9 on (8, 128) blocks, built on the card by
      ``init_compressed``, then palette-8 and palette-4; the expert launch
-     (``ops.spmm_experts`` / ``spmm_palette_experts``: the forward kernels
-     with the expert on the grid's z axis) on layer 0's three projections
-     at M = 1, 8, 16 (decode kernel) and 40 (tile kernel), bf16 and f32 x,
-     each held to its plain version and timed beside it, ``torch.bmm`` on
-     the densified weight, 64 single-expert launches and its bound;
+     (``ops.spmm_experts`` / ``spmm_palette_experts``: the expert forward
+     of ``csrc/bsr_spmm_experts.cu``, the expert on the grid's z axis) on
+     layer 0's three projections at M = 1, 8, 16 (decode form) and 40
+     (tile form), bf16 and f32 x, every row computed, each held to its
+     plain version and timed beside it, ``torch.bmm`` on the densified
+     weight, 64 single-expert launches (M = 8) and its bound; at M = 8 and
+     40, bf16 x, the launch on the rows layer 0's router fills with M
+     random tokens (the MoE layer's counts), held to the plain version
+     with the same counts, beside its routed bound;
      ``generate`` and the engine through the serving CLI from BlockCSR,
      palette-8 and palette-4 in bf16, with 113 spmm launches a forward (4
      attention projections and 3 expert launches per layer, and the head)
@@ -521,6 +525,14 @@ MOE = "olmoe-1b-7b"
 MOE_M = (1, 8, 16, 40)
 MOE_TIMED_CALLS = 30
 MOE_YARDSTICK_CALLS = 5
+# the 64 single-expert launches, timed beside the expert launch at this M
+# only (their times at the other M stand in PERF.md)
+MOE_SINGLES_M = 8
+# the expert launch on the rows a router fills: at these M, bf16 x, each
+# expert's count of M random tokens routed by layer 0's router (the
+# capacity factor E / top_k makes the buffer M rows an expert)
+MOE_ROUTED_M = (8, 40)
+MOE_ROUTED_SEED = 24
 # its f32 checks run the first 2 of 16 layers (the same weights)
 MOE_F32_LAYERS = 2
 # a router near tie: the k-th minus the (k+1)-th prob of some token below
@@ -864,9 +876,10 @@ def _device_rows(prof) -> tuple:
     return sum(r[0] for r in rows) / 1e3, rows
 
 
-# the spmm kernels of csrc/bsr_spmm.cu by the names the profiler shows
+# the spmm kernels of csrc/bsr_spmm.cu and csrc/bsr_spmm_experts.cu by the
+# names the profiler shows
 SPMM_KERNELS = (("decode spmm", "decode_fwd"), ("tile spmm", "bsr_tile_fwd"),
-                ("spmm_t", "bsr_tile_bwd"))
+                ("expert spmm", "bsr_experts_fwd"), ("spmm_t", "bsr_tile_bwd"))
 
 
 def _log_profile(what: str, wall: float, dev_s: float, rows, top: int,
@@ -909,17 +922,16 @@ def _held_calls(what: str):
     forward = sparse_ops._forward
     errs = []
 
-    def held(x, w, backend, f32=False):
-        y = forward(x, w, backend, f32)
+    def held(x, w, backend, f32=False, rows=None):
+        y = forward(x, w, backend, f32, rows)
         if backend == "cuda":
             palette = isinstance(w, PaletteBCSR)
             if x.dim() == 3:                 # an MoE layer's experts
-                plain = (ref.spmm_palette_experts_fwd_ref if palette
-                         else ref.spmm_experts_fwd_ref)
+                want = (ref.spmm_palette_experts_fwd_ref if palette
+                        else ref.spmm_experts_fwd_ref)(x, w, rows)
             else:
-                plain = (ref.spmm_palette_fwd_ref if palette
-                         else ref.spmm_fwd_ref)
-            want = plain(x, w)
+                want = (ref.spmm_palette_fwd_ref if palette
+                        else ref.spmm_fwd_ref)(x, w)
             errs.append(float((y - want).abs().max()))
             if not torch.allclose(y, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
                 raise SystemExit(f"{what}: kernel call {len(errs)} (x "
@@ -2619,8 +2631,8 @@ def _dx_taps(sink: list):
     """Record dx of every ``sparse_matmul``, in the order of the backward."""
     orig = sparse_ops.sparse_matmul
 
-    def tapped(x, w, backend="auto", f32=False):
-        return orig(_Tap.apply(x, sink), w, backend, f32)
+    def tapped(x, w, backend="auto", f32=False, rows=None):
+        return orig(_Tap.apply(x, sink), w, backend, f32, rows)
 
     sparse_ops.sparse_matmul = tapped
     try:
@@ -3158,21 +3170,73 @@ def _moe_bound(m_rows, w, x_dtype, bits):
     return bound + (_ops_bound(nbytes, flops, torch.bfloat16)[0],)
 
 
+def _moe_routed_bound(counts, m_rows, w, x_dtype, bits):
+    """``_moe_bound`` for the launch with each expert's occupied rows
+    ``counts`` ((E,), on the host): the resident blocks, table entries and
+    palette of the experts that hold a token, their occupied X rows, their
+    Y rows (all m_rows of each: the rows past a count are written as
+    zeros) and the products on occupied rows only."""
+    br, bc = w.block
+    held = counts > 0
+    n_res = w.gather_nnz.sum(1).cpu().numpy()
+    k_in, n_out = w.shape[1], w.shape[0]
+    elt = w.data.element_size() if bits is None else bits / 8
+    blk_b = int(n_res[held].sum()) * br * bc * elt
+    pal_b = 0 if bits is None else int(held.sum()) * (1 << bits) * 4
+    tab_b = int(n_res[held].sum()) * 8 + int(held.sum()) * w.gather_nnz.shape[1] * 4
+    x_b = int(counts.sum()) * k_in * torch.finfo(x_dtype).bits // 8
+    y_b = int(held.sum()) * m_rows * n_out * 4
+    flops = 2 * int((counts * n_res).sum()) * br * bc
+    store = w.data.dtype if bits is None else torch.float32
+    nbytes = x_b + blk_b + pal_b + tab_b + y_b
+    bound = _ops_bound(nbytes, flops, x_dtype, store)
+    return bound + (_ops_bound(nbytes, flops, torch.bfloat16)[0],)
+
+
+def _moe_routed_counts(dev, cp, cfg) -> dict:
+    """{M: (E,) int32 counts on the card} for MOE_ROUTED_M: the embeddings
+    of M random token ids (seed MOE_ROUTED_SEED) through layer 0's router
+    and the MoE dispatch (``moe._dispatch``) at capacity M."""
+    from repro_torch.models import moe as moe_lib
+    gen = torch.Generator(device=dev).manual_seed(MOE_ROUTED_SEED)
+    router = cp.dense["layers"]["b0_attn"]["moe"]["router"][0]
+    emb = cp.dense["embed"]["embedding"]
+    out = {}
+    for m_rows in MOE_ROUTED_M:
+        ids = torch.randint(0, cfg.vocab, (m_rows,), generator=gen, device=dev)
+        _, expert_idx, _ = moe_lib._router_and_aux(router, emb[ids], cfg.moe)
+        _, counts = moe_lib._dispatch(expert_idx, cfg.moe.n_experts, m_rows)
+        out[m_rows] = counts
+        host = counts.cpu()
+        log(f"{MOE}: layer 0's router over {m_rows} random tokens: "
+            f"{int((host == 0).sum())} of {cfg.moe.n_experts} experts hold "
+            f"0 rows, the largest count {int(host.max())} (capacity "
+            f"{m_rows}); counts {host.tolist()}")
+    return out
+
+
 def _moe_expert_rows(dev, formats) -> dict:
     """Kernel-table rows 1e / 2e: the expert launch (``spmm_experts`` /
     ``spmm_palette_experts``, the kernel M picks) on layer 0's ewi, ewg and
-    ewo, all 64 experts, at M = 1, 8, 16 (decode kernel) and 40 (the
-    engine's prefill tick's capacity; tile kernel), bf16 and f32 x, the
-    f32 store, palette-8 and palette-4. Each call held to the plain
-    version (a loop of the single-matrix plain version over the experts)
-    at KERNEL_ATOL / KERNEL_RTOL, and timed beside the plain version,
-    ``torch.bmm`` of x in f32 on the densified f32 (E, K, N) weight (the
-    library yardstick, which the port never calls), for information the
-    bf16 ``torch.bmm`` on the bf16-rounded weight, the same work as 64
-    single-expert launches, and the bound. The two ``torch.bmm`` take x
-    in f32 and in bf16 whatever its dtype, so they are timed once for
-    each M and serve both x dtypes' rows."""
+    ewo, all 64 experts, at M = 1, 8, 16 (decode form) and 40 (the
+    engine's prefill tick's capacity; tile form), bf16 and f32 x, the f32
+    store, palette-8 and palette-4, every row of each expert's buffer
+    computed (no counts: the kernel table's rows 1e / 2e). Each call held to the
+    plain version (a loop of the single-matrix plain version over the
+    experts) at KERNEL_ATOL / KERNEL_RTOL, and timed beside the plain
+    version, ``torch.bmm`` of x in f32 on the densified f32 (E, K, N)
+    weight (the library yardstick, which the port never calls), for
+    information the bf16 ``torch.bmm`` on the bf16-rounded weight, at
+    MOE_SINGLES_M the same work as 64 single-expert launches, and the
+    bound. The two ``torch.bmm`` take x in f32 and in bf16 whatever its
+    dtype, so they are timed once for each M and serve both x dtypes'
+    rows. Then the routed rows (key (fmt, proj, M, "routed")): at
+    MOE_ROUTED_M, bf16 x, the launch with the counts of
+    ``_moe_routed_counts``, held to the plain version with the same counts
+    and to exact zeros past each count, timed beside that plain version,
+    with the routed bound and the full one."""
     gen = torch.Generator(device=dev).manual_seed(4)
+    routed = _moe_routed_counts(dev, formats["bcsr"], get_config(MOE))
     rows = {}
     for fmt, bits in (("bcsr", None), ("pal8", 8), ("pal4", 4)):
         name = {"bcsr": "bsr_spmm_experts", "pal8": "bsr_spmm_palette8_experts",
@@ -3221,19 +3285,57 @@ def _moe_expert_rows(dev, formats) -> dict:
                            "max_abs_err": err, "atol": KERNEL_ATOL,
                            "rtol": KERNEL_RTOL,
                            "ms": time_ms(fn, sets, MOE_TIMED_CALLS),
-                           "singles_ms": time_ms(singles, sets,
-                                                 MOE_YARDSTICK_CALLS),
                            "plain_ms": time_ms(plain, sets[:1], 1),
                            **bmm_ms}
+                    if m_rows == MOE_SINGLES_M:
+                        row["singles_ms"] = time_ms(singles, sets,
+                                                    MOE_YARDSTICK_CALLS)
                     row.update(zip(("bound_ms", "bound_by", "bytes", "flops",
                                     "bound_bf16_ms"),
                                    _moe_bound(m_rows, w, x_dtype, bits)))
                     log(json.dumps(row))
                     rows[(fmt, proj, m_rows, x_dtype)] = row
+                    if m_rows in routed and x_dtype == torch.bfloat16:
+                        rows[(fmt, proj, m_rows, "routed")] = _routed_row(
+                            row, fn, plain, sets, w, routed[m_rows], bits)
                     del sets
             del wd, wb
             torch.cuda.empty_cache()
     return rows
+
+
+def _routed_row(full: dict, fn, plain, sets, w, counts, bits) -> dict:
+    """The routed row beside the full row ``full`` (same inputs): the
+    launch with each expert's occupied rows ``counts``, held to the plain
+    version with the same counts at KERNEL_ATOL / KERNEL_RTOL and to exact
+    zeros past each count, timed beside that plain version; its routed
+    bound, and the full row's bound and time for comparison."""
+    x = sets[0][0]
+    what = f"{full['kernel']} {full['matrix']} M={full['M']} routed"
+    got = fn(x, w, rows=counts)
+    err = _check(what, got, plain(x, w, counts), KERNEL_ATOL, KERNEL_RTOL)
+    host = counts.cpu()
+    for i, r in enumerate(host.tolist()):
+        if got[i, r:].any():
+            raise SystemExit(f"{what}: expert {i} has nonzero rows past its "
+                             f"count {r}")
+    row = {**{k: full[k] for k in ("kernel", "matrix", "experts",
+                                   "matrix_shape", "M", "x", "picked",
+                                   "resident_blocks", "atol", "rtol")},
+           "rows": "routed", "empty_experts": int((host == 0).sum()),
+           "largest_count": int(host.max()), "occupied_rows": int(host.sum()),
+           "max_abs_err": err,
+           "ms": time_ms(lambda xs, ws: fn(xs, ws, rows=counts), sets,
+                         MOE_TIMED_CALLS),
+           "plain_ms": time_ms(lambda xs, ws: plain(xs, ws, counts),
+                               sets[:1], 1),
+           "full_ms": full["ms"], "full_bound_ms": full["bound_ms"],
+           "library_ms": full["library_ms"]}
+    row.update(zip(("bound_ms", "bound_by", "bytes", "flops", "bound_bf16_ms"),
+                   _moe_routed_bound(host.numpy(), full["M"], w,
+                                     torch.bfloat16, bits)))
+    log(json.dumps(row))
+    return row
 
 
 def _per_pass(cp) -> tuple:
@@ -4335,6 +4437,7 @@ def _moe_table_rows(table, moe, card) -> None:
             ("bsr_spmm_palette8_experts", "pal8", 8, "decode"),
             ("bsr_spmm_palette4_experts", "pal4", 8, "decode")):
         r = rows[(fmt, "ewi", m_rows, torch.bfloat16)]
+        rr = rows[(fmt, "ewi", m_rows, "routed")]
         wrapper = "spmm_experts" if fmt == "bcsr" else "spmm_palette_experts"
         table.append({
             "name": name, "route": "cuda",
@@ -4349,10 +4452,17 @@ def _moe_table_rows(table, moe, card) -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "bound_bf16_ms": r["bound_bf16_ms"], "library_ms": r["library_ms"],
             "bf16_matmul_ms": r["bf16_matmul_ms"],
-            "singles_ms": r["singles_ms"],
-            "shape": f"{kern} kernel, {wrapper}, {MOE} layer 0 ewi, "
+            "singles_ms": r.get("singles_ms"),
+            "routed_ms": rr["ms"], "routed_bound_ms": rr["bound_ms"],
+            "routed_bound_by": rr["bound_by"],
+            "routed_plain_ms": rr["plain_ms"],
+            "routed_max_abs_err": rr["max_abs_err"],
+            "routed_empty_experts": rr["empty_experts"],
+            "routed_largest_count": rr["largest_count"],
+            "shape": f"{kern} form, {wrapper}, {MOE} layer 0 ewi, "
                      f"{r['experts']} experts of {r['matrix_shape']}, "
-                     f"M={m_rows} x=bfloat16",
+                     f"M={m_rows} x=bfloat16; ms / bound_ms: every row, "
+                     "routed_*: the rows layer 0's router fills",
             "card": card})
 
 

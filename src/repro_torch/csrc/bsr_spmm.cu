@@ -38,9 +38,7 @@
 //   thread block of 8 warps takes 8 / J block-rows (a task: a block-row and
 //   a tile of 32 / br rows of X), J warps each, J the power of two at or
 //   above the tables' width jmax (at most 8; a warp takes j, j + J, ...), so
-//   short rows are packed and no warp waits for another's block; for an
-//   expert stack, whose tables are padded to the widest row of all its
-//   experts, the wrapper passes the mean resident blocks of a row instead. A warp
+//   short rows are packed and no warp waits for another's block. A warp
 //   loads nnz[o] and its idx / blk entries together, then its X slab and
 //   every row of its block at once: each lane takes 4 adjacent columns of
 //   every block row (16 bytes of an f32 store row, 8 of bf16, 4 or 2 of
@@ -98,21 +96,18 @@
 //   (its tables, then its copies, then its products), not the bytes, sets
 //   the time.
 //
-// The expert axis (ops.spmm_experts, ops.spmm_palette_experts and, for the
-// backward, ops.spmm_t_experts; the MoE FFN, replacing the reference's
-// lax.map of one sparse_matmul per expert and its VJP): all three kernels
-// take E stacked problems in one launch, blockIdx.z the expert (the
-// forward's grids and bsr_tile_bwd's use x and y only). Expert e's X (dY),
-// Y (dX), gather tables, block store or codes and palette
-// lie at e times a per-expert stride (Experts below) from the first's; the
-// stacked stores share one slot count and table width (the compression
-// pads them), so every expert runs the grid of the widest. A single matrix
-// (E = 1) runs an instantiation without the offsets (EXP false), the code
-// of the kernels before the expert axis: with them, 64-bit products in
-// every thread block cost the single-matrix calls about 2% (PERF.md). The
-// expert instantiations are compiled apart, by bsr_spmm_experts.cu, which
-// includes this file with BSR_SPMM_EXPERTS set: nvcc builds the two at
-// once, where one file holding both took twice as long.
+// The expert axis (an MoE layer's E stacked matrices in one launch) is
+// built apart, by bsr_spmm_experts.cu, which includes this file with
+// BSR_SPMM_EXPERTS set: nvcc builds the two at once. Its forward has kernels
+// of its own there (bsr_experts_fwd, driven by each expert's occupied
+// rows); its backward (ops.spmm_t_experts) is bsr_tile_bwd below with EXP
+// true, blockIdx.z the expert: expert e's dY, dX, transposed tables and
+// block store lie at e times a per-expert stride (Experts below) from the
+// first's; the stacked stores share one slot count and table width (the
+// compression pads them), so every expert runs the grid of the widest. A
+// single matrix runs the instantiation without the offsets (EXP false):
+// with them, 64-bit products in every thread block cost the single-matrix
+// calls about 2% (PERF.md).
 //
 // f32 operands on the tensor cores go as three bf16 parts that hold them
 // exactly; of two split operands only the products whose part orders sum to
@@ -138,7 +133,7 @@
 
 namespace {
 
-constexpr bool kExperts = BSR_SPMM_EXPERTS;   // this build's kernels: the expert axis
+constexpr bool kExperts = BSR_SPMM_EXPERTS;   // this build's backward: the expert axis
 
 constexpr int kDecWarps = 8;         // decode: warps per thread block
 constexpr int kDecOut = 32;          // decode: outputs of a task, 32 / br rows x br
@@ -149,7 +144,8 @@ using bsr::to_f32;
 // gather tables idx / blk, nnz, the block store; for a palette store w is
 // in bytes of codes, and the palette's stride is its 2**BITS entries). The
 // backward reads x as dY's, y as dX's, tab and nnz as the transposed
-// tables'. Unused for a single matrix.
+// tables'. Unused for a single matrix; the expert forward
+// (bsr_spmm_experts.cu) takes the same.
 struct Experts {
   long long x, y, tab, nnz, w;
 };
@@ -231,26 +227,6 @@ struct PaletteBlocks {
   }
 };
 
-// Move a block operand to expert e's store (and palette).
-template <typename S>
-__device__ __forceinline__ void to_expert(FloatBlocks<S>& w, long long e, long long es) {
-  w.data += e * es;
-}
-template <int BITS>
-__device__ __forceinline__ void to_expert(PaletteBlocks<BITS>& w, long long e, long long es) {
-  w.codes += e * es;
-  w.palette += e * (1 << BITS);
-}
-template <typename S>
-__device__ __forceinline__ void to_expert(bsr::FloatBlocks<S>& w, long long e, long long es) {
-  w.data += e * es;
-}
-template <int BITS>
-__device__ __forceinline__ void to_expert(bsr::PaletteBlocks<BITS>& w, long long e, long long es) {
-  w.codes += e * es;
-  w.palette += e * (1 << BITS);
-}
-
 // One step of the transposing butterfly: lanes h apart exchange halves of
 // the 2 h values each still holds; a lane keeps the half whose outputs
 // share its bit h and adds the other lane's values of the same outputs.
@@ -281,23 +257,13 @@ __device__ __forceinline__ float butterfly32(float (&v)[kDecOut], int lane) {
 // tasks b * (8 / J) .., J warps each. Warp w takes resident blocks j = w %
 // J, w % J + J, ... < nnz[o] of its task; lane l takes the block's columns
 // 4 l .. 4 l + 3 (then + 128, ...), and keeps acc[m * BR + r] for row m of
-// the tile and block row r. With EXP, blockIdx.z is the expert.
-template <int BR, typename TX, typename Blocks, bool EXP>
+// the tile and block row r.
+template <int BR, typename TX, typename Blocks>
 __global__ void __launch_bounds__(kDecWarps * 32, 1)
 decode_fwd(const TX* __restrict__ x, Blocks w, const int* __restrict__ idx,
            const int* __restrict__ blk, const int* __restrict__ nnz,
-           float* __restrict__ y, int M, int K, int N, int O, int jmax, int J, int x_vec,
-           Experts ex) {
+           float* __restrict__ y, int M, int K, int N, int O, int jmax, int J, int x_vec) {
   constexpr int BM = kDecOut / BR;
-  if constexpr (EXP) {                // expert blockIdx.z's problem
-    const long long e = blockIdx.z;
-    x += e * ex.x;
-    y += e * ex.y;
-    idx += e * ex.tab;
-    blk += e * ex.tab;
-    nnz += e * ex.nnz;
-    to_expert(w, e, ex.w);
-  }
   __shared__ float pal[Blocks::kPalette];
   __shared__ float part[kDecWarps][kDecOut];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -372,7 +338,6 @@ decode_fwd(const TX* __restrict__ x, Blocks w, const int* __restrict__ idx,
 // job q, once every warp is past job q - 1, job q + 1's copies are issued
 // into the other stage, then job q's raw block is converted into its bf16
 // parts, and its products run while job q + 1's copies are in flight.
-// With EXP, blockIdx.z is the expert.
 constexpr int kTileWarpRows = 32;          // rows of X per warp (2 m-tiles)
 
 template <int XS, typename TX, typename Blocks>
@@ -389,22 +354,13 @@ __device__ __forceinline__ void issue_job(int q, const TX* x, const Blocks& w,
   w.raw(wraw + (q & 1) * wraw_stage, s, kc);
 }
 
-template <int NT, typename TX, typename Blocks, bool EXP>
+template <int NT, typename TX, typename Blocks>
 __global__ void __launch_bounds__(128, 1)
 bsr_tile_fwd(const TX* __restrict__ x, Blocks w, const int* __restrict__ idx,
              const int* __restrict__ blk, const int* __restrict__ nnz,
-             float* __restrict__ y, int M, int K, int N, int jmax, int x_vec, Experts ex) {
+             float* __restrict__ y, int M, int K, int N, int jmax, int x_vec) {
   using bsr::H;
   using bsr::kStr;
-  if constexpr (EXP) {                // expert blockIdx.z's problem
-    const long long e = blockIdx.z;
-    x += e * ex.x;
-    y += e * ex.y;
-    idx += e * ex.tab;
-    blk += e * ex.tab;
-    nnz += e * ex.nnz;
-    to_expert(w, e, ex.w);
-  }
   constexpr int MT = kTileWarpRows / 16;           // m-tiles per warp
   constexpr int XS = bsr::parts<TX>();             // parts of X
   constexpr int WS = Blocks::PARTS;                // parts of the block
@@ -626,28 +582,28 @@ bsr_tile_bwd(const TY* __restrict__ dy, const S* __restrict__ data,
 template <int BR, typename Blocks>
 void launch_br(const void* x, int x_is_bf16, Blocks w, const int* idx, const int* blk,
                const int* nnz, float* y, int M, int K, int N, int O, int jmax, int J,
-               int x_vec, int E, const Experts& ex, cudaStream_t st) {
+               int x_vec, cudaStream_t st) {
   constexpr int BM = kDecOut / BR;
   const long long tasks = (long long)O * ((M + BM - 1) / BM);
   const int per_block = kDecWarps / J;
-  const dim3 grid((unsigned)((tasks + per_block - 1) / per_block), 1, E);
-  if (grid.x == 0 || E == 0) return;
-#define BSR_DECODE_LAUNCH(TX, EXP)                                                          \
-  decode_fwd<BR, TX, Blocks, EXP><<<grid, kDecWarps * 32, 0, st>>>(                        \
-      static_cast<const TX*>(x), w, idx, blk, nnz, y, M, K, N, O, jmax, J, x_vec, ex)
+  const dim3 grid((unsigned)((tasks + per_block - 1) / per_block));
+  if (grid.x == 0) return;
+#define BSR_DECODE_LAUNCH(TX)                                                               \
+  decode_fwd<BR, TX, Blocks><<<grid, kDecWarps * 32, 0, st>>>(                             \
+      static_cast<const TX*>(x), w, idx, blk, nnz, y, M, K, N, O, jmax, J, x_vec)
   if (x_is_bf16)
-    BSR_DECODE_LAUNCH(__nv_bfloat16, kExperts);
+    BSR_DECODE_LAUNCH(__nv_bfloat16);
   else
-    BSR_DECODE_LAUNCH(float, kExperts);
+    BSR_DECODE_LAUNCH(float);
 #undef BSR_DECODE_LAUNCH
 }
 
 template <typename Blocks>
 int launch_decode(const void* x, int x_is_bf16, Blocks w, const int* idx, const int* blk,
                   const int* nnz, float* y, int M, int K, int N, int O, int jmax, int J,
-                  int x_vec, int E, const Experts& ex, cudaStream_t st) {
+                  int x_vec, cudaStream_t st) {
   if (J != 1 && J != 2 && J != 4 && J != 8) return static_cast<int>(cudaErrorInvalidValue);
-#define BSR_DECODE_ARGS x, x_is_bf16, w, idx, blk, nnz, y, M, K, N, O, jmax, J, x_vec, E, ex, st
+#define BSR_DECODE_ARGS x, x_is_bf16, w, idx, blk, nnz, y, M, K, N, O, jmax, J, x_vec, st
   switch (w.br) {
     case 1: launch_br<1>(BSR_DECODE_ARGS); break;
     case 2: launch_br<2>(BSR_DECODE_ARGS); break;
@@ -661,10 +617,9 @@ int launch_decode(const void* x, int x_is_bf16, Blocks w, const int* idx, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NT, typename TX, bool EXP, typename Blocks>
+template <int NT, typename TX, typename Blocks>
 int launch_tile_t(const void* x, Blocks w, const int* idx, const int* blk, const int* nnz,
-                  float* y, int M, int K, int N, int O, int jmax, int x_vec, int E,
-                  const Experts& ex, cudaStream_t st) {
+                  float* y, int M, int K, int N, int O, int jmax, int x_vec, cudaStream_t st) {
   constexpr int XS = bsr::parts<TX>(), NR = bsr::n_rows(NT);
   // f32 x takes three parts: two stages of 128 rows would not fit
   constexpr int n_warps = XS > 1 ? 2 : 4;
@@ -673,7 +628,7 @@ int launch_tile_t(const void* x, Blocks w, const int* idx, const int* blk, const
       sizeof(bsr::H) * ((size_t)2 * XS * rows * bsr::kStr + (size_t)Blocks::PARTS * NR * bsr::kStr +
                         (Blocks::kHasPalette ? Blocks::PARTS * bsr::kPalette : 0)) +
       (size_t)2 * NR * Blocks::kRawRow;
-  auto kern = bsr_tile_fwd<NT, TX, Blocks, EXP>;
+  auto kern = bsr_tile_fwd<NT, TX, Blocks>;
   static size_t opted = 48 * 1024;             // the limit raised so far
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -681,19 +636,19 @@ int launch_tile_t(const void* x, Blocks w, const int* idx, const int* blk, const
     if (e != cudaSuccess) return static_cast<int>(e);
     opted = smem;
   }
-  const dim3 grid(O, std::min((M + rows - 1) / rows, 65535), E);
-  if (grid.x == 0 || grid.y == 0 || E == 0) return 0;
+  const dim3 grid(O, std::min((M + rows - 1) / rows, 65535));
+  if (grid.x == 0 || grid.y == 0) return 0;
   kern<<<grid, 32 * n_warps, smem, st>>>(static_cast<const TX*>(x), w, idx, blk, nnz, y, M,
-                                         K, N, jmax, x_vec, ex);
+                                         K, N, jmax, x_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Blocks>
 int launch_tile(const void* x, int x_is_bf16, Blocks w, const int* idx, const int* blk,
                 const int* nnz, float* y, int M, int K, int N, int O, int jmax, int x_vec,
-                int E, const Experts& ex, cudaStream_t st) {
-#define BSR_TILE_ARGS x, w, idx, blk, nnz, y, M, K, N, O, jmax, x_vec, E, ex, st
-#define BSR_TILE_LAUNCH(NT, TX) return launch_tile_t<NT, TX, kExperts>(BSR_TILE_ARGS)
+                cudaStream_t st) {
+#define BSR_TILE_ARGS x, w, idx, blk, nnz, y, M, K, N, O, jmax, x_vec, st
+#define BSR_TILE_LAUNCH(NT, TX) return launch_tile_t<NT, TX>(BSR_TILE_ARGS)
   const int nt = bsr::n_tiles(w.br);
   if (x_is_bf16) {
     if (nt == 1) BSR_TILE_LAUNCH(1, __nv_bfloat16);
@@ -709,25 +664,17 @@ int launch_tile(const void* x, int x_is_bf16, Blocks w, const int* idx, const in
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The forward of either variant: tile (M > 16 in the wrappers) or decode,
-// over E experts of n_slots slots each (store_row: one stored block row in
-// the store's units, elements of an fp store or bytes of codes).
+// The forward of either variant: tile (M > 16 in the wrappers) or decode.
 template <typename DecodeBlocks, typename TileBlocks>
 int launch_fwd(const void* x, int x_is_bf16, DecodeBlocks wd, TileBlocks wt, const int* idx,
                const int* blk, const int* nnz, float* y, int M, int K, int N, int O,
-               int jmax, int tile, int J, int x_vec, int E, int n_slots, long long store_row,
-               void* stream) {
+               int jmax, int tile, int J, int x_vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wd.br != 1 && wd.br != 2 && wd.br != 4 && wd.br != 8 && wd.br != 16 && wd.br != 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (E < 1 || E > 65535 || (!kExperts && E != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Experts ex{(long long)M * K, (long long)M * N, (long long)O * jmax, (long long)O,
-                   (long long)n_slots * wd.br * store_row};
   if (tile)
-    return launch_tile(x, x_is_bf16, wt, idx, blk, nnz, y, M, K, N, O, jmax, x_vec, E, ex, st);
-  return launch_decode(x, x_is_bf16, wd, idx, blk, nnz, y, M, K, N, O, jmax, J, x_vec, E, ex,
-                       st);
+    return launch_tile(x, x_is_bf16, wt, idx, blk, nnz, y, M, K, N, O, jmax, x_vec, st);
+  return launch_decode(x, x_is_bf16, wd, idx, blk, nnz, y, M, K, N, O, jmax, J, x_vec, st);
 }
 
 template <int MT, typename TY, typename S>
@@ -768,40 +715,56 @@ int launch_bwd_mt(int mt, const void* dy, const void* data, const int* t_idx, co
 }  // namespace
 
 // The entries of this build: bsr_spmm_fwd, bsr_spmm_palette_fwd and
-// bsr_spmm_t for one matrix (E = 1), or bsr_spmm_experts_fwd,
-// bsr_spmm_palette_experts_fwd and bsr_spmm_t_experts for E stacked ones
-// (bsr_spmm_experts.cu).
+// bsr_spmm_t for one matrix, or bsr_spmm_t_experts for E stacked ones
+// (bsr_spmm_experts.cu, which adds the expert forward's entries).
 #if BSR_SPMM_EXPERTS
-#define BSR_FWD(name) name##_experts_fwd
 #define BSR_BWD(name) name##_experts
 #else
-#define BSR_FWD(name) name##_fwd
 #define BSR_BWD(name) name
 #endif
 
 extern "C" {
 
-// Y (E, M, N) f32 = X (E, M, K) @ W_e' for E stacked BlockCSR W_e (E = 1: one
-// matrix): data (E, n_slots, br, bc) f32, or bf16 when data_is_bf16, idx/blk
-// (E, O, jmax) int32, nnz (E, O) int32; br one of 1, 2, 4, 8, 16, 32. tile:
-// the tile kernel, else the decode kernel with J warps a block-row (1, 2, 4
-// or 8); x_vec / w_vec: the rows of X / of the store are 16-byte aligned
-// (vector loads and staging).
-int BSR_FWD(bsr_spmm)(const void* x, int x_is_bf16, const void* data, int data_is_bf16,
+#if !BSR_SPMM_EXPERTS
+// Y (M, N) f32 = X (M, K) @ W' for one BlockCSR W (N, K): data (n_slots, br,
+// bc) f32, or bf16 when data_is_bf16, idx/blk (O, jmax) int32, nnz (O,)
+// int32; br one of 1, 2, 4, 8, 16, 32. tile: the tile kernel, else the
+// decode kernel with J warps a block-row (1, 2, 4 or 8); x_vec / w_vec: the
+// rows of X / of the store are 16-byte aligned (vector loads and staging).
+int bsr_spmm_fwd(const void* x, int x_is_bf16, const void* data, int data_is_bf16,
                  const int* idx, const int* blk, const int* nnz, float* y, int M, int K,
                  int N, int O, int jmax, int br, int bc, int tile, int J, int x_vec, int w_vec,
-                 int E, int n_slots, void* stream) {
+                 void* stream) {
   if (data_is_bf16) {
     const auto* d = static_cast<const __nv_bfloat16*>(data);
     return launch_fwd(x, x_is_bf16, FloatBlocks<__nv_bfloat16>{d, br, bc, w_vec != 0},
                       bsr::FloatBlocks<__nv_bfloat16>{d, br, bc, w_vec != 0}, idx, blk, nnz,
-                      y, M, K, N, O, jmax, tile, J, x_vec, E, n_slots, bc, stream);
+                      y, M, K, N, O, jmax, tile, J, x_vec, stream);
   }
   const auto* d = static_cast<const float*>(data);
   return launch_fwd(x, x_is_bf16, FloatBlocks<float>{d, br, bc, w_vec != 0},
                     bsr::FloatBlocks<float>{d, br, bc, w_vec != 0}, idx, blk, nnz, y, M, K,
-                    N, O, jmax, tile, J, x_vec, E, n_slots, bc, stream);
+                    N, O, jmax, tile, J, x_vec, stream);
 }
+
+// As bsr_spmm_fwd for one PaletteBCSR W: codes uint8 (n_slots, br, bc) at 8
+// bits or (n_slots, br, bc/2) at 4 bits, palette (2**bits,) f32; w_vec: the
+// codes start on a 16-byte boundary and bc is a multiple of 8.
+int bsr_spmm_palette_fwd(const void* x, int x_is_bf16, const uint8_t* codes,
+                         const float* palette, int bits, const int* idx, const int* blk,
+                         const int* nnz, float* y, int M, int K, int N, int O, int jmax,
+                         int br, int bc, int tile, int J, int x_vec, int w_vec, void* stream) {
+  if (bits == 8)
+    return launch_fwd(x, x_is_bf16, PaletteBlocks<8>{codes, palette, br, bc, w_vec != 0},
+                      bsr::PaletteBlocks<8>{codes, palette, br, bc, w_vec != 0}, idx, blk,
+                      nnz, y, M, K, N, O, jmax, tile, J, x_vec, stream);
+  if (bits == 4)
+    return launch_fwd(x, x_is_bf16, PaletteBlocks<4>{codes, palette, br, bc, w_vec != 0},
+                      bsr::PaletteBlocks<4>{codes, palette, br, bc, w_vec != 0}, idx, blk,
+                      nnz, y, M, K, N, O, jmax, tile, J, x_vec, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif
 
 // dX (E, M, K) f32 = dY (E, M, N) @ W_e for E stacked BlockCSR W_e (N, K)
 // (E = 1: one matrix), over the transposed tables t_idx/t_blk (E, C,
@@ -830,27 +793,6 @@ int BSR_BWD(bsr_spmm_t)(const void* dy, int dy_is_bf16, const void* data, int da
 #undef BSR_BWD_ARGS
 }
 
-// As bsr_spmm_fwd for PaletteBCSR W: codes uint8 (E, n_slots, br, bc) at 8
-// bits or (E, n_slots, br, bc/2) at 4 bits, palette (E, 2**bits) f32, one per
-// expert; w_vec: the codes start on a 16-byte boundary and bc is a multiple
-// of 8.
-int BSR_FWD(bsr_spmm_palette)(const void* x, int x_is_bf16, const uint8_t* codes,
-                              const float* palette, int bits, const int* idx,
-                              const int* blk, const int* nnz, float* y, int M, int K, int N,
-                              int O, int jmax, int br, int bc, int tile, int J, int x_vec,
-                              int w_vec, int E, int n_slots, void* stream) {
-  if (bits == 8)
-    return launch_fwd(x, x_is_bf16, PaletteBlocks<8>{codes, palette, br, bc, w_vec != 0},
-                      bsr::PaletteBlocks<8>{codes, palette, br, bc, w_vec != 0}, idx, blk,
-                      nnz, y, M, K, N, O, jmax, tile, J, x_vec, E, n_slots, bc, stream);
-  if (bits == 4)
-    return launch_fwd(x, x_is_bf16, PaletteBlocks<4>{codes, palette, br, bc, w_vec != 0},
-                      bsr::PaletteBlocks<4>{codes, palette, br, bc, w_vec != 0}, idx, blk,
-                      nnz, y, M, K, N, O, jmax, tile, J, x_vec, E, n_slots, bc / 2, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // extern "C"
 
-#undef BSR_FWD
 #undef BSR_BWD

@@ -3,11 +3,16 @@
 ``spmm(x, w)`` and ``spmm_palette(x, w)`` compute ``Y (M, N) f32 = X (M, K)
 @ W'`` for a compressed W (N, K); ``spmm_t(dy, w)`` computes the backward
 ``dX (M, K) f32 = dY (M, N) @ W`` over the transposed tables.
-``spmm_experts(x, w)`` and ``spmm_palette_experts(x, w)`` take E problems
-at once, X (E, M, K) against an E-stacked W (one slice per expert, the MoE
-FFN's (E, out, in) weights): ``Y (E, M, N) f32``, in one launch of the same
-forward kernels with the expert on the grid's z axis (the reference maps
-one ``sparse_matmul`` per expert); ``spmm_t_experts(dy, w)`` is the
+``spmm_experts(x, w, rows)`` and ``spmm_palette_experts(x, w, rows)`` take
+E problems at once, X (E, M, K) against an E-stacked W (one slice per
+expert, the MoE FFN's (E, out, in) weights): ``Y (E, M, N) f32`` in one
+launch of the expert forward (``csrc/bsr_spmm_experts.cu``, the expert on
+the grid's z axis; the reference maps one ``sparse_matmul`` per expert).
+``rows``, an optional (E,) int32 tensor on x's device, is the count of
+occupied rows of each expert's buffer (the tokens the MoE dispatch gave
+it): the kernel reads it on the device, computes rows ``[0, rows[e])`` and
+writes exact zeros below, and an expert with none reads none of its
+blocks; ``None`` computes every row. ``spmm_t_experts(dy, w)`` is the
 backward's: ``dX (E, M, K) f32`` in one launch of the ``spmm_t`` kernel.
 A BlockCSR block store may be f32 or bf16 (training casts it to the
 compute dtype); the kernels upcast it as they read. For a tensor on the
@@ -15,13 +20,18 @@ CPU they run the plain PyTorch version (``ref.py``); for a CUDA tensor
 they launch the hand-written Hopper kernel or raise. There is no fallback
 between the two.
 
-The forward has two kernels, dispatched by M: the tensor-core tile kernel
-for M > ``DECODE_MAX_M`` (prefill, training) and the decode kernel, an
-f32 FMA kernel with a warp per resident block, for M <= ``DECODE_MAX_M``,
-where a 16-row mma tile would be mostly padding. ``spmm_t`` runs on the
-tensor-core tile core too (see ``csrc/bsr_spmm.cu``). A failure of any
-raises. Each kernel's shape of grid is chosen here from shapes alone
-(``decode_warps``, ``spmm_t_rows``), with no wait for the device.
+The single-matrix forward has two kernels, dispatched by M: the
+tensor-core tile kernel for M > ``DECODE_MAX_M`` (prefill, training) and
+the decode kernel, an f32 FMA kernel with a warp per resident block, for M
+<= ``DECODE_MAX_M``, where a 16-row mma tile would be mostly padding. The
+expert forward has two forms of one kernel, dispatched by M alike: a warp
+takes one block-row of one expert and every occupied row of its m-chunk,
+16 rows in the decode form and 32 in the tile form, loads its part of each
+resident block and of X straight into registers and runs the products on
+the tensor cores. ``spmm_t`` runs on the tensor-core tile core too (see
+``csrc/bsr_spmm.cu``). A failure of any raises. Each kernel's shape of
+grid is chosen here from shapes alone (``decode_warps``, ``spmm_t_rows``;
+the expert forward's by its kernel), with no wait for the device.
 
 ``launches`` counts kernel launches per wrapper, so a run can show that
 its path went through the kernels; ``variant_launches`` splits the
@@ -65,13 +75,11 @@ def pick_kernel(m: int) -> str:
 
 
 def decode_warps(jmax: int) -> int:
-    """Warps the decode kernel gives each block-row: one per resident block
-    up to the gather tables' width ``jmax`` (a power of two, at most the 8
-    warps of a thread block, which then takes 8 / that many block-rows).
-    An expert stack passes its mean resident blocks a block-row instead:
-    its tables are padded to the widest row of all its experts (8,192 rows
-    at olmoe-1b-7b's ewi), so the width would leave most warps idle; a
-    warp takes every J-th block of a longer row."""
+    """Warps the single-matrix decode kernel gives each block-row: one per
+    resident block up to the gather tables' width ``jmax`` (a power of
+    two, at most the 8 warps of a thread block, which then takes 8 / that
+    many block-rows). The expert forward gives each block-row one warp,
+    whatever its width, so it has no such choice."""
     warps = 1
     while warps < min(jmax, _DECODE_WARPS):
         warps *= 2
@@ -95,10 +103,13 @@ def _lib(experts: bool = False) -> ctypes.CDLL:
     instantiations (``csrc/bsr_spmm_experts.cu``)."""
     lib = _build.load("bsr_spmm_experts" if experts else "bsr_spmm")
     tag = "_experts" if experts else ""
+    # the expert entries take the rows pointer before y, no decode warps,
+    # and E and n_slots after the single-matrix shape arguments
+    rows, ints = ([_P], 12) if experts else ([], 11)
     fwd = getattr(lib, f"bsr_spmm{tag}_fwd")
-    fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 13 + [_P]
+    fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P] + rows + [_P] + [_I] * ints + [_P]
     pal = getattr(lib, f"bsr_spmm_palette{tag}_fwd")
-    pal.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 13 + [_P]
+    pal.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P] + rows + [_P] + [_I] * ints + [_P]
     bwd = getattr(lib, f"bsr_spmm_t{tag}")
     bwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 12 + [_P]
     fwd.restype = pal.restype = bwd.restype = _I
@@ -171,41 +182,59 @@ def spmm_palette(x: torch.Tensor, w: PaletteBCSR) -> torch.Tensor:
     return kernel_call("bsr_spmm/spmm_palette", _spmm, x, w, False)
 
 
-def spmm_experts(x: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+def spmm_experts(x: torch.Tensor, w: BlockCSR,
+                 rows: torch.Tensor | None = None) -> torch.Tensor:
     """Y (E, M, N) f32, Y[e] = X[e] @ W[e]' for X (E, M, K) and an E-stacked
     BlockCSR W (every array field with a leading expert axis; ``w[e]`` is
-    expert e's (N, K) matrix): one launch for all E."""
-    return kernel_call("bsr_spmm/spmm_experts", _spmm, x, w, True)
+    expert e's (N, K) matrix): one launch for all E. With ``rows`` ((E,)
+    int32 on x's device), only rows ``[0, rows[e])`` of Y[e] are computed
+    and the rest are zero; the kernel reads the counts on the device."""
+    return kernel_call("bsr_spmm/spmm_experts", _spmm, x, w, True, rows)
 
 
-def spmm_palette_experts(x: torch.Tensor, w: PaletteBCSR) -> torch.Tensor:
+def spmm_palette_experts(x: torch.Tensor, w: PaletteBCSR,
+                         rows: torch.Tensor | None = None) -> torch.Tensor:
     """``spmm_experts`` for an E-stacked PaletteBCSR (one palette per
     expert, (E, 2**bits))."""
-    return kernel_call("bsr_spmm/spmm_palette_experts", _spmm, x, w, True)
+    return kernel_call("bsr_spmm/spmm_palette_experts", _spmm, x, w, True,
+                       rows)
 
 
-def _spmm(x: torch.Tensor, w, experts: bool) -> torch.Tensor:
+def _spmm(x: torch.Tensor, w, experts: bool, rows=None) -> torch.Tensor:
     if x.dim() != (3 if experts else 2):
         raise ValueError(f"x {tuple(x.shape)}: spmm / spmm_palette take a 2-D "
                          "x, spmm_experts / spmm_palette_experts a 3-D one")
     if x.device.type == "cpu":
         palette = isinstance(w, PaletteBCSR)
         if x.dim() == 3:
-            return (ref.spmm_palette_experts_fwd_ref(x, w) if palette
-                    else ref.spmm_experts_fwd_ref(x, w))
+            return (ref.spmm_palette_experts_fwd_ref(x, w, rows) if palette
+                    else ref.spmm_experts_fwd_ref(x, w, rows))
         return (ref.spmm_palette_fwd_ref(x, w) if palette
                 else ref.spmm_fwd_ref(x, w))
-    return _fwd(x, w)
+    return _fwd(x, w, rows=rows)
 
 
-def _fwd(x: torch.Tensor, w, kernel=None) -> torch.Tensor:
+def _check_rows(rows: torch.Tensor, x: torch.Tensor) -> None:
+    if x.dim() != 3:
+        raise ValueError("rows counts an expert stack's rows: spmm_experts "
+                         "and spmm_palette_experts take it")
+    if tuple(rows.shape) != (x.shape[0],) or rows.dtype != torch.int32 \
+            or rows.device != x.device or not rows.is_contiguous():
+        raise ValueError(f"rows must be ({x.shape[0]},) int32 on {x.device}, "
+                         f"got {tuple(rows.shape)} {rows.dtype} on "
+                         f"{rows.device}")
+
+
+def _fwd(x: torch.Tensor, w, kernel=None, rows=None) -> torch.Tensor:
     """The forward of ``spmm`` (BlockCSR w) or ``spmm_palette`` (PaletteBCSR
-    w), or of their expert forms for a 3-D x, for a CUDA x, on the kernel
-    ``pick_kernel`` chooses by M, or on ``kernel`` ("decode" or "tile"):
-    the GPU tests and chip_smoke.py force each kernel to hold both to the
-    plain version."""
+    w), or of their expert forms for a 3-D x (``rows``: the occupied rows
+    of each expert, or None), for a CUDA x, on the kernel ``pick_kernel``
+    chooses by M, or on ``kernel`` ("decode" or "tile"): the GPU tests and
+    chip_smoke.py force each kernel to hold both to the plain version."""
     palette = isinstance(w, PaletteBCSR)
     experts = x.shape[0] if x.dim() == 3 else 0
+    if rows is not None:
+        _check_rows(rows, x)
     if palette:
         if w.bits not in (4, 8):
             raise ValueError(f"palette bits must be 4 or 8, got {w.bits}")
@@ -231,12 +260,16 @@ def _fwd(x: torch.Tensor, w, kernel=None) -> torch.Tensor:
     if y.numel() == 0:
         return y
     store = w.codes if palette else w.data
-    warps = decode_warps(min(jmax, -(-(store.shape[-3] - 1) // n_out))
-                         if experts > 1 else jmax)
+    if experts:
+        # the rows pointer (or null), and E and the slots of a slice after
+        # the alignment flags
+        ptrs = (rows.data_ptr() if rows is not None else None, y.data_ptr())
+        grid, stack = (), (experts, store.shape[-3])
+    else:
+        ptrs, grid, stack = (y.data_ptr(),), (decode_warps(jmax),), ()
     shape = (m, x.shape[-1], w.shape[0], n_out, jmax, br, bc,
-             int(kernel == "tile"), warps, aligned16(x, x.shape[-1], bc))
-    stack = (max(experts, 1), store.shape[-3])
-    lib, tag = _lib(experts > 1), "_experts" if experts > 1 else ""
+             int(kernel == "tile"), *grid, aligned16(x, x.shape[-1], bc))
+    lib, tag = _lib(bool(experts)), "_experts" if experts else ""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if palette:
@@ -244,7 +277,7 @@ def _fwd(x: torch.Tensor, w, kernel=None) -> torch.Tensor:
                 x.data_ptr(), int(x.dtype == torch.bfloat16),
                 w.codes.data_ptr(), w.palette.data_ptr(), w.bits,
                 w.gather_idx.data_ptr(), w.gather_blk.data_ptr(),
-                w.gather_nnz.data_ptr(), y.data_ptr(), *shape,
+                w.gather_nnz.data_ptr(), *ptrs, *shape,
                 int(w.codes.data_ptr() % 16 == 0
                     and bc * w.bits // 8 % 16 == 0), *stack, stream)
         else:
@@ -252,7 +285,7 @@ def _fwd(x: torch.Tensor, w, kernel=None) -> torch.Tensor:
                 x.data_ptr(), int(x.dtype == torch.bfloat16),
                 w.data.data_ptr(), int(w.data.dtype == torch.bfloat16),
                 w.gather_idx.data_ptr(), w.gather_blk.data_ptr(),
-                w.gather_nnz.data_ptr(), y.data_ptr(), *shape,
+                w.gather_nnz.data_ptr(), *ptrs, *shape,
                 aligned16(w.data, bc), *stack, stream)
     wrapper = ("spmm_palette" if palette else "spmm") + (
         "_experts" if experts else "")

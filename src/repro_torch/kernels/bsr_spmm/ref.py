@@ -29,11 +29,26 @@ def spmm_palette_fwd_ref(x: torch.Tensor, w) -> torch.Tensor:
     return spmm_fwd_ref(x, w.dequantize())
 
 
-def spmm_experts_fwd_ref(x: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+def _occupied(y: torch.Tensor, rows) -> torch.Tensor:
+    """Y (E, M, N) with the rows of expert e at or past ``rows[e]`` set to
+    exact zeros (``rows``: (E,) int counts, or None for every row). The
+    plain versions compute every row and then zero these, so the rows below
+    each count are those of the call without counts, bit for bit."""
+    if rows is None:
+        return y
+    keep = torch.arange(y.shape[1], device=y.device) < \
+        rows.to(y.device, torch.long)[:, None]
+    return torch.where(keep[..., None], y, torch.zeros((), device=y.device))
+
+
+def spmm_experts_fwd_ref(x: torch.Tensor, w: BlockCSR,
+                         rows=None) -> torch.Tensor:
     """Y (E, M, N) f32, Y[e] = X[e] @ W[e]' for X (E, M, K) and an E-stacked
     BlockCSR: ``spmm_fwd_ref`` on each expert's slice, as the reference
-    maps one ``sparse_matmul`` per expert."""
-    return torch.stack([spmm_fwd_ref(x[e], w[e]) for e in range(x.shape[0])])
+    maps one ``sparse_matmul`` per expert; with ``rows``, zeros at and past
+    each expert's count (``_occupied``)."""
+    return _occupied(torch.stack([spmm_fwd_ref(x[e], w[e])
+                                  for e in range(x.shape[0])]), rows)
 
 
 def spmm_experts_bwd_ref(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
@@ -43,11 +58,11 @@ def spmm_experts_bwd_ref(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
     return torch.stack([spmm_bwd_ref(dy[e], w[e]) for e in range(dy.shape[0])])
 
 
-def spmm_palette_experts_fwd_ref(x: torch.Tensor, w) -> torch.Tensor:
+def spmm_palette_experts_fwd_ref(x: torch.Tensor, w, rows=None) -> torch.Tensor:
     """``spmm_experts_fwd_ref`` for an E-stacked ``PaletteBCSR`` (one
     palette per expert)."""
-    return torch.stack([spmm_palette_fwd_ref(x[e], w[e])
-                        for e in range(x.shape[0])])
+    return _occupied(torch.stack([spmm_palette_fwd_ref(x[e], w[e])
+                                  for e in range(x.shape[0])]), rows)
 
 
 def gather_block_matmul_ref(dense, data, idx, blk, nnz, *, out_cols: int,

@@ -17,7 +17,12 @@ data shard, as the reference's does under GSPMD.
 Compressed experts (E-stacked BlockCSR / PaletteBCSR, one (out, in) slice
 per expert) run ``sparse_matmul`` on the 3-D buffer: one launch of the
 expert spmm kernel per projection for all E experts, where the reference
-maps one ``sparse_matmul`` per expert. Under autograd each projection's
+maps one ``sparse_matmul`` per expert. The launch takes each expert's
+count of occupied rows (the dispatch's running count, capped at the
+capacity; an (E,) int32 tensor that stays on the device) and computes
+those rows only: the buffer's other rows are zero for ewi / ewg, f(0) * 0
+= 0 for ewo, and the combine never reads them, so the outputs are the
+reference's, which computes every row. Under autograd each projection's
 backward is one launch of the expert ``spmm_t`` (dx) and one of the expert
 SDDMM (dw at each expert's resident slots; a palette store takes dx
 only). Dense experts run ``torch.bmm``. The dispatch is a scatter into the
@@ -111,27 +116,32 @@ def _router_and_aux(router_w: Tensor, xt: Tensor, e: MoEConfig):
     return gate, expert_idx, _aux(me, ce, z, e)
 
 
-def _positions(flat_e: Tensor, n_experts: int) -> Tensor:
+def _positions(flat_e: Tensor, n_experts: int) -> tuple[Tensor, Tensor]:
     """int32 position of each flat (token, choice) pair among the pairs
-    routed to its expert (token-major, choice-minor). The reference's
-    int32 running count of the one-hot, taken over an (E, T * k) one-hot so
-    that the scan runs along the contiguous axis; positions are integers,
-    so the result is the reference's exactly."""
+    routed to its expert (token-major, choice-minor), and the (E,) int32
+    count of pairs routed to each expert. The reference's int32 running
+    count of the one-hot, taken over an (E, T * k) one-hot so that the scan
+    runs along the contiguous axis; positions are integers, so the result
+    is the reference's exactly."""
     eoh = (flat_e[None, :] == torch.arange(
         n_experts, device=flat_e.device)[:, None]).to(torch.int32)
     count = eoh.cumsum(1, dtype=torch.int32)
-    return count.gather(0, flat_e[None].long())[0] - 1
+    return count.gather(0, flat_e[None].long())[0] - 1, count[:, -1]
 
 
-def _dispatch(expert_idx: Tensor, n_experts: int, cap: int) -> Tensor:
+def _dispatch(expert_idx: Tensor, n_experts: int,
+              cap: int) -> tuple[Tensor, Tensor]:
     """Row of each flat (token, choice) pair in the (E * cap + 1, d) buffer:
     expert * cap + its position among the pairs routed to that expert
     (token-major, choice-minor), or E * cap, the overflow row, at or past
-    the capacity."""
+    the capacity; and the occupied rows of each expert's cap, (E,) int32
+    on the device (its pairs, at most cap): the buffer's rows past them
+    stay zero."""
     flat_e = expert_idx.reshape(-1)
-    pos = _positions(flat_e, n_experts)
-    return torch.where(pos < cap, flat_e * cap + pos,
+    pos, count = _positions(flat_e, n_experts)
+    rows = torch.where(pos < cap, flat_e * cap + pos,
                        torch.full_like(pos, n_experts * cap))
+    return rows, count.clamp(max=cap)
 
 
 def _shared_expert(p: dict, xt: Tensor, f) -> Tensor:
@@ -196,7 +206,7 @@ def _apply_moe_gspmd(p: dict, x: Tensor, cfg: ModelConfig,
 
     # dispatch: one row per kept (token, choice); the overflow row (the
     # only one that may be written twice) is thrown away
-    rows = _dispatch(expert_idx, n_e, cap)
+    rows, occupied = _dispatch(expert_idx, n_e, cap)
     buf = xt.new_zeros((n_e * cap + 1, d))
     buf[rows] = xt.repeat_interleave(k, dim=0)
     buf = buf[:n_e * cap].view(n_e, cap, d)
@@ -206,7 +216,7 @@ def _apply_moe_gspmd(p: dict, x: Tensor, cfg: ModelConfig,
         if sparse and name in sparse:
             w = sparse[name]
             fn = lambda h: sparse_ops.sparse_matmul(  # noqa: E731
-                h, w, backend).to(dt)
+                h, w, backend, rows=occupied).to(dt)
         else:
             w = p[name]
             fn = lambda h: torch.bmm(h, w.to(dt))  # noqa: E731
@@ -254,7 +264,7 @@ def _apply_moe_ep(p: dict, x: Tensor, cfg: ModelConfig) -> tuple[Tensor,
     flat_e = expert_idx.reshape(-1)
     is_local = (flat_e // e_loc) == col
     le = torch.where(is_local, flat_e % e_loc, torch.full_like(flat_e, e_loc))
-    pos = _positions(le, e_loc + 1)
+    pos, _ = _positions(le, e_loc + 1)
     keep = is_local & (pos < cap)
     rows = torch.where(keep, le * cap + pos,
                        torch.full_like(pos, e_loc * cap))

@@ -31,11 +31,18 @@ the weight gets no gradient.
 A 3-D x (E, M, K) with an E-stacked w (one (out, in) slice per expert, the
 MoE FFN's compressed experts) gives ``y[e] = x[e] @ w[e].T``: one launch of
 ``spmm_experts`` / ``spmm_palette_experts`` for all E on the kernel path,
-the reference's ``lax.map`` over experts on the plain path. Its backward
-is the expert form of each product, one launch for all E as well:
-``spmm_t_experts`` for dx and ``bsr_weight_grad_experts`` for dw (each
-expert's padded slots get zero); the plain path loops the single-matrix
-plain versions over the experts, as the reference maps its VJP.
+the reference's ``lax.map`` over experts on the plain path. ``rows`` (an
+(E,) int32 tensor on x's device: the tokens the MoE dispatch gave each
+expert, capped at its capacity) says that rows past ``rows[e]`` of x[e]
+are zero and that nobody reads y there: the kernel computes rows ``[0,
+rows[e])`` only and writes zeros below, the plain path zeros them after
+its product, so y is the same with and without it. Its backward is the
+expert form of each product, one launch for all E as well, over every
+row: ``spmm_t_experts`` for dx and ``bsr_weight_grad_experts`` for dw
+(each expert's padded slots get zero); dy is zero on the rows past the
+counts, so their results do not change. The plain path loops the
+single-matrix plain versions over the experts, as the reference maps its
+VJP.
 """
 from __future__ import annotations
 
@@ -59,15 +66,15 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
     return backend
 
 
-def _forward(x: torch.Tensor, w, backend: str,
-             f32: bool = False) -> torch.Tensor:
+def _forward(x: torch.Tensor, w, backend: str, f32: bool = False,
+             rows=None) -> torch.Tensor:
     quantized = isinstance(w, PaletteBCSR)
     if x.dim() == 3:
         if backend == "cuda":
-            return (kops.spmm_palette_experts(x, w) if quantized
-                    else kops.spmm_experts(x, w))
-        y = (kref.spmm_palette_experts_fwd_ref(x, w) if quantized
-             else kref.spmm_experts_fwd_ref(x, w))
+            return (kops.spmm_palette_experts(x, w, rows) if quantized
+                    else kops.spmm_experts(x, w, rows))
+        y = (kref.spmm_palette_experts_fwd_ref(x, w, rows) if quantized
+             else kref.spmm_experts_fwd_ref(x, w, rows))
     elif backend == "cuda":
         return kops.spmm_palette(x, w) if quantized else kops.spmm(x, w)
     else:
@@ -102,10 +109,10 @@ class _SparseMatmul(torch.autograd.Function):
     against an E-stacked W runs the expert forms of all three products."""
 
     @staticmethod
-    def forward(ctx, x, data, w, backend, f32):
+    def forward(ctx, x, data, w, backend, f32, rows):
         ctx.w, ctx.backend = w, backend
         ctx.save_for_backward(x)
-        return _forward(x, w, backend, f32)
+        return _forward(x, w, backend, f32, rows)
 
     @staticmethod
     def backward(ctx, dy):
@@ -116,38 +123,43 @@ class _SparseMatmul(torch.autograd.Function):
             dx = _dx_product(dy, w, backend).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = _dw_product(x, dy, w, backend).to(w.data.dtype)
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None
 
 
 class _PaletteMatmul(torch.autograd.Function):
     """y = x @ dequant(W)'; differentiable in x only."""
 
     @staticmethod
-    def forward(ctx, x, w, backend, f32):
+    def forward(ctx, x, w, backend, f32, rows):
         ctx.w, ctx.backend = w, backend
         ctx.x_dtype = x.dtype
-        return _forward(x, w, backend, f32)
+        return _forward(x, w, backend, f32, rows)
 
     @staticmethod
     def backward(ctx, dy):
         dx = _dx_product(dy, ctx.w.dequantize(), ctx.backend)
-        return dx.to(ctx.x_dtype), None, None, None
+        return dx.to(ctx.x_dtype), None, None, None, None
 
 
 def sparse_matmul(x: torch.Tensor, w, backend: str = "auto",
-                  f32: bool = False) -> torch.Tensor:
+                  f32: bool = False, rows=None) -> torch.Tensor:
     """y = x @ w.T for a compressed w (the paper's dense x compressed'), or
-    y[e] = x[e] @ w[e].T for a 3-D x against E-stacked experts.
-    Differentiable in x and, for a BlockCSR, in ``w.data``. ``f32``: the
-    plain path returns its f32 product unrounded, as the kernels do."""
+    y[e] = x[e] @ w[e].T for a 3-D x against E-stacked experts, computed
+    on each expert's first ``rows[e]`` rows where ``rows`` is given (zeros
+    below). Differentiable in x and, for a BlockCSR, in ``w.data``.
+    ``f32``: the plain path returns its f32 product unrounded, as the
+    kernels do."""
     backend = resolve_backend(backend, x)
+    if rows is not None and x.dim() != 3:
+        raise ValueError("rows counts an expert stack's rows: it needs a "
+                         f"3-D x, got {tuple(x.shape)}")
     if torch.is_grad_enabled():
         if isinstance(w, PaletteBCSR):
             if x.requires_grad:
-                return _PaletteMatmul.apply(x, w, backend, f32)
+                return _PaletteMatmul.apply(x, w, backend, f32, rows)
         elif x.requires_grad or w.data.requires_grad:
-            return _SparseMatmul.apply(x, w.data, w, backend, f32)
-    return _forward(x, w, backend, f32)
+            return _SparseMatmul.apply(x, w.data, w, backend, f32, rows)
+    return _forward(x, w, backend, f32, rows)
 
 
 def sparse_matmul_t(dy: torch.Tensor, w, backend: str = "auto") -> torch.Tensor:

@@ -751,12 +751,10 @@ def _expert_stack(rng, e, n, k, block, dev, store="float32"):
 def test_cuda_spmm_experts_matches_plain_and_singles(store, x_dtype, m, n, k,
                                                      block):
     """``spmm_experts`` / ``spmm_palette_experts`` over 5 experts on the
-    kernel M picks: one launch, counted under the expert wrapper and its
+    form M picks: one launch, counted under the expert wrapper and its
     variant; within tolerance of the plain version (a loop of the
-    single-matrix plain version) and of the single-matrix wrapper on each
-    expert's slice (bit-equal for the tile kernel; the decode kernel gives
-    a stack's block-rows as many warps as its mean row holds, a single
-    matrix as many as its widest, so their sums are grouped apart)."""
+    single-matrix plain version); bit-equal to a second call, and each
+    expert's slice bit-equal to a call on that expert alone (E = 1)."""
     dev = _cuda()
     rng = np.random.default_rng(31)
     e = 5
@@ -774,34 +772,94 @@ def test_cuda_spmm_experts_matches_plain_and_singles(store, x_dtype, m, n, k,
     assert ops.variant_launches[f"{wrapper}_{kern}"] == var + 1
     assert got.shape == (e, m, n) and got.dtype == torch.float32
     torch.testing.assert_close(got, plain(x, w), atol=ATOL, rtol=RTOL)
-    single = ops.spmm_palette if palette else ops.spmm
+    assert torch.equal(getattr(ops, wrapper)(x, w), got)
     for i in range(e):
-        if kern == "tile":
-            assert torch.equal(got[i], single(x[i], w[i]))
-        else:
-            torch.testing.assert_close(got[i], single(x[i], w[i]), atol=ATOL,
-                                       rtol=RTOL)
+        one = w.map(lambda t, i=i: t[i:i + 1].contiguous())
+        assert torch.equal(getattr(ops, wrapper)(x[i:i + 1], one)[0], got[i])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["decode", "tile"])
 @pytest.mark.parametrize("store", ["float32", "bfloat16", "palette8",
                                    "palette4"])
-def test_cuda_spmm_experts_one_expert_is_the_single_call(kernel, store):
-    """E = 1, forced onto each kernel: bit-equal to the single-matrix call
-    on the same slice, f32 and bf16 x."""
+def test_cuda_spmm_experts_one_expert_is_its_slice_of_the_stack(kernel,
+                                                                 store):
+    """Forced onto each form, at olmoe's (8, 128) blocks, f32 and bf16 x,
+    without counts and with them: each expert of a stack of 5, called
+    alone (E = 1), is bit-equal to its slice of the stack's output, and
+    two calls on the stack are bit-equal (each output's sum has one order,
+    and no expert's output depends on another's)."""
     dev = _cuda()
     rng = np.random.default_rng(32)
-    w = _expert_stack(rng, 2, 2048, 1024, (8, 128), dev, store)
-    w1 = w.map(lambda t: t[1:2].contiguous())
+    e = 5
+    w = _expert_stack(rng, e, 2048, 1024, (8, 128), dev, store)
     for dt in (torch.float32, torch.bfloat16):
         for m in (4, 40):
-            x = torch.tensor(rng.normal(size=(1, m, 1024)), dtype=dt,
+            x = torch.tensor(rng.normal(size=(e, m, 1024)), dtype=dt,
                              device=dev)
-            got = ops._fwd(x, w1, kernel)
-            want = ops._fwd(x[0], w1[0], kernel)
-            torch.cuda.synchronize()
-            assert torch.equal(got[0], want)
+            counts = torch.tensor([0, 1, m // 2, m, m], dtype=torch.int32,
+                                  device=dev)
+            for rows in (None, counts):
+                got = ops._fwd(x, w, kernel, rows)
+                assert torch.equal(ops._fwd(x, w, kernel, rows), got)
+                for i in range(e):
+                    one = w.map(lambda t, i=i: t[i:i + 1].contiguous())
+                    r = None if rows is None else rows[i:i + 1]
+                    alone = ops._fwd(x[i:i + 1], one, kernel, r)
+                    assert torch.equal(alone[0], got[i]), (dt, m, rows, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16", "palette8",
+                                   "palette4"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8, 16, 40])
+@pytest.mark.parametrize("n,k,block", [(256, 384, (8, 128)),
+                                       (100, 70, (8, 64)), (96, 160, (32, 32))])
+def test_cuda_spmm_experts_rows_match_plain(store, x_dtype, m, n, k, block):
+    """The expert forward with each expert's occupied rows (counts 0, 1, a
+    partial count, M and past M; X random past each count, which the
+    kernel must not read into Y), on both forms: within tolerance of the
+    plain version with the same counts, exact zeros past each count, one
+    launch each; with every row occupied, bit-equal to the call without
+    counts."""
+    dev = _cuda()
+    rng = np.random.default_rng(34)
+    e = 5
+    w = _expert_stack(rng, e, n, k, block, dev, store)
+    palette = store.startswith("palette")
+    wrapper = "spmm_palette_experts" if palette else "spmm_experts"
+    plain = (ref.spmm_palette_experts_fwd_ref if palette
+             else ref.spmm_experts_fwd_ref)
+    x = torch.tensor(rng.normal(size=(e, m, k)), dtype=x_dtype, device=dev)
+    counts = [0, 1, max(m // 2, 1), m, m + 3]
+    rows = torch.tensor(counts, dtype=torch.int32, device=dev)
+    want = plain(x, w, rows)
+    for kern in ops.KERNELS:
+        before = ops.launches[wrapper]
+        got = ops._fwd(x, w, kern, rows)
+        torch.cuda.synchronize()
+        assert ops.launches[wrapper] == before + 1
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+        for i, r in enumerate(counts):
+            assert not bool(got[i, r:].any()), (kern, i, r)
+        full = torch.full((e,), m, dtype=torch.int32, device=dev)
+        assert torch.equal(ops._fwd(x, w, kern, full), ops._fwd(x, w, kern))
+    got = getattr(ops, wrapper)(x, w, rows)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.gpu
+def test_cuda_spmm_experts_rejects_bad_rows():
+    dev = _cuda()
+    rng = np.random.default_rng(35)
+    w = _expert_stack(rng, 3, 64, 128, (8, 64), dev)
+    x = torch.ones(3, 4, 128, device=dev)
+    for rows in (torch.ones(2, dtype=torch.int32, device=dev),   # 2 != 3
+                 torch.ones(3, dtype=torch.int64, device=dev),   # not int32
+                 torch.ones(3, dtype=torch.int32)):              # on the host
+        with pytest.raises(ValueError, match="rows"):
+            ops.spmm_experts(x, w, rows)
 
 
 @pytest.mark.gpu

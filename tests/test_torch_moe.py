@@ -119,7 +119,7 @@ def test_apply_moe_drops_what_jax_drops(arch, weights, block):
     # all its choices comes out zero
     _, idx, _ = tmoe._router_and_aux(tp["router"], torch.tensor(x).reshape(
         64, -1), tcfg.moe)
-    rows = tmoe._dispatch(idx, tcfg.moe.n_experts, 8)
+    rows, _ = tmoe._dispatch(idx, tcfg.moe.n_experts, 8)
     assert int((rows == tcfg.moe.n_experts * 8).sum()) > 0
     if "shared" not in tp:
         lost = (rows == tcfg.moe.n_experts * 8).view(64, -1).all(1)
@@ -172,7 +172,7 @@ def test_capacity_and_dispatch_match_jax(capacity, n_experts, k):
     pos = (np.cumsum(eoh, 0) * eoh).sum(-1) - 1
     want = np.where(pos < capacity, flat * capacity + pos,
                     n_experts * capacity)
-    got = tmoe._dispatch(torch.tensor(idx), n_experts, capacity)
+    got, _ = tmoe._dispatch(torch.tensor(idx), n_experts, capacity)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

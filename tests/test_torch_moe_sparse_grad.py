@@ -218,7 +218,7 @@ def test_apply_moe_grads_match_jax(arch, weights, block, capacity_factor):
     if capacity_factor is not None:        # choices were dropped
         _, idx, _ = tmoe._router_and_aux(td["router"], torch.tensor(x).reshape(
             64, -1), tcfg.moe)
-        rows = tmoe._dispatch(idx, tcfg.moe.n_experts, 8)
+        rows, _ = tmoe._dispatch(idx, tcfg.moe.n_experts, 8)
         assert int((rows == tcfg.moe.n_experts * 8).sum()) > 0
 
 

@@ -48,9 +48,9 @@ def test_profile_counts_every_kernel_entry():
     calls = {"bsr_spmm/spmm": 0, "bsr_spmm/spmm_experts": 0}
     inner = kops._spmm
 
-    def spy(x, w, experts):
+    def spy(x, w, experts, *rows):
         calls["bsr_spmm/spmm_experts" if experts else "bsr_spmm/spmm"] += 1
-        return inner(x, w, experts)
+        return inner(x, w, experts, *rows)
 
     prompt = torch.tensor(np.random.default_rng(0).integers(
         0, model.cfg.vocab, (2, 5)))
