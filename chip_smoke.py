@@ -47,13 +47,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      run's time goes over a window of its ticks (torch.profiler);
  7b. router: the same mix through ``launch/serve --engine --replicas N
      --route least-loaded`` (N engine replicas, each a worker thread on
-     its own CUDA stream, one copy of the weights) for N = 2 and 4 in bf16
-     at full depth, beside the single engine, with the launch counters
+     its own CUDA stream, one copy of the weights) for N = 4 in bf16 at
+     full depth, beside the single engine, with the launch counters
      held to the replicas' ticks; the mix's first 4 requests through
      ``Router.build`` for N = 1, 2 and 4 unprofiled (at N = 1 in turn with
      one engine, for the router's own cost; allocated device memory while
      serving held to N ticks' activations), the live allocations at the
-     N = 4 peak by stream and by allocating line (the allocator's trace), and a run with two
+     N = 2 peak by stream and by allocating line (the allocator's trace), and a run with two
      windows: the device busy share (the union of the device events'
      intervals, torch.profiler alone) and the launch counters held to the
      kernel-call profiler's counts (``--profile``'s); ``Router.build``
@@ -69,11 +69,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      none`` in this process: (a) ``launch/serve --sparse --ckpt-dir
      --logits-out`` on a checkpoint of phase 5's model (each rank restores
      its shard), bf16 at full depth (logits within 2% of the largest
-     |logit|, greedy tokens equal but at near ties) and f32 at 4 layers
+     |logit|, greedy tokens equal but at near ties) and f32 at 2 layers
      (1e-4, tokens equal); (b) the same with ``--engine`` (tokens equal);
      (c) per rank the spmm launches per pass (equal to one process's),
      the compressed store bytes and the peak memory; (d) ``launch/train
-     --sparse`` at full width cut to 2 layers, f32, 5 SpC and 3 debias
+     --sparse`` at full width cut to 2 layers, f32, 3 SpC and 2 debias
      steps from a planted checkpoint (losses within 1e-5 relative, stores
      within 1% of their norm; each rank's spmm_t, SDDMM and prox_adam
      launches); (e) olmoe-1b-7b's MoE layer at full width, f32, dense
@@ -149,15 +149,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      of ``csrc/bsr_spmm_experts.cu``, the expert on the grid's z axis) on
      layer 0's three projections at M = 1, 8, 16 (decode form) and 40
      (tile form), bf16 and f32 x, every row computed, each held to its
-     plain version and timed beside it, ``torch.bmm`` on the densified
-     weight, 64 single-expert launches (M = 8) and its bound; at M = 8 and
-     40, bf16 x, the launch on the rows layer 0's router fills with M
-     random tokens (the MoE layer's counts), held to the plain version
-     with the same counts, beside its routed bound;
+     plain version and, at ewi, timed beside it, ``torch.bmm`` on the
+     densified weight, 64 single-expert launches (M = 8) and its bound; at
+     M = 8 and 40, bf16 x, the launch on the rows layer 0's router fills
+     with M random tokens (the MoE layer's counts), held to the plain
+     version with the same counts (at ewi beside its routed bound);
      ``generate`` and the engine through the serving CLI from BlockCSR,
-     palette-8 and palette-4 in bf16, with 113 spmm launches a forward (4
-     attention projections and 3 expert launches per layer, and the head)
-     and none per expert; where the engine's time goes; the bf16 prefill
+     palette-8 and palette-4 in bf16 at full width on the first 8 of 16
+     layers, with 57 spmm launches a forward (4 attention projections and
+     3 expert launches per layer, and the head) and none per expert; where the engine's time goes; the bf16 prefill
      at full depth held call by call, and in its logits unless a router
      flipped at a near tie (flips counted and printed); in f32 at 2 of 16
      layers, the kernel path against the plain path (each store) and the
@@ -166,12 +166,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      counts equal the launch counters;
  13b. olmoe-1b-7b training through compressed experts: the expert
      backward (``ops.spmm_t_experts``, dx, and
-     ``bsr_weight_grad_experts``, dw: one launch each for all 64 experts,
-     the expert on the grid's z axis) on layer 0's three projections of
-     phase 13's model (bf16 store) at M = 80 (a debias step's capacity)
-     and 8, bf16 and f32, each held to its plain version (every padded
-     slot zero) and timed beside it, 64 single-expert launches,
-     ``torch.bmm`` on the densified experts or a dense dW, and its bound;
+     ``bsr_weight_grad_experts``, dw: one launch each of
+     ``csrc/bsr_experts_bwd.cu`` for all 64 experts, on each expert's
+     occupied rows) on layer 0's three projections of phase 13's model
+     (bf16 store) at M = 80 (a debias step's capacity) and 8, bf16 and
+     f32, every row and the rows layer 0's router fills, each held to its
+     plain version with the same counts (dx zero past each count, every
+     padded slot and every expert without a token zero in dw); at ewi
+     timed beside the plain version, ``torch.bmm`` on the densified
+     experts or a dense dW, and its bound (on the occupied rows where
+     routed), and at M = 80, bf16, every row, 64 single-expert launches;
      SpC-Retrain (``train/loop.run_spc_retrain_pipeline`` with the plan's
      group-l1 prox) at full width on 2 of 16 layers in bf16, from weights
      whose blocks have spread norms: step times, peak memory, the expert
@@ -375,11 +379,15 @@ PROFILE_TICKS = (30, 42)
 # ROUTER_MEM_SLACK. Failover fails replica 0 once it has streamed
 # ROUTER_FAIL_AFTER tokens.
 ROUTER_REPLICAS = (2, 4)
+# the replicas the CLI runs serve the mix with (Router.build runs N = 1 and
+# ROUTER_REPLICAS)
+ROUTER_CLI_REPLICAS = (4,)
 ROUTER_REQUESTS = 4
 ROUTER_BUSY_WINDOW = (32, 48)
 ROUTER_COUNT_WINDOW = (64, 80)
 ROUTER_MEM_SLACK = 4 * 2**20
-ROUTER_TRACE_ENTRIES = 3_000_000     # the allocator trace of the N = 4 run
+ROUTER_TRACE_ENTRIES = 3_000_000     # the allocator trace of the N = 2 run
+ROUTER_TRACE_REPLICAS = 2
 ROUTER_FAIL_AFTER = 4
 # Training at smollm-360m's width: M = 512 rows (batch 8 x seq 64).
 TRAIN_BATCH, TRAIN_SEQ = 8, 64
@@ -436,10 +444,10 @@ UPDATE_RTOL = 1e-2
 # olmoe-1b-7b's width, one layer, f32, on mesh MESH_EP_SHAPE (the first 2
 # ranks), MESH_EP_BATCH tokens.
 MESH, MESH_SHAPE, MESH_RANKS = "2,2", (2, 2), 4
-MESH_GEN = 4
-MESH_F32_LAYERS = 4
+MESH_GEN = 2
+MESH_F32_LAYERS = 2
 MESH_ENGINE_PROMPTS = (16, 48)
-MESH_TRAIN_LAYERS, MESH_SPC, MESH_DEBIAS = 2, 5, 3
+MESH_TRAIN_LAYERS, MESH_SPC, MESH_DEBIAS = 2, 3, 2
 MESH_EP_SHAPE, MESH_EP_BATCH = (1, 2), 64
 # the expert-parallel y against the single-program y: 1e-4 of the largest
 # |y| (the reference's 1e-4 at its reduced width, where |y| is about 1; the
@@ -535,6 +543,9 @@ MOE_ROUTED_M = (8, 40)
 MOE_ROUTED_SEED = 24
 # its f32 checks run the first 2 of 16 layers (the same weights)
 MOE_F32_LAYERS = 2
+# generate and the engine through the serving CLI: the first 8 of 16
+# layers at full width (the CLI builds and compresses its model each run)
+MOE_SERVE_LAYERS = 8
 # a router near tie: the k-th minus the (k+1)-th prob of some token below
 # this, in some layer; past it a greedy token may differ in f32
 MOE_ROUTER_TIE = 1e-5
@@ -545,6 +556,10 @@ MOE_PROFILE_TICKS = (20, 26)
 # ewi, M = 80, bf16.
 MOE_TRAIN_M = (80, 8)
 MOE_TRAIN_TABLE = ("ewi", 80, torch.bfloat16)
+# the routed rows of the expert backward: the tokens whose capacity is
+# each M (a debias step's 512, and 48, whose capacity is the floor 8),
+# routed by layer 0's router from random token ids
+MOE_TRAIN_TOKENS = {80: 512, 8: 48}
 # SpC-Retrain at full width runs the first 2 of 16 layers: an f32 master,
 # Adam's two moments, the grads and the bf16 casts of all 16 (6.92 B
 # parameters) would pass the card's 80 GB; of 2 layers (1.05 B) they take
@@ -876,10 +891,13 @@ def _device_rows(prof) -> tuple:
     return sum(r[0] for r in rows) / 1e3, rows
 
 
-# the spmm kernels of csrc/bsr_spmm.cu and csrc/bsr_spmm_experts.cu by the
-# names the profiler shows
+# the block-sparse kernels (csrc/bsr_spmm.cu, bsr_spmm_experts.cu,
+# bsr_sddmm.cu, bsr_experts_bwd.cu) by the names the profiler shows
 SPMM_KERNELS = (("decode spmm", "decode_fwd"), ("tile spmm", "bsr_tile_fwd"),
-                ("expert spmm", "bsr_experts_fwd"), ("spmm_t", "bsr_tile_bwd"))
+                ("expert spmm", "bsr_experts_fwd"), ("spmm_t", "bsr_tile_bwd"),
+                ("sddmm", "sddmm_tile_kernel"), ("expert spmm_t",
+                                                 "bsr_experts_dx"),
+                ("expert sddmm", "bsr_experts_dw"))
 
 
 def _log_profile(what: str, wall: float, dev_s: float, rows, top: int,
@@ -894,7 +912,7 @@ def _log_profile(what: str, wall: float, dev_s: float, rows, top: int,
         hits = [(ms, calls) for ms, calls, key in rows if name in key]
         sums.append(f"{label} {sum(h[0] for h in hits):.3f} ms over "
                     f"{sum(h[1] for h in hits)} calls")
-    log(f"  spmm kernels: {', '.join(sums)}")
+    log(f"  block-sparse kernels: {', '.join(sums)}")
 
 
 def _profile(what: str, n_tokens: int, run, top: int) -> None:
@@ -922,8 +940,8 @@ def _held_calls(what: str):
     forward = sparse_ops._forward
     errs = []
 
-    def held(x, w, backend, f32=False, rows=None):
-        y = forward(x, w, backend, f32, rows)
+    def held(x, w, backend, rows=None):
+        y = forward(x, w, backend, rows)
         if backend == "cuda":
             palette = isinstance(w, PaletteBCSR)
             if x.dim() == 3:                 # an MoE layer's experts
@@ -1764,10 +1782,10 @@ def _router_window(model, params, requests, n: int) -> dict:
 
 def router_phase(dev, formats, single) -> None:
     """The router (``serve/router.py``): the engine mix through ``launch/
-    serve --engine --replicas N --route least-loaded`` for N = 2 and 4 in
-    bf16 at full depth, beside the engine phase's single engine; through
+    serve --engine --replicas N --route least-loaded`` for N = 4 in bf16 at
+    full depth, beside the engine phase's single engine; through
     ``Router.build`` for N = 1, 2 and 4 unprofiled (at N = 1 in turn with
-    one engine, for the router's own cost; serving memory), with the allocator's trace at N = 4,
+    one engine, for the router's own cost; serving memory), with the allocator's trace at N = 2,
     and with the busy and count windows; the weights once
     (``Router.build`` grows device memory by the replicas' pools only);
     then in f32 at SMOLLM_F32_LAYERS layers, failover (replica 0 failed
@@ -1777,7 +1795,7 @@ def router_phase(dev, formats, single) -> None:
     requests = _engine_requests(cfg.vocab)
     cli = {1: {"stats": single["stats"], "ticks": [single["stats"]["n_ticks"]],
                "peak": single["peak"]}}
-    for n in ROUTER_REPLICAS:
+    for n in ROUTER_CLI_REPLICAS:
         r = cli[n] = _router_cli_run(n)
         s = r["stats"]
         log(f"router N={n}: {s['tok_s']:.1f} tok/s, ttft p50/p95 "
@@ -1820,7 +1838,7 @@ def router_phase(dev, formats, single) -> None:
                 f"router N={n}: serving raised allocated memory by "
                 f"{runs[n]['rise']} bytes, more than {n} x one replica's "
                 f"{runs[1]['rise']} and {ROUTER_MEM_SLACK} slack")
-    mem = _router_memory(model, params, requests, ROUTER_REPLICAS[-1])
+    mem = _router_memory(model, params, requests, ROUTER_TRACE_REPLICAS)
 
     phase("router: busy and count windows, N = 1, 2, 4")
     for n in (1, *ROUTER_REPLICAS):
@@ -1834,10 +1852,12 @@ def router_phase(dev, formats, single) -> None:
         "unprofiled, then the busy window's device busy time over its "
         "profiled wall and over the same tokens' unprofiled wall:")
     for n in (1, *ROUTER_REPLICAS):
-        c, r = cli[n], runs[n]
-        log(f"  N={n}: CLI {c['stats']['tok_s']:.1f} tok/s, ttft p95 "
-            f"{c['stats']['ttft_p95_s'] * 1e3:.1f} ms, ticks {c['ticks']}, "
-            f"peak memory {c['peak'] / 2**30:.2f} GiB; Router "
+        c, r = cli.get(n), runs[n]
+        log(f"  N={n}: " + (f"CLI {c['stats']['tok_s']:.1f} tok/s, ttft p95 "
+                            f"{c['stats']['ttft_p95_s'] * 1e3:.1f} ms, ticks "
+                            f"{c['ticks']}, peak memory "
+                            f"{c['peak'] / 2**30:.2f} GiB; " if c else
+                            "no CLI run; ") + "Router "
             f"{r['stats']['tok_s']:.1f} tok/s, ttft p95 "
             f"{r['stats']['ttft_p95_s'] * 1e3:.1f} ms, ticks {r['ticks']}, "
             f"serving rise {r['rise'] / 2**20:.1f} MiB; busy share "
@@ -1845,7 +1865,7 @@ def router_phase(dev, formats, single) -> None:
             f"{r['busy_share_unprofiled']:.3f} unprofiled")
     log(f"router: one engine's tok/s over Router N=1's, in turn in this "
         f"phase: {sum(bare_tok_s) / sum(routed_tok_s):.3f}; N = "
-        f"{ROUTER_REPLICAS[-1]}'s serving peak above the build: "
+        f"{ROUTER_TRACE_REPLICAS}'s serving peak above the build: "
         f"{mem['peak']} bytes, {mem['by_stream']}")
 
     phase("router: the weights once")
@@ -2155,7 +2175,8 @@ def mesh_phase(dev, cp) -> dict:
             log(f"  rank {r}: {rec['s']:.1f} s, peak {rec['peak_gib']:.2f} "
                 f"GiB, launches {_mesh_counts(rec)}")
 
-    # (a) prefill logits and greedy tokens, bf16 at full depth, f32 at 4
+    # (a) prefill logits and greedy tokens, bf16 at full depth, f32 at
+    # MESH_F32_LAYERS
     model = build(get_config(ARCH), device=dev)
     for tag, rtol, atol in (("a_bf16", BF16_LOGITS_RTOL, None),
                             ("a_f32", None, F32_LOGITS_ATOL)):
@@ -2631,8 +2652,8 @@ def _dx_taps(sink: list):
     """Record dx of every ``sparse_matmul``, in the order of the backward."""
     orig = sparse_ops.sparse_matmul
 
-    def tapped(x, w, backend="auto", f32=False, rows=None):
-        return orig(_Tap.apply(x, sink), w, backend, f32, rows)
+    def tapped(x, w, backend="auto", out_dtype=None, rows=None):
+        return orig(_Tap.apply(x, sink), w, backend, out_dtype, rows)
 
     sparse_ops.sparse_matmul = tapped
     try:
@@ -3193,22 +3214,22 @@ def _moe_routed_bound(counts, m_rows, w, x_dtype, bits):
     return bound + (_ops_bound(nbytes, flops, torch.bfloat16)[0],)
 
 
-def _moe_routed_counts(dev, cp, cfg) -> dict:
-    """{M: (E,) int32 counts on the card} for MOE_ROUTED_M: the embeddings
-    of M random token ids (seed MOE_ROUTED_SEED) through layer 0's router
-    and the MoE dispatch (``moe._dispatch``) at capacity M."""
+def _moe_routed_counts(dev, cp, cfg, tokens: dict) -> dict:
+    """{M: (E,) int32 counts on the card}: for each M, the embeddings of
+    ``tokens[M]`` random token ids (seed MOE_ROUTED_SEED) through layer 0's
+    router and the MoE dispatch (``moe._dispatch``) at capacity M."""
     from repro_torch.models import moe as moe_lib
     gen = torch.Generator(device=dev).manual_seed(MOE_ROUTED_SEED)
     router = cp.dense["layers"]["b0_attn"]["moe"]["router"][0]
     emb = cp.dense["embed"]["embedding"]
     out = {}
-    for m_rows in MOE_ROUTED_M:
-        ids = torch.randint(0, cfg.vocab, (m_rows,), generator=gen, device=dev)
+    for m_rows, n_tok in tokens.items():
+        ids = torch.randint(0, cfg.vocab, (n_tok,), generator=gen, device=dev)
         _, expert_idx, _ = moe_lib._router_and_aux(router, emb[ids], cfg.moe)
         _, counts = moe_lib._dispatch(expert_idx, cfg.moe.n_experts, m_rows)
         out[m_rows] = counts
         host = counts.cpu()
-        log(f"{MOE}: layer 0's router over {m_rows} random tokens: "
+        log(f"{MOE}: layer 0's router over {n_tok} random tokens: "
             f"{int((host == 0).sum())} of {cfg.moe.n_experts} experts hold "
             f"0 rows, the largest count {int(host.max())} (capacity "
             f"{m_rows}); counts {host.tolist()}")
@@ -3236,7 +3257,8 @@ def _moe_expert_rows(dev, formats) -> dict:
     and to exact zeros past each count, timed beside that plain version,
     with the routed bound and the full one."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    routed = _moe_routed_counts(dev, formats["bcsr"], get_config(MOE))
+    routed = _moe_routed_counts(dev, formats["bcsr"], get_config(MOE),
+                                {m: m for m in MOE_ROUTED_M})
     rows = {}
     for fmt, bits in (("bcsr", None), ("pal8", 8), ("pal4", 4)):
         name = {"bcsr": "bsr_spmm_experts", "pal8": "bsr_spmm_palette8_experts",
@@ -3247,11 +3269,14 @@ def _moe_expert_rows(dev, formats) -> dict:
             w = formats[fmt].sparse["layers"]["b0_attn"]["moe"][proj][0]
             store = w.data if bits is None else w.codes
             e, (n, k) = w.gather_nnz.shape[0], w.shape
-            wd = torch.stack([bcsr_to_dense(w[i] if bits is None
-                                            else w[i].dequantize())[:n, :k]
-                              for i in range(e)]).float().transpose(1, 2) \
-                .contiguous()                          # (E, K, N)
-            wb = wd.bfloat16()
+            timed = proj == "ewi"          # ewg and ewo: held to plain only
+            wd = wb = None
+            if timed:
+                wd = torch.stack([bcsr_to_dense(w[i] if bits is None
+                                                else w[i].dequantize())[:n, :k]
+                                  for i in range(e)]).float() \
+                    .transpose(1, 2).contiguous()          # (E, K, N)
+                wb = wd.bfloat16()
             for m_rows in MOE_M:
                 bmm_ms = {}
                 for x_dtype in (torch.bfloat16, torch.float32):
@@ -3262,14 +3287,25 @@ def _moe_expert_rows(dev, formats) -> dict:
                     err = _check(f"{name} {proj} M={m_rows} {x_dtype}",
                                  fn(x, w), plain(x, w), KERNEL_ATOL,
                                  KERNEL_RTOL)
-                    sets = copies(lambda: (x.clone(), w.map(torch.clone)),
-                                  tensor_bytes(x, store))
+                    row = {"kernel": name, "matrix": f"layer 0 moe.{proj}",
+                           "experts": e, "matrix_shape": [n, k], "M": m_rows,
+                           "x": str(x_dtype).split(".")[-1], "picked": kern,
+                           "resident_blocks": int(w.gather_nnz.sum()),
+                           "max_abs_err": err, "atol": KERNEL_ATOL,
+                           "rtol": KERNEL_RTOL}
+                    row.update(zip(("bound_ms", "bound_by", "bytes", "flops",
+                                    "bound_bf16_ms"),
+                                   _moe_bound(m_rows, w, x_dtype, bits)))
+                    sets = None
+                    if timed:
+                        sets = copies(lambda: (x.clone(), w.map(torch.clone)),
+                                      tensor_bytes(x, store))
 
                     def singles(xs, ws, kern=kern):
                         for i in range(xs.shape[0]):
                             ops._fwd(xs[i], ws[i], kern)
 
-                    if not bmm_ms:
+                    if timed and not bmm_ms:
                         bmm_ms = {
                             "library_ms": time_ms(torch.bmm, copies(
                                 lambda: (x.float(), wd.clone()),
@@ -3278,39 +3314,31 @@ def _moe_expert_rows(dev, formats) -> dict:
                                 lambda: (x.bfloat16(), wb.clone()),
                                 tensor_bytes(x, wb) * 2), MOE_YARDSTICK_CALLS)}
 
-                    row = {"kernel": name, "matrix": f"layer 0 moe.{proj}",
-                           "experts": e, "matrix_shape": [n, k], "M": m_rows,
-                           "x": str(x_dtype).split(".")[-1], "picked": kern,
-                           "resident_blocks": int(w.gather_nnz.sum()),
-                           "max_abs_err": err, "atol": KERNEL_ATOL,
-                           "rtol": KERNEL_RTOL,
-                           "ms": time_ms(fn, sets, MOE_TIMED_CALLS),
-                           "plain_ms": time_ms(plain, sets[:1], 1),
-                           **bmm_ms}
-                    if m_rows == MOE_SINGLES_M:
-                        row["singles_ms"] = time_ms(singles, sets,
-                                                    MOE_YARDSTICK_CALLS)
-                    row.update(zip(("bound_ms", "bound_by", "bytes", "flops",
-                                    "bound_bf16_ms"),
-                                   _moe_bound(m_rows, w, x_dtype, bits)))
+                    if timed:
+                        row.update(ms=time_ms(fn, sets, MOE_TIMED_CALLS),
+                                   plain_ms=time_ms(plain, sets[:1], 1),
+                                   **bmm_ms)
+                        if m_rows == MOE_SINGLES_M:
+                            row["singles_ms"] = time_ms(singles, sets,
+                                                        MOE_YARDSTICK_CALLS)
                     log(json.dumps(row))
                     rows[(fmt, proj, m_rows, x_dtype)] = row
                     if m_rows in routed and x_dtype == torch.bfloat16:
                         rows[(fmt, proj, m_rows, "routed")] = _routed_row(
-                            row, fn, plain, sets, w, routed[m_rows], bits)
+                            row, fn, plain, x, sets, w, routed[m_rows], bits)
                     del sets
             del wd, wb
             torch.cuda.empty_cache()
     return rows
 
 
-def _routed_row(full: dict, fn, plain, sets, w, counts, bits) -> dict:
-    """The routed row beside the full row ``full`` (same inputs): the
+def _routed_row(full: dict, fn, plain, x, sets, w, counts, bits) -> dict:
+    """The routed row beside the full row ``full`` (input ``x``): the
     launch with each expert's occupied rows ``counts``, held to the plain
     version with the same counts at KERNEL_ATOL / KERNEL_RTOL and to exact
-    zeros past each count, timed beside that plain version; its routed
-    bound, and the full row's bound and time for comparison."""
-    x = sets[0][0]
+    zeros past each count; where ``sets`` (the full row's timed input
+    sets) is given, timed beside that plain version, with the full row's
+    time for comparison; its routed bound and the full row's."""
     what = f"{full['kernel']} {full['matrix']} M={full['M']} routed"
     got = fn(x, w, rows=counts)
     err = _check(what, got, plain(x, w, counts), KERNEL_ATOL, KERNEL_RTOL)
@@ -3324,13 +3352,13 @@ def _routed_row(full: dict, fn, plain, sets, w, counts, bits) -> dict:
                                    "resident_blocks", "atol", "rtol")},
            "rows": "routed", "empty_experts": int((host == 0).sum()),
            "largest_count": int(host.max()), "occupied_rows": int(host.sum()),
-           "max_abs_err": err,
-           "ms": time_ms(lambda xs, ws: fn(xs, ws, rows=counts), sets,
-                         MOE_TIMED_CALLS),
-           "plain_ms": time_ms(lambda xs, ws: plain(xs, ws, counts),
-                               sets[:1], 1),
-           "full_ms": full["ms"], "full_bound_ms": full["bound_ms"],
-           "library_ms": full["library_ms"]}
+           "max_abs_err": err, "full_bound_ms": full["bound_ms"]}
+    if sets is not None:
+        row.update(ms=time_ms(lambda xs, ws: fn(xs, ws, rows=counts), sets,
+                              MOE_TIMED_CALLS),
+                   plain_ms=time_ms(lambda xs, ws: plain(xs, ws, counts),
+                                    sets[:1], 1),
+                   full_ms=full["ms"], library_ms=full["library_ms"])
     row.update(zip(("bound_ms", "bound_by", "bytes", "flops", "bound_bf16_ms"),
                    _moe_routed_bound(host.numpy(), full["M"], w,
                                      torch.bfloat16, bits)))
@@ -3555,32 +3583,40 @@ def moe_phase(dev) -> dict:
     req_file.write_text(json.dumps(
         [{"prompt": list(map(int, r.prompt)), "gen": r.max_new_tokens}
          for r in requests]))
+    n_cut = MOE_SERVE_LAYERS
+    cut_single, cut_experts = 4 * n_cut + 1, 3 * n_cut
+    log(f"{MOE}: the serving CLI runs the first {n_cut} of {cfg.n_layers} "
+        f"layers at full width: {cut_single} spmm and {cut_experts} expert "
+        "launches a pass")
     for fmt, extra, wrapper in (("bcsr", [], "spmm"),
                                 ("pal8", ["--quantize-bits", "8"], "spmm_palette"),
                                 ("pal4", ["--quantize-bits", "4"], "spmm_palette")):
-        counts = _serve_run(extra, arch=MOE)
+        with _cut_build(serve, n_cut, f32=False):
+            counts = _serve_run(extra, arch=MOE)
         ew = f"{wrapper}_experts"
-        want = {wrapper: single * GEN, ew: experts * GEN}
+        want = {wrapper: cut_single * GEN, ew: cut_experts * GEN}
         _check_counts(f"{MOE} {fmt} generate", counts, want)
-        if sum(counts[k] for k in ops.FORWARD) != (single + experts) * GEN:
+        if sum(counts[k] for k in ops.FORWARD) != \
+                (cut_single + cut_experts) * GEN:
             raise SystemExit(f"{MOE} {fmt} generate: launches {counts}")
         result[f"generate_{fmt}"] = {
             "launches": {k: counts[k] for k in (wrapper, ew)},
             **{k: counts[f"{ew}_{k}"] for k in ops.KERNELS}}
-        counts, s, peak = _engine_cli_run(f"moe_{fmt}", extra, req_file,
-                                          arch=MOE)
+        with _cut_build(serve, n_cut, f32=False):
+            counts, s, peak = _engine_cli_run(f"moe_{fmt}", extra, req_file,
+                                              arch=MOE)
         ticks = s["n_ticks"]
         _check_counts(f"{MOE} {fmt} engine", counts,
-                      {wrapper: single * ticks, ew: experts * ticks,
-                       "paged_flash_fwd": cfg.n_layers * ticks})
-        if sum(counts[k] for k in ops.FORWARD) != (single + experts) * ticks:
+                      {wrapper: cut_single * ticks, ew: cut_experts * ticks,
+                       "paged_flash_fwd": n_cut * ticks})
+        if sum(counts[k] for k in ops.FORWARD) != \
+                (cut_single + cut_experts) * ticks:
             raise SystemExit(f"{MOE} {fmt} engine: launches {counts}")
         log(f"{MOE} engine {fmt} bf16: {s['tok_s']:.1f} tok/s, ttft p50/p95 "
             f"{s['ttft_p50_s'] * 1e3:.1f}/{s['ttft_p95_s'] * 1e3:.1f} ms, "
-            f"{ticks} ticks, {s['n_prefill_chunks']} prefill chunks, model "
-            f"{sizes[fmt] / 1e6:.2f} MB, kv pool {s['kv_page_bytes']} bytes, "
-            f"peak memory {peak / 2**30:.2f} GiB; {single + experts} spmm "
-            "launches a tick")
+            f"{ticks} ticks, {s['n_prefill_chunks']} prefill chunks, kv pool "
+            f"{s['kv_page_bytes']} bytes, peak memory {peak / 2**30:.2f} GiB; "
+            f"{cut_single + cut_experts} spmm launches a tick")
         result[f"engine_{fmt}"] = {
             "tok_s": s["tok_s"], "ttft_p50_s": s["ttft_p50_s"],
             "ttft_p95_s": s["ttft_p95_s"], "ticks": ticks,
@@ -3674,111 +3710,172 @@ def moe_phase(dev) -> dict:
 # MoE training (olmoe-1b-7b)
 # ---------------------------------------------------------------------------
 
-def _expert_bound(one, dtypes, w, *ts):
-    """A single-matrix bound helper (``_spmm_t_bound``, ``_sddmm_bound``)
-    summed over the experts of one launch: each expert's bytes and flops,
-    at the rate of the operand types ``dtypes``."""
+def _expert_bwd_bound(kind, w, dy, counts=None):
+    """(bound ms, what bounds it, bytes, flops) of one expert backward call
+    (``kind`` "spmm_t": dX = dY W; "sddmm": dW, x of dY's dtype): each
+    expert's single-matrix bound (``_spmm_t_bound``, ``_sddmm_bound``) on
+    its rows. With ``counts`` ((E,), on the host), the experts that hold a
+    token only, on their occupied rows (dY, x and the products), with every
+    dX row of such an expert written (the rows past its count are zeros)
+    and its valid slots."""
+    e = w.gather_nnz.shape[0]
     nbytes = flops = 0
-    for i in range(w.gather_nnz.shape[0]):
-        b = one(w[i], *(t[i] for t in ts))
-        nbytes, flops = nbytes + b[2], flops + b[3]
-    return _ops_bound(nbytes, flops, *dtypes)
+    for i in range(e):
+        m = dy.shape[1] if counts is None else int(counts[i])
+        if m == 0:
+            continue
+        d = dy[i, :m]
+        if kind == "spmm_t":
+            b = _spmm_t_bound(w[i], d)
+            # dX: every row of the buffer, not only the occupied ones
+            extra = (dy.shape[1] - m) * w.shape[1] * 4
+        else:
+            b = _sddmm_bound(w[i], d.new_empty((m, w.shape[1])), d)
+            extra = 0
+        nbytes, flops = nbytes + b[2] + extra, flops + b[3]
+    return _ops_bound(nbytes, flops, dy.dtype, w.data.dtype)
 
 
 def _moe_train_kernel_rows(dev, cp) -> dict:
     """Rows 1be / 4e: the expert backward (``spmm_t_experts``, dx, and
-    ``bsr_weight_grad_experts``, dw) on layer 0's ewi, ewg and ewo of the
-    phase-13 model (64 experts, (8, 128) blocks at 0.9, the store in bf16),
-    at M = 80 (a debias step's capacity) and 8 (the capacity's floor), dY
-    and x in bf16 and f32. Each call held to its plain version (a loop of
-    the single-matrix plain version over the experts), every expert's
-    padded slots zero in dw; timed beside the plain version, 64
-    single-expert launches of ``spmm_t`` / ``bsr_weight_grad``, the library
-    yardsticks ``torch.bmm(dY, densified W)`` and ``torch.bmm(dY', X)`` (a
-    dense dW; the port calls neither), and the bound."""
+    ``bsr_weight_grad_experts``, dw; ``csrc/bsr_experts_bwd.cu``) on layer
+    0's ewi, ewg and ewo of the phase-13 model (64 experts, (8, 128) blocks
+    at 0.9, the store in bf16), at M = 80 (a debias step's capacity) and 8
+    (the capacity's floor), dY and x in bf16 (the cotangent bf16 training
+    hands them) and f32, every row and the rows layer 0's router fills
+    (``_moe_routed_counts`` on MOE_TRAIN_TOKENS). Each call held to its
+    plain version with the same counts (a loop of the single-matrix plain
+    version over the experts), dx exact zeros past each count, every
+    padded slot and every expert without a token zero in dw. At ewi each call is timed beside
+    the plain version, the library yardsticks ``torch.bmm(dY, densified
+    W)`` and ``torch.bmm(dY', X)`` (a dense dW; the port calls neither) and
+    its bound (the routed bound on the occupied rows); at M = 80, bf16,
+    every row, also 64 single-expert launches of ``spmm_t`` /
+    ``bsr_weight_grad``. Rows keyed (kernel, proj, M, dtype, "full" |
+    "routed")."""
     gen = torch.Generator(device=dev).manual_seed(5)
+    routed = _moe_routed_counts(dev, cp, get_config(MOE), MOE_TRAIN_TOKENS)
+    table_proj, table_m, table_dt = MOE_TRAIN_TABLE
     rows = {}
     for proj in ("ewi", "ewg", "ewo"):
         w32 = cp.sparse["layers"]["b0_attn"]["moe"][proj][0]
         w = dataclasses.replace(w32, data=w32.data.to(torch.bfloat16))
         e, (n, k) = w.gather_nnz.shape[0], w.shape
         valid = sddmm_ops.slot_coordinates(w)[2]
-        wd = torch.stack([bcsr_to_dense(w[i])[:n, :k] for i in range(e)])
+        timed = proj == table_proj
+        wd = (torch.stack([bcsr_to_dense(w[i])[:n, :k] for i in range(e)])
+              if timed else None)
         for m_rows in MOE_TRAIN_M:
             for dt in (torch.bfloat16, torch.float32):
                 lib = str(dt).split(".")[-1]
                 dy = torch.randn(e, m_rows, n, generator=gen, device=dev).to(dt)
                 x = torch.randn(e, m_rows, k, generator=gen, device=dev).to(dt)
-                wdt = wd.to(dt)
                 base = {"matrix": f"layer 0 moe.{proj}", "experts": e,
                         "matrix_shape": [n, k], "M": m_rows, "dtype": lib,
                         "store": "bfloat16",
                         "resident_blocks": int(w.gather_nnz.sum())}
-                err = _check(f"spmm_t_experts {proj} M={m_rows} {dt}",
-                             ops.spmm_t_experts(dy, w),
-                             ref.spmm_experts_bwd_ref(dy, w), KERNEL_ATOL,
-                             KERNEL_RTOL)
-                sets = copies(lambda: (dy.clone(), w.map(torch.clone)),
-                              tensor_bytes(dy, w.data))
+                yard = {}
+                if timed:
+                    wdt = wd.to(dt)
+                    yard = {
+                        "spmm_t_experts": time_ms(torch.bmm, copies(
+                            lambda: (dy.clone(), wdt.clone()),
+                            tensor_bytes(dy, wdt)), MOE_YARDSTICK_CALLS),
+                        "bsr_sddmm_experts": time_ms(
+                            lambda a, b: torch.bmm(a.transpose(1, 2), b),
+                            copies(lambda: (dy.clone(), x.clone()),
+                                   tensor_bytes(x, dy)), MOE_YARDSTICK_CALLS)}
+                    del wdt
+                for label in ("full", "routed"):
+                    counts = None if label == "full" else routed[m_rows]
+                    host = None if counts is None else counts.cpu()
+                    what = f"{proj} M={m_rows} {lib} {label}"
+                    got = ops.spmm_t_experts(dy, w, counts)
+                    err = _check(f"spmm_t_experts {what}", got,
+                                 ref.spmm_experts_bwd_ref(dy, w, counts),
+                                 KERNEL_ATOL, KERNEL_RTOL)
+                    if host is not None and any(
+                            bool(got[i, r:].any())
+                            for i, r in enumerate(host.tolist())):
+                        raise SystemExit(f"spmm_t_experts {what}: nonzero dx "
+                                         "past a count")
+                    row = {"kernel": "bsr_spmm_t_experts", **base,
+                           "rows": label, "max_abs_err": err,
+                           "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL}
+                    if host is not None:
+                        row.update(empty_experts=int((host == 0).sum()),
+                                   occupied_rows=int(host.sum()))
+                    if timed:
+                        sets = copies(lambda: (dy.clone(), w.map(torch.clone)),
+                                      tensor_bytes(dy, w.data))
+                        row.update(
+                            ms=time_ms(lambda d, ww: ops.spmm_t_experts(
+                                d, ww, counts), sets, MOE_TIMED_CALLS),
+                            plain_ms=time_ms(
+                                lambda d, ww: ref.spmm_experts_bwd_ref(
+                                    d, ww, counts), sets[:1], 1),
+                            library_ms=yard["spmm_t_experts"],
+                            library=f"torch.bmm(dY, densified W) {lib}")
+                        row.update(zip(("bound_ms", "bound_by", "bytes",
+                                        "flops"), _expert_bwd_bound(
+                                            "spmm_t", w, dy, host)))
+                        if (m_rows, dt, label) == (table_m, table_dt, "full"):
+                            def t_singles(d, ww):
+                                for i in range(d.shape[0]):
+                                    ops.spmm_t(d[i], ww[i])
+                            row["singles_ms"] = time_ms(t_singles, sets,
+                                                        MOE_YARDSTICK_CALLS)
+                        del sets
+                    log(json.dumps(row))
+                    rows[("spmm_t_experts", proj, m_rows, dt, label)] = row
 
-                def t_singles(d, ww):
-                    for i in range(d.shape[0]):
-                        ops.spmm_t(d[i], ww[i])
-
-                row = {"kernel": "bsr_spmm_t_experts", **base,
-                       "max_abs_err": err, "atol": KERNEL_ATOL,
-                       "rtol": KERNEL_RTOL,
-                       "ms": time_ms(ops.spmm_t_experts, sets, MOE_TIMED_CALLS),
-                       "singles_ms": time_ms(t_singles, sets,
-                                             MOE_YARDSTICK_CALLS),
-                       "plain_ms": time_ms(ref.spmm_experts_bwd_ref,
-                                           sets[:1], 1),
-                       "library_ms": time_ms(torch.bmm, copies(
-                           lambda: (dy.clone(), wdt.clone()),
-                           tensor_bytes(dy, wdt)), MOE_YARDSTICK_CALLS),
-                       "library": f"torch.bmm(dY, densified W) {lib}"}
-                row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
-                               _expert_bound(_spmm_t_bound, (dt, w.data.dtype),
-                                             w, dy)))
-                log(json.dumps(row))
-                rows[("spmm_t_experts", proj, m_rows, dt)] = row
-                del sets
-
-                got = sddmm_ops.bsr_weight_grad_experts(x, dy, w)
-                err = _check(f"bsr_sddmm_experts {proj} M={m_rows} {dt}", got,
-                             sddmm_ops.bsr_weight_grad_experts_ref(x, dy, w),
-                             SDDMM_ATOL, SDDMM_RTOL)
-                if not bool((got[~valid] == 0).all()):
-                    raise SystemExit(f"bsr_sddmm_experts {proj}: a padded or "
-                                     "pad slot is not zero")
-                sets = copies(lambda: (x.clone(), dy.clone(), w),
-                              tensor_bytes(x, dy))
-
-                def s_singles(xs, d, ww):
-                    for i in range(xs.shape[0]):
-                        sddmm_ops.bsr_weight_grad(xs[i], d[i], ww[i])
-
-                row = {"kernel": "bsr_sddmm_experts", **base,
-                       "slots": int(w.data.shape[1]),
-                       "valid_slots": int(valid.sum()),
-                       "max_abs_err": err, "atol": SDDMM_ATOL,
-                       "rtol": SDDMM_RTOL,
-                       "ms": time_ms(sddmm_ops.bsr_weight_grad_experts, sets,
-                                     MOE_TIMED_CALLS),
-                       "singles_ms": time_ms(s_singles, sets,
-                                             MOE_YARDSTICK_CALLS),
-                       "plain_ms": time_ms(
-                           sddmm_ops.bsr_weight_grad_experts_ref, sets[:1], 1),
-                       "library_ms": time_ms(
-                           lambda a, b: torch.bmm(a.transpose(1, 2), b),
-                           copies(lambda: (dy.clone(), x.clone()),
-                                  tensor_bytes(x, dy)), MOE_YARDSTICK_CALLS),
-                       "library": f"torch.bmm(dY', X) {lib} (dense dW)"}
-                row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
-                               _expert_bound(_sddmm_bound, (dt, dt), w, x, dy)))
-                log(json.dumps(row))
-                rows[("bsr_sddmm_experts", proj, m_rows, dt)] = row
-                del sets, got
+                    got = sddmm_ops.bsr_weight_grad_experts(x, dy, w, counts)
+                    err = _check(f"bsr_sddmm_experts {what}", got,
+                                 sddmm_ops.bsr_weight_grad_experts_ref(
+                                     x, dy, w, counts),
+                                 SDDMM_ATOL, SDDMM_RTOL)
+                    empty = (torch.zeros(e, dtype=torch.bool) if host is None
+                             else host == 0).to(dev)
+                    if bool(got[~valid].any()) or bool(got[empty].any()):
+                        raise SystemExit(f"bsr_sddmm_experts {what}: a padded "
+                                         "slot or an expert without tokens "
+                                         "is not zero")
+                    row = {"kernel": "bsr_sddmm_experts", **base,
+                           "rows": label, "slots": int(w.data.shape[1]),
+                           "valid_slots": int(valid.sum()),
+                           "max_abs_err": err, "atol": SDDMM_ATOL,
+                           "rtol": SDDMM_RTOL}
+                    if host is not None:
+                        row.update(empty_experts=int((host == 0).sum()),
+                                   occupied_rows=int(host.sum()))
+                    if timed:
+                        sets = copies(lambda: (x.clone(), dy.clone(), w),
+                                      tensor_bytes(x, dy))
+                        row.update(
+                            ms=time_ms(lambda xs, d, ww:
+                                       sddmm_ops.bsr_weight_grad_experts(
+                                           xs, d, ww, counts),
+                                       sets, MOE_TIMED_CALLS),
+                            plain_ms=time_ms(
+                                lambda xs, d, ww:
+                                sddmm_ops.bsr_weight_grad_experts_ref(
+                                    xs, d, ww, counts), sets[:1], 1),
+                            library_ms=yard["bsr_sddmm_experts"],
+                            library=f"torch.bmm(dY', X) {lib} (dense dW)")
+                        row.update(zip(("bound_ms", "bound_by", "bytes",
+                                        "flops"), _expert_bwd_bound(
+                                            "sddmm", w, dy, host)))
+                        if (m_rows, dt, label) == (table_m, table_dt, "full"):
+                            def s_singles(xs, d, ww):
+                                for i in range(xs.shape[0]):
+                                    sddmm_ops.bsr_weight_grad(xs[i], d[i],
+                                                              ww[i])
+                            row["singles_ms"] = time_ms(s_singles, sets,
+                                                        MOE_YARDSTICK_CALLS)
+                        del sets
+                    log(json.dumps(row))
+                    rows[("bsr_sddmm_experts", proj, m_rows, dt, label)] = row
+                    del got
         del wd
         torch.cuda.empty_cache()
     return rows
@@ -3980,22 +4077,22 @@ def _held_backward(what: str):
             raise SystemExit(f"{what}: {desc} disagrees with plain, max err "
                              f"{errs[-1]}")
 
-    def dx(dy, w, backend):
-        got = dx_product(dy, w, backend)
+    def dx(dy, w, backend, rows=None):
+        got = dx_product(dy, w, backend, rows)
         if backend == "cuda":
-            plain = ref.spmm_experts_bwd_ref if dy.dim() == 3 else \
-                ref.spmm_bwd_ref
-            hold(got, plain(dy, w), KERNEL_ATOL, KERNEL_RTOL,
-                 f"dx call (dy {tuple(dy.shape)}, W {w.shape})")
+            want = (ref.spmm_experts_bwd_ref(dy, w, rows) if dy.dim() == 3
+                    else ref.spmm_bwd_ref(dy, w))
+            hold(got, want, KERNEL_ATOL, KERNEL_RTOL,
+                 f"dx call (dy {tuple(dy.shape)} {dy.dtype}, W {w.shape})")
         return got
 
-    def dw(x, dy, w, backend):
-        got = dw_product(x, dy, w, backend)
+    def dw(x, dy, w, backend, rows=None):
+        got = dw_product(x, dy, w, backend, rows)
         if backend == "cuda":
-            plain = (sddmm_ops.bsr_weight_grad_experts_ref if x.dim() == 3
-                     else sddmm_ops.bsr_weight_grad_ref)
-            hold(got, plain(x, dy, w), SDDMM_ATOL, SDDMM_RTOL,
-                 f"dw call (x {tuple(x.shape)}, W {w.shape})")
+            want = (sddmm_ops.bsr_weight_grad_experts_ref(x, dy, w, rows)
+                    if x.dim() == 3 else sddmm_ops.bsr_weight_grad_ref(x, dy, w))
+            hold(got, want, SDDMM_ATOL, SDDMM_RTOL,
+                 f"dw call (x {tuple(x.shape)}, dy {dy.dtype}, W {w.shape})")
         return got
 
     sparse_ops._dx_product, sparse_ops._dw_product = dx, dw
@@ -4394,22 +4491,25 @@ def _recurrent_train_table_rows(table, rt, card) -> None:
 
 def _moe_train_rows(table, mt, card) -> None:
     """Rows 1be / 4e: the expert backward at olmoe-1b-7b's layer-0 ewi (64
-    experts of (1024, 2048), bf16 dY, x and store, M = 80); launches are
-    the SpC-Retrain run's (its debias steps), and the full-depth debias
-    run's beside them."""
+    experts of (1024, 2048), bf16 dY, x and store, M = 80, every row;
+    beside it the routed rows, f32 dY and x, and M = 8); launches are the
+    SpC-Retrain run's (its debias steps), and the full-depth debias run's
+    beside them."""
     proj, m_rows, dt = MOE_TRAIN_TABLE
-    for name, key, source, replaces in (
-            ("bsr_spmm_t_experts", "spmm_t_experts",
-             "src/repro_torch/csrc/bsr_spmm_experts.cu",
-             "src/repro/kernels/bsr_spmm/bsr_spmm.py:163"),
-            ("bsr_sddmm_experts", "bsr_sddmm_experts",
-             "src/repro_torch/csrc/bsr_sddmm.cu",
-             "src/repro/kernels/bsr_sddmm/bsr_sddmm.py:44")):
+    f32 = torch.float32
+    for name, key in (("bsr_spmm_t_experts", "spmm_t_experts"),
+                      ("bsr_sddmm_experts", "bsr_sddmm_experts")):
         rows = mt["kernel_rows"]
-        r = rows[(key, proj, m_rows, dt)]
+        r = rows[(key, proj, m_rows, dt, "full")]
+        rr = rows[(key, proj, m_rows, dt, "routed")]
+        rf = rows[(key, proj, m_rows, f32, "full")]
+        r8 = rows[(key, proj, 8, dt, "routed")]
         table.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/bsr_experts_bwd.cu",
+            "replaces": ("src/repro/kernels/bsr_spmm/bsr_spmm.py:163"
+                         if key == "spmm_t_experts" else
+                         "src/repro/kernels/bsr_sddmm/bsr_sddmm.py:44"),
             "launches": mt["spc_retrain"]["launches"][key],
             "full_depth_debias_launches": mt["debias_full"]["launches"][key],
             "max_abs_err": max(v["max_abs_err"] for q, v in rows.items()
@@ -4417,6 +4517,12 @@ def _moe_train_rows(table, mt, card) -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "singles_ms": r["singles_ms"],
+            "routed_ms": rr["ms"], "routed_bound_ms": rr["bound_ms"],
+            "routed_bound_by": rr["bound_by"],
+            "routed_empty_experts": rr["empty_experts"],
+            "f32_ms": rf["ms"], "f32_bound_ms": rf["bound_ms"],
+            "f32_library_ms": rf["library_ms"],
+            "m8_routed_ms": r8["ms"], "m8_routed_bound_ms": r8["bound_ms"],
             "shape": f"{MOE} layer 0 {proj}, {r['experts']} experts of "
                      f"{r['matrix_shape']}, M={m_rows} dy=x=bfloat16 "
                      "store=bfloat16",

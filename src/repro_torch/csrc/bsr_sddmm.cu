@@ -43,21 +43,6 @@
 // * The zeros of the invalid slots: written by the thread blocks past the
 //   columns' (the last blockIdx.x, at y = 0) when M is not split, else by
 //   the combine.
-// * The expert axis (ops.bsr_weight_grad_experts; the MoE FFN's compressed
-//   experts, replacing the reference's lax.map of one VJP per expert): E
-//   stacked problems in one launch. blockIdx.z = expert * n_split + split
-//   (the split of M keeps its place, so gridDim.z = E n_split, at most
-//   65,535); expert e's dY, X, tables, valid mask and output (or its
-//   n_split partial sums) lie at e times their per-expert sizes from the
-//   first's. The stacked stores share one slot count and table width (the
-//   compression pads every expert to the widest), so every expert runs the
-//   grid of the widest; its padded slots are invalid and written as zero.
-//   A single matrix (E = 1) runs an instantiation without the offsets
-//   (EXP false), the kernel's code before the expert axis: the 64-bit
-//   offsets take 10-16 more registers a thread. The combine takes the
-//   expert on blockIdx.y, so that it divides no index by the expert's
-//   size: with both on every thread, the single-matrix call at
-//   smollm-360m's mlp.wi (M split 4 ways) ran 7% slower (PERF.md).
 //
 // Built with nvcc into a shared library with a plain C interface; the
 // entry launches on the caller's stream, allocates nothing and returns
@@ -111,27 +96,13 @@ __device__ __forceinline__ void stage_chunk(int q, const TY* dy, const TX* x,
   }
 }
 
-template <int NT, typename TY, typename TX, bool EXP>
+template <int NT, typename TY, typename TX>
 __global__ void __launch_bounds__(kWarps * 32, 1)
 sddmm_tile_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
                   const int* __restrict__ t_idx, const int* __restrict__ t_blk,
                   const int* __restrict__ t_nnz, const int* __restrict__ valid,
                   float* __restrict__ out, int M, int N, int K, int C, int jmax_t, int br,
-                  int bc, int n_slots, int rows_per_split, int n_split, int x_vec, int y_vec) {
-  int split = blockIdx.z;
-  if constexpr (EXP) {
-    // blockIdx.z = expert * n_split + split: move to the expert's operands
-    // (its partial sums in the scratch when M is split)
-    split = blockIdx.z % n_split;
-    const long long e = blockIdx.z / n_split;
-    dy += e * M * N;
-    x += e * M * K;
-    t_idx += e * C * jmax_t;
-    t_blk += e * C * jmax_t;
-    t_nnz += e * C;
-    valid += e * n_slots;
-    out += e * n_split * n_slots * br * bc;
-  }
+                  int bc, int n_slots, int rows_per_split, int x_vec, int y_vec) {
   constexpr int XS = bsr::parts<TX>(), YS = bsr::parts<TY>();
   constexpr int SPB = kWarps / NT;                 // slots per thread block
   constexpr int MT = kK / 16 / NT;                 // m-tiles per warp
@@ -145,7 +116,7 @@ sddmm_tile_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
   const size_t n_out = (size_t)br * bc;
 
   if ((int)blockIdx.x >= C * n_kc * n_nc) {        // zeros of invalid slots
-    if (blockIdx.y || split) return;
+    if (blockIdx.y || blockIdx.z) return;
     const int s0 = (blockIdx.x - C * n_kc * n_nc) * kZeroSlots;
     for (int s = s0; s < min(s0 + kZeroSlots, n_slots); ++s)
       if (!valid[s])
@@ -157,7 +128,8 @@ sddmm_tile_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
   const int j0 = blockIdx.y * SPB;
   const int n_j = t_nnz[c];
   if (j0 >= n_j) return;                           // block-uniform
-  const int r0 = split * rows_per_split, r1 = min(M, r0 + rows_per_split);
+  const int z = blockIdx.z;
+  const int r0 = z * rows_per_split, r1 = min(M, r0 + rows_per_split);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int my_j = j0 + warp / NT, mg = warp % NT;
   float acc[MT][NT][4], t[MT][NT][4];
@@ -198,7 +170,7 @@ sddmm_tile_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
   }
   if (my_j >= n_j) return;
   const int s = t_blk[(size_t)c * jmax_t + my_j];
-  float* const o = out + ((size_t)split * n_slots + s) * n_out;
+  float* const o = out + ((size_t)z * n_slots + s) * n_out;
   // thread: X columns (m) lane / 4 and lane / 4 + 8 of each m-tile, dY
   // columns (n) 8n + 2 (lane % 4) + {0, 1}; dW[s] is (br, bc), so dW[n][m]
 #pragma unroll
@@ -217,15 +189,12 @@ sddmm_tile_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
     }
 }
 
-// out[x][s] = sum over z of part[x][z][s], z = 0, 1, ... in order, at
-// expert x's valid slots (x = blockIdx.y); zero at the others.
+// out[s] = sum over z of part[z][s], z = 0, 1, ... in order, at valid
+// slots; zero at the others.
 __global__ void sddmm_combine_kernel(const float* __restrict__ part,
                                      const int* __restrict__ valid, float* __restrict__ out,
                                      int n_slots, int n_out, int n_split) {
   const size_t total = (size_t)n_slots * n_out;
-  part += (size_t)blockIdx.y * n_split * total;
-  valid += (size_t)blockIdx.y * n_slots;
-  out += (size_t)blockIdx.y * total;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (size_t)gridDim.x * blockDim.x) {
     float v = 0.f;
@@ -235,16 +204,16 @@ __global__ void sddmm_combine_kernel(const float* __restrict__ part,
   }
 }
 
-template <int NT, typename TY, typename TX, bool EXP>
+template <int NT, typename TY, typename TX>
 int launch_t(const void* dy, const void* x, const int* t_idx, const int* t_blk,
              const int* t_nnz, const int* valid, float* out, float* scratch, int M, int N,
              int K, int C, int jmax_t, int n_slots, int br, int bc, int n_split, int x_vec,
-             int y_vec, int E, cudaStream_t st) {
+             int y_vec, cudaStream_t st) {
   constexpr int XS = bsr::parts<TX>(), YS = bsr::parts<TY>();
   constexpr int SPB = kWarps / NT;
   const size_t smem = sizeof(H) * 2 *
       ((size_t)XS * kChunk * kStr + (size_t)YS * SPB * kChunk * dy_stride(NT));
-  auto kern = sddmm_tile_kernel<NT, TY, TX, EXP>;
+  auto kern = sddmm_tile_kernel<NT, TY, TX>;
   static size_t opted = 48 * 1024;             // the limit raised so far
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -258,74 +227,57 @@ int launch_t(const void* dy, const void* x, const int* t_idx, const int* t_blk,
   // the combine with one
   const int zero_blocks = n_split > 1 ? 0 : (n_slots + kZeroSlots - 1) / kZeroSlots;
   const int rows = ((M + n_split - 1) / n_split + kChunk - 1) / kChunk * kChunk;
-  const dim3 grid(C * n_kc * n_nc + zero_blocks, groups, E * n_split);
+  const dim3 grid(C * n_kc * n_nc + zero_blocks, groups, n_split);
   kern<<<grid, kWarps * 32, smem, st>>>(
       static_cast<const TY*>(dy), static_cast<const TX*>(x), t_idx, t_blk, t_nnz, valid,
-      n_split > 1 ? scratch : out, M, N, K, C, jmax_t, br, bc, n_slots, rows, n_split, x_vec,
-      y_vec);
+      n_split > 1 ? scratch : out, M, N, K, C, jmax_t, br, bc, n_slots, rows, x_vec, y_vec);
   if (n_split > 1) {
     const size_t total = (size_t)n_slots * br * bc;
-    const dim3 blocks(static_cast<unsigned>(std::min<size_t>((total + 255) / 256, 4096)), E);
+    const int blocks = static_cast<int>(std::min<size_t>((total + 255) / 256, 4096));
     sddmm_combine_kernel<<<blocks, 256, 0, st>>>(scratch, valid, out, n_slots, br * bc,
                                                  n_split);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TY, typename TX, bool EXP>
-int launch_nt(const void* dy, const void* x, const int* t_idx, const int* t_blk,
-              const int* t_nnz, const int* valid, float* out, float* scratch, int M, int N,
-              int K, int C, int jmax_t, int n_slots, int br, int bc, int n_split, int x_vec,
-              int y_vec, int E, cudaStream_t st) {
-#define SDDMM_ARGS dy, x, t_idx, t_blk, t_nnz, valid, out, scratch, M, N, K, C, jmax_t, \
-                   n_slots, br, bc, n_split, x_vec, y_vec, E, st
-  switch (bsr::n_tiles(min(br, 32))) {
-    case 1: return launch_t<1, TY, TX, EXP>(SDDMM_ARGS);
-    case 2: return launch_t<2, TY, TX, EXP>(SDDMM_ARGS);
-    case 4: return launch_t<4, TY, TX, EXP>(SDDMM_ARGS);
-  }
-#undef SDDMM_ARGS
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// E > 1 runs the instantiation with the expert offsets, a single matrix
-// the one without (the kernel's code before the expert axis; the offsets
-// cost 10-16 registers a thread).
 template <typename TY, typename TX>
 int launch(const void* dy, const void* x, const int* t_idx, const int* t_blk,
            const int* t_nnz, const int* valid, float* out, float* scratch, int M, int N,
            int K, int C, int jmax_t, int n_slots, int br, int bc, int n_split, int x_vec,
-           int y_vec, int E, cudaStream_t st) {
+           int y_vec, cudaStream_t st) {
 #define SDDMM_ARGS dy, x, t_idx, t_blk, t_nnz, valid, out, scratch, M, N, K, C, jmax_t, \
-                   n_slots, br, bc, n_split, x_vec, y_vec, E, st
-  return E > 1 ? launch_nt<TY, TX, true>(SDDMM_ARGS) : launch_nt<TY, TX, false>(SDDMM_ARGS);
+                   n_slots, br, bc, n_split, x_vec, y_vec, st
+  switch (bsr::n_tiles(min(br, 32))) {
+    case 1: return launch_t<1, TY, TX>(SDDMM_ARGS);
+    case 2: return launch_t<2, TY, TX>(SDDMM_ARGS);
+    case 4: return launch_t<4, TY, TX>(SDDMM_ARGS);
+  }
 #undef SDDMM_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (E, n_slots, br, bc) f32 = per-slot dY_e' X_e for E stacked BlockCSR
-// weights (E = 1: one matrix); dy (E, M, N) and x (E, M, K) f32 or bf16;
-// t_idx / t_blk (E, C, jmax_t) and t_nnz (E, C) the block-CSC tables,
-// valid (E, n_slots) int32; any block (br past 32 in groups of 32 columns
-// of dY, bc in chunks of 128 columns of X). With n_split > 1, scratch
-// holds E * n_split * n_slots * br * bc floats of partial sums. x_vec /
-// y_vec: the rows of x / dy are 16-byte aligned (see bsr_tile.cuh).
+// out (n_slots, br, bc) f32 = per-slot dY' X; dy (M, N) and x (M, K) f32 or
+// bf16; t_idx / t_blk (C, jmax_t) and t_nnz (C,) the block-CSC tables,
+// valid (n_slots,) int32; any block (br past 32 in groups of 32 columns of
+// dY, bc in chunks of 128 columns of X). With n_split > 1,
+// scratch holds n_split * n_slots * br * bc floats of partial sums.
+// x_vec / y_vec: the rows of x / dy are 16-byte aligned (see bsr_tile.cuh).
 int bsr_sddmm(const void* dy, int dy_is_bf16, const void* x, int x_is_bf16,
               const int* t_idx, const int* t_blk, const int* t_nnz, const int* valid,
               float* out, float* scratch, int M, int N, int K, int C, int jmax_t,
-              int n_slots, int br, int bc, int n_split, int x_vec, int y_vec, int E,
+              int n_slots, int br, int bc, int n_split, int x_vec, int y_vec,
               void* stream) {
   if (br < 1 || bc < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_split < 1 || (n_split > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (E < 1 || (long long)E * n_split > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (n_slots == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SDDMM_ARGS dy, x, t_idx, t_blk, t_nnz, valid, out, scratch, M, N, K, C, jmax_t, \
-                   n_slots, br, bc, n_split, x_vec, y_vec, E, st
+                   n_slots, br, bc, n_split, x_vec, y_vec, st
   if (dy_is_bf16)
     return x_is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(SDDMM_ARGS)
                      : launch<__nv_bfloat16, float>(SDDMM_ARGS);

@@ -97,17 +97,9 @@
 //   the time.
 //
 // The expert axis (an MoE layer's E stacked matrices in one launch) is
-// built apart, by bsr_spmm_experts.cu, which includes this file with
-// BSR_SPMM_EXPERTS set: nvcc builds the two at once. Its forward has kernels
-// of its own there (bsr_experts_fwd, driven by each expert's occupied
-// rows); its backward (ops.spmm_t_experts) is bsr_tile_bwd below with EXP
-// true, blockIdx.z the expert: expert e's dY, dX, transposed tables and
-// block store lie at e times a per-expert stride (Experts below) from the
-// first's; the stacked stores share one slot count and table width (the
-// compression pads them), so every expert runs the grid of the widest. A
-// single matrix runs the instantiation without the offsets (EXP false):
-// with them, 64-bit products in every thread block cost the single-matrix
-// calls about 2% (PERF.md).
+// built apart: its forward by bsr_spmm_experts.cu, which includes this file
+// with BSR_SPMM_EXPERTS set (for Experts below; none of this file's entries
+// is built there), its backward by bsr_experts_bwd.cu.
 //
 // f32 operands on the tensor cores go as three bf16 parts that hold them
 // exactly; of two split operands only the products whose part orders sum to
@@ -133,8 +125,6 @@
 
 namespace {
 
-constexpr bool kExperts = BSR_SPMM_EXPERTS;   // this build's backward: the expert axis
-
 constexpr int kDecWarps = 8;         // decode: warps per thread block
 constexpr int kDecOut = 32;          // decode: outputs of a task, 32 / br rows x br
 
@@ -142,10 +132,8 @@ using bsr::to_f32;
 
 // Per-expert strides of the operands, in elements of each (x, y, the
 // gather tables idx / blk, nnz, the block store; for a palette store w is
-// in bytes of codes, and the palette's stride is its 2**BITS entries). The
-// backward reads x as dY's, y as dX's, tab and nnz as the transposed
-// tables'. Unused for a single matrix; the expert forward
-// (bsr_spmm_experts.cu) takes the same.
+// in bytes of codes, and the palette's stride is its 2**BITS entries), as
+// the expert forward (bsr_spmm_experts.cu) takes them.
 struct Experts {
   long long x, y, tab, nnz, w;
 };
@@ -456,21 +444,12 @@ bsr_tile_fwd(const TX* __restrict__ x, Blocks w, const int* __restrict__ idx,
 constexpr int kTCols = 64;                 // dX columns of a thread block
 constexpr int kTStr = kTCols + 8;          // row stride of the staged block slab
 
-template <int MT, typename TY, typename S, bool EXP>
+template <int MT, typename TY, typename S>
 __global__ void __launch_bounds__(128, 1)
 bsr_tile_bwd(const TY* __restrict__ dy, const S* __restrict__ data,
              const int* __restrict__ t_idx, const int* __restrict__ t_blk,
              const int* __restrict__ t_nnz, float* __restrict__ dx, int M, int N, int K,
-             int jmax_t, int br, int bc, int dy_vec, int w_vec, Experts ex) {
-  if constexpr (EXP) {                // expert blockIdx.z's problem
-    const long long e = blockIdx.z;
-    dy += e * ex.x;
-    dx += e * ex.y;
-    t_idx += e * ex.tab;
-    t_blk += e * ex.tab;
-    t_nnz += e * ex.nnz;
-    data += e * ex.w;
-  }
+             int jmax_t, int br, int bc, int dy_vec, int w_vec) {
   using bsr::H;
   using bsr::kK;
   using bsr::kStr;
@@ -680,11 +659,11 @@ int launch_fwd(const void* x, int x_is_bf16, DecodeBlocks wd, TileBlocks wt, con
 template <int MT, typename TY, typename S>
 int launch_bwd(const void* dy, const void* data, const int* t_idx, const int* t_blk,
                const int* t_nnz, float* dx, int M, int N, int K, int C, int jmax_t, int br,
-               int bc, int dy_vec, int w_vec, int E, const Experts& ex, cudaStream_t st) {
+               int bc, int dy_vec, int w_vec, cudaStream_t st) {
   constexpr int R = 32 * MT;
   constexpr size_t smem = sizeof(bsr::H) * 2 *
       ((size_t)bsr::parts<TY>() * R * bsr::kStr + (size_t)bsr::parts<S>() * bsr::kK * kTStr);
-  auto kern = bsr_tile_bwd<MT, TY, S, kExperts>;
+  auto kern = bsr_tile_bwd<MT, TY, S>;
   static size_t opted = 48 * 1024;             // the limit raised so far
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -693,19 +672,19 @@ int launch_bwd(const void* dy, const void* data, const int* t_idx, const int* t_
     opted = smem;
   }
   const int n_cc = (bc + kTCols - 1) / kTCols;
-  const dim3 grid(C * n_cc, std::min((M + R - 1) / R, 65535), E);
-  if (grid.x == 0 || M == 0 || E == 0) return 0;
+  const dim3 grid(C * n_cc, std::min((M + R - 1) / R, 65535));
+  if (grid.x == 0 || M == 0) return 0;
   kern<<<grid, 128, smem, st>>>(static_cast<const TY*>(dy), static_cast<const S*>(data), t_idx,
-                                t_blk, t_nnz, dx, M, N, K, jmax_t, br, bc, dy_vec, w_vec, ex);
+                                t_blk, t_nnz, dx, M, N, K, jmax_t, br, bc, dy_vec, w_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TY, typename S>
 int launch_bwd_mt(int mt, const void* dy, const void* data, const int* t_idx, const int* t_blk,
                   const int* t_nnz, float* dx, int M, int N, int K, int C, int jmax_t, int br,
-                  int bc, int dy_vec, int w_vec, int E, const Experts& ex, cudaStream_t st) {
+                  int bc, int dy_vec, int w_vec, cudaStream_t st) {
 #define BSR_BWD_ARGS dy, data, t_idx, t_blk, t_nnz, dx, M, N, K, C, jmax_t, br, bc, dy_vec, \
-                     w_vec, E, ex, st
+                     w_vec, st
   if (mt == 1) return launch_bwd<1, TY, S>(BSR_BWD_ARGS);
   if (mt == 2) return launch_bwd<2, TY, S>(BSR_BWD_ARGS);
 #undef BSR_BWD_ARGS
@@ -714,18 +693,11 @@ int launch_bwd_mt(int mt, const void* dy, const void* data, const int* t_idx, co
 
 }  // namespace
 
-// The entries of this build: bsr_spmm_fwd, bsr_spmm_palette_fwd and
-// bsr_spmm_t for one matrix, or bsr_spmm_t_experts for E stacked ones
-// (bsr_spmm_experts.cu, which adds the expert forward's entries).
-#if BSR_SPMM_EXPERTS
-#define BSR_BWD(name) name##_experts
-#else
-#define BSR_BWD(name) name
-#endif
-
+// The entries of the single-matrix build; bsr_spmm_experts.cu, which
+// includes this file with BSR_SPMM_EXPERTS set, builds none of them.
+#if !BSR_SPMM_EXPERTS
 extern "C" {
 
-#if !BSR_SPMM_EXPERTS
 // Y (M, N) f32 = X (M, K) @ W' for one BlockCSR W (N, K): data (n_slots, br,
 // bc) f32, or bf16 when data_is_bf16, idx/blk (O, jmax) int32, nnz (O,)
 // int32; br one of 1, 2, 4, 8, 16, 32. tile: the tile kernel, else the
@@ -764,27 +736,21 @@ int bsr_spmm_palette_fwd(const void* x, int x_is_bf16, const uint8_t* codes,
                       nnz, y, M, K, N, O, jmax, tile, J, x_vec, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
-#endif
 
-// dX (E, M, K) f32 = dY (E, M, N) @ W_e for E stacked BlockCSR W_e (N, K)
-// (E = 1: one matrix), over the transposed tables t_idx/t_blk (E, C,
-// jmax_t) int32 and t_nnz (E, C) int32: dY f32 or bf16, data f32 or bf16
-// (E, n_slots, br, bc); br one of 1, 2, 4, 8, 16, 32; mt 1 or 2: 32 mt rows
-// of dX a thread block; dy_vec / w_vec: the rows of dY / of the store are
-// 16-byte aligned and br / bc are multiples of 16 bytes' worth.
-int BSR_BWD(bsr_spmm_t)(const void* dy, int dy_is_bf16, const void* data, int data_is_bf16,
-                        const int* t_idx, const int* t_blk, const int* t_nnz, float* dx,
-                        int M, int N, int K, int C, int jmax_t, int br, int bc, int mt,
-                        int dy_vec, int w_vec, int E, int n_slots, void* stream) {
+// dX (M, K) f32 = dY (M, N) @ W for BlockCSR W (N, K), over the transposed
+// tables t_idx/t_blk (C, jmax_t) int32 and t_nnz (C,) int32: dY f32 or bf16,
+// data f32 or bf16 (n_slots, br, bc); br one of 1, 2, 4, 8, 16, 32; mt 1 or
+// 2: 32 mt rows of dX a thread block; dy_vec / w_vec: the rows of dY / of
+// the store are 16-byte aligned and br / bc are multiples of 16 bytes' worth.
+int bsr_spmm_t(const void* dy, int dy_is_bf16, const void* data, int data_is_bf16,
+               const int* t_idx, const int* t_blk, const int* t_nnz, float* dx, int M,
+               int N, int K, int C, int jmax_t, int br, int bc, int mt, int dy_vec,
+               int w_vec, void* stream) {
   if (br != 1 && br != 2 && br != 4 && br != 8 && br != 16 && br != 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (E < 1 || E > 65535 || (!kExperts && E != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Experts ex{(long long)M * N, (long long)M * K, (long long)C * jmax_t, (long long)C,
-                   (long long)n_slots * br * bc};
 #define BSR_BWD_ARGS mt, dy, data, t_idx, t_blk, t_nnz, dx, M, N, K, C, jmax_t, br, bc, \
-                     dy_vec, w_vec, E, ex, st
+                     dy_vec, w_vec, st
   if (dy_is_bf16)
     return data_is_bf16 ? launch_bwd_mt<__nv_bfloat16, __nv_bfloat16>(BSR_BWD_ARGS)
                         : launch_bwd_mt<__nv_bfloat16, float>(BSR_BWD_ARGS);
@@ -794,5 +760,4 @@ int BSR_BWD(bsr_spmm_t)(const void* dy, int dy_is_bf16, const void* data, int da
 }
 
 }  // extern "C"
-
-#undef BSR_BWD
+#endif

@@ -1,12 +1,12 @@
-// The expert axis of the spmm kernels: E stacked BlockCSR / PaletteBCSR
-// matrices (an MoE layer's experts, (E, out, in)) in one launch each.
+// The expert axis of the forward spmm kernels: E stacked BlockCSR /
+// PaletteBCSR matrices (an MoE layer's experts, (E, out, in)) in one launch
+// each. Its backward is bsr_experts_bwd.cu.
 //
 // Replaces, for a stack of experts, the Pallas TPU kernels
-//   repro/kernels/bsr_spmm/bsr_spmm.py::gather_block_matmul          (forward,
-//       and the backward dX = dY W over the transposed tables)
+//   repro/kernels/bsr_spmm/bsr_spmm.py::gather_block_matmul          (forward)
 //   repro/kernels/bsr_spmm/bsr_spmm.py::gather_block_matmul_palette  (forward)
 // that the reference's MoE FFN reaches once per expert under lax.map
-// (repro/models/moe.py:249-259; the VJP likewise).
+// (repro/models/moe.py:249-259).
 //
 // * bsr_experts_fwd (ops.spmm_experts, ops.spmm_palette_experts): Y[e] (M, N)
 //   f32 = X[e] (M, K) @ W_e' on the rows that expert e holds. rows[e] (an
@@ -15,9 +15,6 @@
 //   rows of its (E, cap) buffer past that count are zero in the reference
 //   and never read by the combine, so rows past the count are written as
 //   exact zeros and never computed: the outputs equal the reference's.
-// * bsr_spmm_t_experts (ops.spmm_t_experts): bsr_spmm.cu's bsr_tile_bwd with
-//   the expert on blockIdx.z (EXP true), included below; it computes every
-//   row (dY is zero on the rows the combine never reads).
 //
 // What bounds the forward on an H100 (3.35 TB/s, 989 TFLOP/s bf16 on the
 // tensor cores): bytes. At olmoe-1b-7b's ewi (64 experts of (1024, 2048),

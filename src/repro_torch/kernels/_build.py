@@ -27,8 +27,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("bsr_spmm", "bsr_spmm_experts", "paged_attention", "bsr_sddmm",
-           "prox_adam", "flash_attention")
+SOURCES = ("bsr_spmm", "bsr_spmm_experts", "bsr_experts_bwd", "paged_attention",
+           "bsr_sddmm", "prox_adam", "flash_attention")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()

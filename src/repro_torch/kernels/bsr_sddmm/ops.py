@@ -6,17 +6,22 @@ summed over the M rows, at the resident slots only, aligned with
 ``w.data``. Slot 0 (the pad) and the slots ``pad_bcsr`` appended carry
 zero. No dense (N, K) gradient is formed on either path.
 
-``bsr_weight_grad_experts(x, dy, w)`` takes E problems at once, x (E, M,
-K) and dy (E, M, N) against an E-stacked BlockCSR (the MoE FFN's
+``bsr_weight_grad_experts(x, dy, w, rows)`` takes E problems at once, x
+(E, M, K) and dy (E, M, N) against an E-stacked BlockCSR (the MoE FFN's
 compressed experts): the (E, n_slots, br, bc) f32 gradient of its store,
-each expert's padded slots zero, in one launch of the same kernel (the
-reference maps one VJP per expert).
+each expert's padded slots zero, in one launch of the expert backward's
+SDDMM (``csrc/bsr_experts_bwd.cu``, ``bsr_experts_dw``; the reference maps
+one VJP per expert). ``rows``, an optional (E,) int32 tensor on x's
+device, is the count of each expert's occupied rows: the sums run over
+rows ``[0, rows[e])`` only, read on the device (``None``: every row).
 
 For tensors on the CPU they run the plain version (``ref.py``); for CUDA
-tensors they launch the kernel or raise. There is no fallback. The kernel
-groups slots by block-column through the block-CSC tables and, where the
-grid would leave SMs idle, splits M into ``m_split`` ranges whose partial
-sums a second pass adds in a fixed order (bit-equal run to run).
+tensors they launch the kernel or raise. There is no fallback. The
+single-matrix kernel groups slots by block-column through the block-CSC
+tables and, where the grid would leave SMs idle, splits M into
+``m_split`` ranges whose partial sums a second pass adds in a fixed order
+(bit-equal run to run); the expert kernel takes each block-column of each
+expert in one thread block.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ import torch
 from repro_torch.kernels import _build, _counts
 from repro_torch.kernels._tiles import aligned16, sm_count
 from repro_torch.kernels.bsr_sddmm import ref
+from repro_torch.kernels.bsr_spmm import ops as spmm_ops
+from repro_torch.kernels.bsr_spmm.ref import occupied
 from repro_torch.obs.profile import kernel_call
 from repro_torch.sparse.formats import BlockCSR, PaletteBCSR
 
@@ -49,7 +56,7 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bsr_sddmm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bsr_sddmm.argtypes = [p, i, p, i, p, p, p, p, p, p] + [i] * 12 + [p]
+    lib.bsr_sddmm.argtypes = [p, i, p, i, p, p, p, p, p, p] + [i] * 11 + [p]
     lib.bsr_sddmm.restype = i
     return lib
 
@@ -144,14 +151,13 @@ def bsr_weight_grad_ref(x, dy, w: BlockCSR) -> torch.Tensor:
     return out * valid[:, None, None].to(out.dtype)
 
 
-def m_split(m: int, n_slots: int, block, sms: int, experts: int = 1) -> int:
-    """Ranges of M (whole 64-row chunks) the kernel splits the rows into:
-    doubled while the thread blocks (4 / n-tiles slots each, per 128
-    columns and 32 rows of the block, for each of the ``experts``
-    problems) would leave SMs idle."""
+def m_split(m: int, n_slots: int, block, sms: int) -> int:
+    """Ranges of M (whole 64-row chunks) the single-matrix kernel splits the
+    rows into: doubled while the thread blocks (4 / n-tiles slots each, per
+    128 columns and 32 rows of the block) would leave SMs idle."""
     br, bc = block
     n_tiles = 1 if br <= 8 else 2 if br <= 16 else 4
-    blocks = (experts * -(-n_slots // (_WARPS // n_tiles)) * -(-bc // 128)
+    blocks = (-(-n_slots // (_WARPS // n_tiles)) * -(-bc // 128)
               * -(-br // 32))
     split = 1
     while 2 * split <= -(-m // _CHUNK) and blocks * split < sms:
@@ -159,10 +165,14 @@ def m_split(m: int, n_slots: int, block, sms: int, experts: int = 1) -> int:
     return split
 
 
-def bsr_weight_grad_experts_ref(x, dy, w: BlockCSR) -> torch.Tensor:
+def bsr_weight_grad_experts_ref(x, dy, w: BlockCSR, rows=None) -> torch.Tensor:
     """The plain version of the expert form: ``bsr_weight_grad_ref`` on
     each expert's slice, as the reference's VJP runs per expert under its
-    ``lax.map``."""
+    ``lax.map``; with ``rows``, over each expert's rows ``[0, rows[e])``
+    (x and dy zeroed at and past the count, so the sums are those of the
+    call without counts wherever the inputs are zero there)."""
+    if rows is not None:
+        x, dy = occupied(x, rows), occupied(dy, rows)
     return torch.stack([bsr_weight_grad_ref(x[e], dy[e], w[e])
                         for e in range(x.shape[0])])
 
@@ -201,37 +211,34 @@ def bsr_weight_grad(x, dy, w: BlockCSR) -> torch.Tensor:
     """x: (M, K) activations; dy: (M, N) output cotangent; w: (N, K)
     BlockCSR. Returns (n_slots, br, bc) f32 gradient blocks for w.data."""
     return kernel_call("bsr_sddmm/bsr_weight_grad", _bsr_weight_grad, x, dy,
-                       w, False)
+                       w)
 
 
-def bsr_weight_grad_experts(x, dy, w: BlockCSR) -> torch.Tensor:
+def bsr_weight_grad_experts(x, dy, w: BlockCSR, rows=None) -> torch.Tensor:
     """x: (E, M, K); dy: (E, M, N); w: an E-stacked BlockCSR of (N, K)
-    slices. Returns (E, n_slots, br, bc) f32 gradient blocks for w.data,
-    in one launch for all E."""
-    return kernel_call("bsr_sddmm/bsr_weight_grad_experts", _bsr_weight_grad,
-                       x, dy, w, True)
+    slices; rows: None or (E,) int32 on x's device, each expert's occupied
+    rows. Returns (E, n_slots, br, bc) f32 gradient blocks for w.data
+    summed over rows ``[0, rows[e])``, in one launch for all E."""
+    return kernel_call("bsr_sddmm/bsr_weight_grad_experts",
+                       _bsr_weight_grad_experts, x, dy, w, rows)
 
 
-def _bsr_weight_grad(x, dy, w: BlockCSR, experts: bool) -> torch.Tensor:
+def _bsr_weight_grad(x, dy, w: BlockCSR) -> torch.Tensor:
     _reject_palette(w)
-    if x.dim() != (3 if experts else 2):
+    if x.dim() != 2:
         raise ValueError(f"x {tuple(x.shape)}: bsr_weight_grad takes a 2-D x, "
                          "bsr_weight_grad_experts a 3-D one")
     if x.device.type == "cpu":
-        return (bsr_weight_grad_experts_ref(x, dy, w) if experts
-                else bsr_weight_grad_ref(x, dy, w))
-    n_exp = x.shape[0] if experts else 0
-    x, dy = _check(x, dy, w, n_exp)
+        return bsr_weight_grad_ref(x, dy, w)
+    x, dy = _check(x, dy, w, 0)
     valid = _coordinates(w)[3]
-    n_slots = w.data.shape[-3]
+    n_slots = w.data.shape[0]
     br, bc = w.block
-    m = x.shape[-2]
-    n_cols, jmax_t = w.gather_t_idx.shape[-2:]
-    e = max(n_exp, 1)
-    out = torch.empty(w.data.shape[:-2] + (br, bc), dtype=torch.float32,
-                      device=x.device)
-    split = m_split(m, n_slots, w.block, sm_count(x.device.index or 0), e)
-    scratch = (torch.empty((e, split, n_slots, br, bc), dtype=torch.float32,
+    m = x.shape[0]
+    n_cols, jmax_t = w.gather_t_idx.shape
+    out = torch.empty((n_slots, br, bc), dtype=torch.float32, device=x.device)
+    split = m_split(m, n_slots, w.block, sm_count(x.device.index or 0))
+    scratch = (torch.empty((split, n_slots, br, bc), dtype=torch.float32,
                            device=x.device) if split > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -242,10 +249,46 @@ def _bsr_weight_grad(x, dy, w: BlockCSR, experts: bool) -> torch.Tensor:
             valid.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), m, w.shape[0],
             w.shape[1], n_cols, jmax_t, n_slots, br, bc, split,
-            aligned16(x, w.shape[1], bc), aligned16(dy, w.shape[0], br), e,
-            stream)
-    wrapper = "bsr_sddmm_experts" if experts else "bsr_sddmm"
+            aligned16(x, w.shape[1], bc), aligned16(dy, w.shape[0], br), stream)
     if err:
-        raise RuntimeError(f"{wrapper} launch failed: CUDA error {err}")
-    _counts.bump(launches, wrapper)
+        raise RuntimeError(f"bsr_sddmm launch failed: CUDA error {err}")
+    _counts.bump(launches, "bsr_sddmm")
+    return out
+
+
+def _bsr_weight_grad_experts(x, dy, w: BlockCSR, rows=None) -> torch.Tensor:
+    _reject_palette(w)
+    if x.dim() != 3:
+        raise ValueError(f"x {tuple(x.shape)}: bsr_weight_grad takes a 2-D x, "
+                         "bsr_weight_grad_experts a 3-D one")
+    if x.device.type == "cpu":
+        return bsr_weight_grad_experts_ref(x, dy, w, rows)
+    n_exp = x.shape[0]
+    x, dy = _check(x, dy, w, n_exp)
+    if rows is not None:
+        spmm_ops.check_rows(rows, x)
+    br, bc = w.block
+    if br not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"block rows must be a power of two up to 32, got "
+                         f"{w.block}")
+    valid = _coordinates(w)[3]
+    n_slots = w.data.shape[-3]
+    m = x.shape[1]
+    n_cols, jmax_t = w.gather_t_idx.shape[-2:]
+    out = torch.empty(w.data.shape[:-2] + (br, bc), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = spmm_ops.experts_bwd_lib().bsr_sddmm_experts(
+            dy.data_ptr(), int(dy.dtype == torch.bfloat16), x.data_ptr(),
+            int(x.dtype == torch.bfloat16), w.gather_t_idx.data_ptr(),
+            w.gather_t_blk.data_ptr(), w.gather_t_nnz.data_ptr(),
+            valid.data_ptr(), rows.data_ptr() if rows is not None else None,
+            out.data_ptr(), m, w.shape[0], w.shape[1], n_cols, jmax_t,
+            n_slots, br, bc, aligned16(x, w.shape[1], bc),
+            aligned16(dy, w.shape[0], br), n_exp, stream)
+    if err:
+        raise RuntimeError(f"bsr_sddmm_experts launch failed: CUDA error "
+                           f"{err}")
+    _counts.bump(launches, "bsr_sddmm_experts")
     return out

@@ -12,8 +12,11 @@ the grid's z axis; the reference maps one ``sparse_matmul`` per expert).
 occupied rows of each expert's buffer (the tokens the MoE dispatch gave
 it): the kernel reads it on the device, computes rows ``[0, rows[e])`` and
 writes exact zeros below, and an expert with none reads none of its
-blocks; ``None`` computes every row. ``spmm_t_experts(dy, w)`` is the
-backward's: ``dX (E, M, K) f32`` in one launch of the ``spmm_t`` kernel.
+blocks; ``None`` computes every row. ``spmm_t_experts(dy, w, rows)`` is
+the backward's: ``dX (E, M, K) f32`` in one launch of the expert backward
+(``csrc/bsr_experts_bwd.cu``, ``bsr_experts_dx``: a thread block per
+block-column of one expert, a warp per 16 of its occupied rows, zeros
+below).
 A BlockCSR block store may be f32 or bf16 (training casts it to the
 compute dtype); the kernels upcast it as they read. For a tensor on the
 CPU they run the plain PyTorch version (``ref.py``); for a CUDA tensor
@@ -31,7 +34,7 @@ resident block and of X straight into registers and runs the products on
 the tensor cores. ``spmm_t`` runs on the tensor-core tile core too (see
 ``csrc/bsr_spmm.cu``). A failure of any raises. Each kernel's shape of
 grid is chosen here from shapes alone (``decode_warps``, ``spmm_t_rows``;
-the expert forward's by its kernel), with no wait for the device.
+the expert kernels' by the kernels), with no wait for the device.
 
 ``launches`` counts kernel launches per wrapper, so a run can show that
 its path went through the kernels; ``variant_launches`` splits the
@@ -86,21 +89,20 @@ def decode_warps(jmax: int) -> int:
     return warps
 
 
-def spmm_t_rows(m: int, k_blocks: int, bc: int, sms: int, dy_f32: bool,
-                experts: int = 1) -> int:
+def spmm_t_rows(m: int, k_blocks: int, bc: int, sms: int, dy_f32: bool) -> int:
     """Rows of dX a ``spmm_t`` thread block takes (64 or 32). f32 dY: 32,
     whose three parts make a slab of 64 rows cost more than SMs left idle
     (PERF.md); bf16 dY: 64 where the thread blocks of 64 rows (one per 64
-    columns of each of the ``k_blocks`` block-columns of each of the
-    ``experts`` problems) fill the SMs, else 32."""
-    blocks = experts * k_blocks * -(-bc // _T_COLS)
+    columns of each of the ``k_blocks`` block-columns) fill the SMs, else
+    32."""
+    blocks = k_blocks * -(-bc // _T_COLS)
     return 64 if not dy_f32 and blocks * -(-m // 64) >= sms else 32
 
 
 @functools.cache
 def _lib(experts: bool = False) -> ctypes.CDLL:
-    """``csrc/bsr_spmm.cu``'s library, or with ``experts`` its expert
-    instantiations (``csrc/bsr_spmm_experts.cu``)."""
+    """``csrc/bsr_spmm.cu``'s library, or with ``experts`` the expert
+    forward's (``csrc/bsr_spmm_experts.cu``)."""
     lib = _build.load("bsr_spmm_experts" if experts else "bsr_spmm")
     tag = "_experts" if experts else ""
     # the expert entries take the rows pointer before y, no decode warps,
@@ -110,9 +112,24 @@ def _lib(experts: bool = False) -> ctypes.CDLL:
     fwd.argtypes = [_P, _I, _P, _I, _P, _P, _P] + rows + [_P] + [_I] * ints + [_P]
     pal = getattr(lib, f"bsr_spmm_palette{tag}_fwd")
     pal.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P] + rows + [_P] + [_I] * ints + [_P]
-    bwd = getattr(lib, f"bsr_spmm_t{tag}")
-    bwd.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 12 + [_P]
-    fwd.restype = pal.restype = bwd.restype = _I
+    fwd.restype = pal.restype = _I
+    if not experts:
+        lib.bsr_spmm_t.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P]
+        lib.bsr_spmm_t.restype = _I
+    return lib
+
+
+@functools.cache
+def experts_bwd_lib() -> ctypes.CDLL:
+    """``csrc/bsr_experts_bwd.cu``'s library, the expert backward: its dX
+    entry (``spmm_t_experts``) and its SDDMM's (``bsr_weight_grad_experts``
+    in ``kernels/bsr_sddmm/ops.py``)."""
+    lib = _build.load("bsr_experts_bwd")
+    lib.bsr_spmm_t_experts.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _P] \
+        + [_I] * 12 + [_P]
+    lib.bsr_sddmm_experts.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P] \
+        + [_I] * 11 + [_P]
+    lib.bsr_spmm_t_experts.restype = lib.bsr_sddmm_experts.restype = _I
     return lib
 
 
@@ -214,7 +231,10 @@ def _spmm(x: torch.Tensor, w, experts: bool, rows=None) -> torch.Tensor:
     return _fwd(x, w, rows=rows)
 
 
-def _check_rows(rows: torch.Tensor, x: torch.Tensor) -> None:
+def check_rows(rows: torch.Tensor, x: torch.Tensor) -> None:
+    """Raise unless ``rows`` is the (E,) int32 count tensor, contiguous on
+    x's device, of the expert stack x (E, M, .) (the expert kernels, forward
+    and backward, read it on the device)."""
     if x.dim() != 3:
         raise ValueError("rows counts an expert stack's rows: spmm_experts "
                          "and spmm_palette_experts take it")
@@ -234,7 +254,7 @@ def _fwd(x: torch.Tensor, w, kernel=None, rows=None) -> torch.Tensor:
     palette = isinstance(w, PaletteBCSR)
     experts = x.shape[0] if x.dim() == 3 else 0
     if rows is not None:
-        _check_rows(rows, x)
+        check_rows(rows, x)
     if palette:
         if w.bits not in (4, 8):
             raise ValueError(f"palette bits must be 4 or 8, got {w.bits}")
@@ -298,48 +318,81 @@ def _fwd(x: torch.Tensor, w, kernel=None, rows=None) -> torch.Tensor:
 def spmm_t(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
     """dX (M, K) f32 = dY (M, N) @ W for W (N, K) BlockCSR, over the
     block-CSC tables ``gather_t_*`` (the backward of ``spmm`` in x)."""
-    return kernel_call("bsr_spmm/spmm_t", _spmm_t, dy, w, False)
+    return kernel_call("bsr_spmm/spmm_t", _spmm_t, dy, w)
 
 
-def spmm_t_experts(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+def spmm_t_experts(dy: torch.Tensor, w: BlockCSR,
+                   rows: torch.Tensor | None = None) -> torch.Tensor:
     """dX (E, M, K) f32, dX[e] = dY[e] @ W[e] for dY (E, M, N) and an
     E-stacked BlockCSR W (the backward of ``spmm_experts`` in x): one
-    launch for all E."""
-    return kernel_call("bsr_spmm/spmm_t_experts", _spmm_t, dy, w, True)
+    launch for all E. With ``rows`` ((E,) int32 on dy's device), rows
+    ``[0, rows[e])`` of dX[e] are computed and the rest are zero; the
+    kernel reads the counts on the device."""
+    return kernel_call("bsr_spmm/spmm_t_experts", _spmm_t_experts, dy, w,
+                       rows)
 
 
-def _spmm_t(dy: torch.Tensor, w: BlockCSR, experts: bool) -> torch.Tensor:
-    if dy.dim() != (3 if experts else 2):
+def _spmm_t(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+    if dy.dim() != 2:
         raise ValueError(f"dy {tuple(dy.shape)}: spmm_t takes a 2-D dy, "
                          "spmm_t_experts a 3-D one")
     if dy.device.type == "cpu":
-        return (ref.spmm_experts_bwd_ref(dy, w) if experts
-                else ref.spmm_bwd_ref(dy, w))
-    n_exp = dy.shape[0] if experts else 0
+        return ref.spmm_bwd_ref(dy, w)
     tables = (w.gather_t_idx, w.gather_t_blk, w.gather_t_nnz)
-    dy = _check(dy, w, w.data, _FP_STORE, w.block[1], tables, in_dim=0,
-                experts=n_exp)
-    m = dy.shape[-2]
-    n_cols, jmax_t = w.gather_t_idx.shape[-2:]
+    dy = _check(dy, w, w.data, _FP_STORE, w.block[1], tables, in_dim=0)
+    m = dy.shape[0]
+    n_cols, jmax_t = w.gather_t_idx.shape
     br, bc = w.block
     rows = spmm_t_rows(m, n_cols, bc, sm_count(dy.device.index or 0),
-                       dy.dtype == torch.float32, max(n_exp, 1))
-    dx = torch.empty(dy.shape[:-1] + (w.shape[1],), dtype=torch.float32,
-                     device=dy.device)
+                       dy.dtype == torch.float32)
+    dx = torch.empty((m, w.shape[1]), dtype=torch.float32, device=dy.device)
     if dx.numel() == 0:
         return dx
-    lib, tag = _lib(n_exp > 1), "_experts" if n_exp > 1 else ""
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"bsr_spmm_t{tag}")(
+        err = _lib().bsr_spmm_t(
             dy.data_ptr(), int(dy.dtype == torch.bfloat16), w.data.data_ptr(),
             int(w.data.dtype == torch.bfloat16), w.gather_t_idx.data_ptr(),
             w.gather_t_blk.data_ptr(), w.gather_t_nnz.data_ptr(),
             dx.data_ptr(), m, w.shape[0], w.shape[1], n_cols, jmax_t, br, bc,
             rows // 32, aligned16(dy, w.shape[0], br), aligned16(w.data, bc),
-            max(n_exp, 1), w.data.shape[-3], stream)
-    wrapper = "spmm_t_experts" if experts else "spmm_t"
+            stream)
     if err:
-        raise RuntimeError(f"bsr_{wrapper} launch failed: CUDA error {err}")
-    _counts.bump(launches, wrapper)
+        raise RuntimeError(f"bsr_spmm_t launch failed: CUDA error {err}")
+    _counts.bump(launches, "spmm_t")
+    return dx
+
+
+def _spmm_t_experts(dy: torch.Tensor, w: BlockCSR, rows=None) -> torch.Tensor:
+    if dy.dim() != 3:
+        raise ValueError(f"dy {tuple(dy.shape)}: spmm_t takes a 2-D dy, "
+                         "spmm_t_experts a 3-D one")
+    if dy.device.type == "cpu":
+        return ref.spmm_experts_bwd_ref(dy, w, rows)
+    if rows is not None:
+        check_rows(rows, dy)
+    tables = (w.gather_t_idx, w.gather_t_blk, w.gather_t_nnz)
+    dy = _check(dy, w, w.data, _FP_STORE, w.block[1], tables, in_dim=0,
+                experts=dy.shape[0])
+    e, m, n = dy.shape
+    k = w.shape[1]
+    n_cols, jmax_t = w.gather_t_idx.shape[-2:]
+    br, bc = w.block
+    dx = torch.empty((e, m, k), dtype=torch.float32, device=dy.device)
+    if dx.numel() == 0:
+        return dx
+    with torch.cuda.device(dy.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = experts_bwd_lib().bsr_spmm_t_experts(
+            dy.data_ptr(), int(dy.dtype == torch.bfloat16), w.data.data_ptr(),
+            int(w.data.dtype == torch.bfloat16), w.gather_t_idx.data_ptr(),
+            w.gather_t_blk.data_ptr(), w.gather_t_nnz.data_ptr(),
+            rows.data_ptr() if rows is not None else None, dx.data_ptr(), m,
+            n, k, n_cols, jmax_t, br, bc, aligned16(dy, n, br),
+            aligned16(w.data, bc),
+            int(k % 4 == 0 and bc % 4 == 0), e, w.data.shape[-3], stream)
+    if err:
+        raise RuntimeError(f"bsr_spmm_t_experts launch failed: CUDA error "
+                           f"{err}")
+    _counts.bump(launches, "spmm_t_experts")
     return dx

@@ -29,7 +29,7 @@ def spmm_palette_fwd_ref(x: torch.Tensor, w) -> torch.Tensor:
     return spmm_fwd_ref(x, w.dequantize())
 
 
-def _occupied(y: torch.Tensor, rows) -> torch.Tensor:
+def occupied(y: torch.Tensor, rows) -> torch.Tensor:
     """Y (E, M, N) with the rows of expert e at or past ``rows[e]`` set to
     exact zeros (``rows``: (E,) int counts, or None for every row). The
     plain versions compute every row and then zero these, so the rows below
@@ -46,22 +46,25 @@ def spmm_experts_fwd_ref(x: torch.Tensor, w: BlockCSR,
     """Y (E, M, N) f32, Y[e] = X[e] @ W[e]' for X (E, M, K) and an E-stacked
     BlockCSR: ``spmm_fwd_ref`` on each expert's slice, as the reference
     maps one ``sparse_matmul`` per expert; with ``rows``, zeros at and past
-    each expert's count (``_occupied``)."""
-    return _occupied(torch.stack([spmm_fwd_ref(x[e], w[e])
+    each expert's count (``occupied``)."""
+    return occupied(torch.stack([spmm_fwd_ref(x[e], w[e])
                                   for e in range(x.shape[0])]), rows)
 
 
-def spmm_experts_bwd_ref(dy: torch.Tensor, w: BlockCSR) -> torch.Tensor:
+def spmm_experts_bwd_ref(dy: torch.Tensor, w: BlockCSR,
+                         rows=None) -> torch.Tensor:
     """dX (E, M, K) f32, dX[e] = dY[e] @ W[e] for dY (E, M, N) and an
     E-stacked BlockCSR: ``spmm_bwd_ref`` on each expert's slice, as the
-    reference's VJP runs per expert under its ``lax.map``."""
-    return torch.stack([spmm_bwd_ref(dy[e], w[e]) for e in range(dy.shape[0])])
+    reference's VJP runs per expert under its ``lax.map``; with ``rows``,
+    zeros at and past each expert's count (``occupied``)."""
+    return occupied(torch.stack([spmm_bwd_ref(dy[e], w[e])
+                                  for e in range(dy.shape[0])]), rows)
 
 
 def spmm_palette_experts_fwd_ref(x: torch.Tensor, w, rows=None) -> torch.Tensor:
     """``spmm_experts_fwd_ref`` for an E-stacked ``PaletteBCSR`` (one
     palette per expert)."""
-    return _occupied(torch.stack([spmm_palette_fwd_ref(x[e], w[e])
+    return occupied(torch.stack([spmm_palette_fwd_ref(x[e], w[e])
                                   for e in range(x.shape[0])]), rows)
 
 

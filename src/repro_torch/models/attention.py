@@ -59,11 +59,11 @@ def _project_qkv(p: dict, x: Tensor, cfg: ModelConfig, positions: Tensor,
         if sparse and name in sparse:
             m = sparse[name]
             fn = lambda h: sparse_ops.sparse_matmul(  # noqa: E731
-                h, m, backend)
+                h, m, backend, dt)
             h = x.reshape(-1, x.shape[-1])
             y = (fn(h) if parallel.split_dim(m) is None
                  else parallel.col_parallel(h, fn))
-            return y.reshape(b, s, n_out_heads, hd).to(dt)
+            return y.reshape(b, s, n_out_heads, hd)
         w = p[name]
         fn = lambda h: torch.einsum(  # noqa: E731
             "bsd,dhk->bshk", h, w.to(dt))
@@ -135,8 +135,8 @@ def _out_proj(p: dict, out: Tensor, dt, sparse: Optional[dict],
     b, s = out.shape[0], out.shape[1]
     if sparse and "wo" in sparse:
         y = sparse_ops.sparse_matmul(out.reshape(b * s, -1), sparse["wo"],
-                                     backend)
-        return y.reshape(b, s, -1).to(dt)
+                                     backend, dt)
+        return y.reshape(b, s, -1)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
 
 

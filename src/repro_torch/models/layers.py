@@ -162,11 +162,11 @@ def apply_proj(p: dict, x: Tensor, name: str,
     of the RWKV time / channel mix and the RG-LRU block."""
     if sparse and name in sparse:
         m = sparse[name]
+        dt = torch.float32 if f32 else x.dtype
         y = _split_product(x.reshape(-1, x.shape[-1]), m,
                            lambda h: sparse_ops.sparse_matmul(h, m, backend,
-                                                              f32))
-        y = y.reshape(*x.shape[:-1], -1)
-        return y.float() if f32 else y.to(x.dtype)
+                                                              dt))
+        return y.reshape(*x.shape[:-1], -1)
     w = p[name].to(x.dtype)
     return _split_product(x, p[name], lambda h: h.float() @ w.float()
                           if f32 else h @ w)

@@ -216,7 +216,7 @@ def _apply_moe_gspmd(p: dict, x: Tensor, cfg: ModelConfig,
         if sparse and name in sparse:
             w = sparse[name]
             fn = lambda h: sparse_ops.sparse_matmul(  # noqa: E731
-                h, w, backend, rows=occupied).to(dt)
+                h, w, backend, dt, occupied)
         else:
             w = p[name]
             fn = lambda h: torch.bmm(h, w.to(dt))  # noqa: E731

@@ -202,9 +202,9 @@ class _Counts:
     def __init__(self, monkeypatch, drop: bool):
         self.seen, inner = [], sparse_ops.sparse_matmul
 
-        def call(x, w, backend="auto", f32=False, rows=None):
+        def call(x, w, backend="auto", out_dtype=None, rows=None):
             self.seen.append(rows)
-            return inner(x, w, backend, f32, None if drop else rows)
+            return inner(x, w, backend, out_dtype, None if drop else rows)
         monkeypatch.setattr(tmoe.sparse_ops, "sparse_matmul", call)
 
 

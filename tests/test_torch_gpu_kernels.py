@@ -943,22 +943,130 @@ def test_cuda_expert_backward_matches_plain(e, dtype, m, n, k, block):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_expert_backward_one_expert_is_the_single_call(dtype):
-    """E = 1: bit-equal to the single-matrix ``spmm_t`` and SDDMM on the
-    same slice."""
+def test_cuda_expert_backward_one_expert_matches_single_kernels_and_its_slice(dtype):
+    """E = 1: the expert kernels on one expert within tolerance of the
+    single-matrix ``spmm_t`` and SDDMM on the same slice (another kernel,
+    another order of the f32 sums), and bit-equal to that expert's slice of
+    a call on the stack."""
     dev = _cuda()
     rng = np.random.default_rng(36)
     w = _expert_stack(rng, 2, 1024, 2048, (8, 128), dev,
                       str(dtype).split(".")[-1])
     w1 = w.map(lambda t: t[1:2].contiguous())
     for m in (8, 80):
-        x = torch.tensor(rng.normal(size=(1, m, 2048)), dtype=dtype, device=dev)
-        dy = torch.tensor(rng.normal(size=(1, m, 1024)), dtype=dtype,
+        x = torch.tensor(rng.normal(size=(2, m, 2048)), dtype=dtype, device=dev)
+        dy = torch.tensor(rng.normal(size=(2, m, 1024)), dtype=dtype,
                           device=dev)
-        assert torch.equal(ops.spmm_t_experts(dy, w1)[0],
-                           ops.spmm_t(dy[0], w1[0]))
-        assert torch.equal(sddmm_ops.bsr_weight_grad_experts(x, dy, w1)[0],
-                           sddmm_ops.bsr_weight_grad(x[0], dy[0], w1[0]))
+        dx1 = ops.spmm_t_experts(dy[1:], w1)
+        dw1 = sddmm_ops.bsr_weight_grad_experts(x[1:], dy[1:], w1)
+        torch.testing.assert_close(dx1[0], ops.spmm_t(dy[1], w1[0]),
+                                   atol=ATOL, rtol=RTOL)
+        torch.testing.assert_close(
+            dw1[0], sddmm_ops.bsr_weight_grad(x[1], dy[1], w1[0]),
+            atol=ATOL * max(1, m / 32), rtol=RTOL)
+        assert torch.equal(ops.spmm_t_experts(dy, w)[1], dx1[0])
+        assert torch.equal(sddmm_ops.bsr_weight_grad_experts(x, dy, w)[1],
+                           dw1[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8, 17, 80, 129])
+@pytest.mark.parametrize("n,k,block", [(256, 384, (8, 128)), (100, 70, (8, 64)),
+                                       (96, 160, (32, 32)), (64, 96, (2, 16)),
+                                       (48, 40, (1, 8))])
+def test_cuda_expert_backward_rows_match_plain(store, dtype, m, n, k, block):
+    """The expert backward with each expert's occupied rows (counts 0, 1,
+    a partial count, M and past M; x and dY random past each count, which
+    the kernels must not read): one launch each, within tolerance of the
+    plain versions with the same counts; dx exact zeros past each count,
+    an expert with no token all zeros in dx and dw, every padded slot
+    zero; bit-equal run to run; each expert's slice bit-equal to a call on
+    that expert alone with its count; with every row occupied, bit-equal
+    to the calls without counts."""
+    dev = _cuda()
+    rng = np.random.default_rng(38)
+    e = 5
+    w = _expert_stack(rng, e, n, k, block, dev, store)
+    x = torch.tensor(rng.normal(size=(e, m, k)), dtype=dtype, device=dev)
+    dy = torch.tensor(rng.normal(size=(e, m, n)), dtype=dtype, device=dev)
+    counts = [0, 1, max(m // 2, 1), m, m + 3]
+    rows = torch.tensor(counts, dtype=torch.int32, device=dev)
+    before = (ops.launches["spmm_t_experts"],
+              sddmm_ops.launches["bsr_sddmm_experts"])
+    dx = ops.spmm_t_experts(dy, w, rows)
+    dw = sddmm_ops.bsr_weight_grad_experts(x, dy, w, rows)
+    torch.cuda.synchronize()
+    assert (ops.launches["spmm_t_experts"],
+            sddmm_ops.launches["bsr_sddmm_experts"]) == (before[0] + 1,
+                                                         before[1] + 1)
+    torch.testing.assert_close(dx, ref.spmm_experts_bwd_ref(dy, w, rows),
+                               atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(
+        dw, sddmm_ops.bsr_weight_grad_experts_ref(x, dy, w, rows),
+        atol=ATOL * max(1, m / 32), rtol=RTOL)
+    for i, r in enumerate(counts):
+        assert not bool(dx[i, r:].any()), (i, r)
+    assert not bool(dx[0].any()) and not bool(dw[0].any())
+    _, _, valid = sddmm_ops.slot_coordinates(w)
+    assert not bool(dw[~valid].any())
+    assert torch.equal(ops.spmm_t_experts(dy, w, rows), dx)
+    assert torch.equal(sddmm_ops.bsr_weight_grad_experts(x, dy, w, rows), dw)
+    for i in range(e):
+        one = w.map(lambda t, i=i: t[i:i + 1].contiguous())
+        r = rows[i:i + 1]
+        assert torch.equal(ops.spmm_t_experts(dy[i:i + 1], one, r)[0], dx[i])
+        assert torch.equal(
+            sddmm_ops.bsr_weight_grad_experts(x[i:i + 1], dy[i:i + 1], one,
+                                              r)[0], dw[i])
+    full = torch.full((e,), m, dtype=torch.int32, device=dev)
+    assert torch.equal(ops.spmm_t_experts(dy, w, full),
+                       ops.spmm_t_experts(dy, w))
+    assert torch.equal(sddmm_ops.bsr_weight_grad_experts(x, dy, w, full),
+                       sddmm_ops.bsr_weight_grad_experts(x, dy, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [8, 80])
+def test_cuda_expert_backward_bf16_dy_equals_f32_dy_of_its_values(store, m):
+    """dY in bf16 against f32 dY that holds the same bf16 values (the
+    cotangent a cast to bf16 gives, widened or not): within 1e-5 of the
+    largest |value| in dx and dw, with and without counts (the two forms
+    sum the same products, the f32 one as three parts whose two lower are
+    zero, in another order)."""
+    dev = _cuda()
+    rng = np.random.default_rng(39)
+    e = 5
+    w = _expert_stack(rng, e, 1024, 2048, (8, 128), dev, store)
+    x = torch.tensor(rng.normal(size=(e, m, 2048)), dtype=torch.bfloat16,
+                     device=dev)
+    dy = torch.tensor(rng.normal(size=(e, m, 1024)), dtype=torch.bfloat16,
+                      device=dev)
+    rows = torch.tensor([0, 1, m // 2, m, m], dtype=torch.int32, device=dev)
+    for r in (None, rows):
+        for a, b in ((ops.spmm_t_experts(dy, w, r),
+                      ops.spmm_t_experts(dy.float(), w, r)),
+                     (sddmm_ops.bsr_weight_grad_experts(x, dy, w, r),
+                      sddmm_ops.bsr_weight_grad_experts(x, dy.float(), w, r))):
+            scale = float(b.abs().max())
+            assert float((a - b).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_expert_backward_rejects_bad_rows():
+    dev = _cuda()
+    rng = np.random.default_rng(40)
+    w = _expert_stack(rng, 3, 64, 128, (8, 64), dev)
+    dy, x = torch.ones(3, 4, 64, device=dev), torch.ones(3, 4, 128, device=dev)
+    for rows in (torch.ones(2, dtype=torch.int32, device=dev),   # 2 != 3
+                 torch.ones(3, dtype=torch.int64, device=dev),   # not int32
+                 torch.ones(3, dtype=torch.int32)):              # on the host
+        with pytest.raises(ValueError, match="rows"):
+            ops.spmm_t_experts(dy, w, rows)
+        with pytest.raises(ValueError, match="rows"):
+            sddmm_ops.bsr_weight_grad_experts(x, dy, w, rows)
 
 
 @pytest.mark.gpu

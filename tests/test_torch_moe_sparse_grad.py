@@ -254,3 +254,95 @@ def test_expert_plain_versions_are_loops_of_single_ones(block):
         kops.spmm_t_experts(dy[0], w)
     with pytest.raises(ValueError, match="3-D"):
         sddmm_ops.bsr_weight_grad_experts(x[0], dy[0], w)
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+def test_expert_plain_versions_with_rows_match_jax(block):
+    """The expert plain versions with each expert's occupied rows (counts
+    0, 1, a partial count and M; x and the cotangent zero past each count,
+    as the MoE dispatch leaves them) against the reference's VJP of its
+    ``sparse_matmul`` under ``lax.map`` on the same numpy inputs, within
+    1e-5 of the largest |value|; dx exact zeros past each count; equal, bit
+    for bit, to the same plain versions without counts; and ``sparse_matmul``
+    hands its backward the counts of its forward."""
+    _, _, _, _, jsp, tsp = _layer0("olmoe-1b-7b", "bcsr", block)
+    jw, tw = jsp["ewi"], tsp["ewi"]
+    e, (n, k) = tw.data.shape[0], tw.shape
+    m = 10
+    counts = [0, 1, 6, m][:e] + [m] * max(0, e - 4)
+    rng = np.random.default_rng(15)
+    keep = (np.arange(m)[None, :] < np.array(counts)[:, None])[..., None]
+    x = (rng.normal(size=(e, m, k)) * keep).astype(np.float32)
+    g = (rng.normal(size=(e, m, n)) * keep).astype(np.float32)
+    jdw, jdx = _jax_expert_grads(jw, x, g)
+    rows = torch.tensor(counts, dtype=torch.int32)
+    xt, gt = torch.tensor(x), torch.tensor(g)
+    dx = kref.spmm_experts_bwd_ref(gt, tw, rows)
+    dw = sddmm_ops.bsr_weight_grad_experts_ref(xt, gt, tw, rows)
+    assert _max_scaled_err(dx.numpy(), jdx) <= TOL
+    assert _max_scaled_err(dw.numpy(), jdw) <= TOL
+    for i, r in enumerate(counts):
+        assert not bool(dx[i, r:].any())
+    assert torch.equal(dx, kref.spmm_experts_bwd_ref(gt, tw))
+    assert torch.equal(dw, sddmm_ops.bsr_weight_grad_experts_ref(xt, gt, tw))
+    assert torch.equal(kops.spmm_t_experts(gt, tw, rows), dx)
+    assert torch.equal(sddmm_ops.bsr_weight_grad_experts(xt, gt, tw, rows), dw)
+
+    seen = []
+
+    def record(fn):
+        def inner(*args):
+            seen.append(args[-1])
+            return fn(*args)
+        return inner
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sparse_ops, "_dx_product", record(sparse_ops._dx_product))
+        mp.setattr(sparse_ops, "_dw_product", record(sparse_ops._dw_product))
+        xg = xt.clone().requires_grad_(True)
+        data = tw.data.clone().requires_grad_(True)
+        y = sparse_ops.sparse_matmul(xg, dataclasses.replace(tw, data=data),
+                                     rows=rows)
+        (y * gt).sum().backward()
+    assert len(seen) == 2 and all(r is rows for r in seen)
+    assert torch.equal(xg.grad, dx) and torch.equal(data.grad, dw)
+
+
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+def test_apply_moe_backward_runs_on_the_counts(monkeypatch, backend):
+    """``apply_moe`` on compressed experts (reduced olmoe-1b-7b, (8, 64)
+    blocks) hands every expert product's backward the dispatch's counts,
+    some expert holding fewer rows than its capacity; its gradients equal,
+    bit for bit, those of the same layer whose backward products ignore
+    the counts, and are within 1e-5 of the JAX package's. 'cuda' on CPU
+    tensors runs the kernel wrappers' plain versions, whose products come
+    back in f32 as the kernels' do."""
+    jcfg, tcfg, jd, td, jsp, tsp = _layer0("olmoe-1b-7b", "bcsr", (8, 64))
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(4, 16, jcfg.d_model)).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    seen, runs = [], []
+    dx_product, dw_product = sparse_ops._dx_product, sparse_ops._dw_product
+    apply_moe = tmoe.apply_moe
+    monkeypatch.setattr(tmoe, "apply_moe", functools.partial(
+        apply_moe, backend=backend))
+    for drop in (False, True):
+        def dx(dy, w, b, rows=None, drop=drop):
+            seen.append(rows)
+            return dx_product(dy, w, b, None if drop else rows)
+
+        def dw(xx, dy, w, b, rows=None, drop=drop):
+            seen.append(rows)
+            return dw_product(xx, dy, w, b, None if drop else rows)
+        monkeypatch.setattr(sparse_ops, "_dx_product", dx)
+        monkeypatch.setattr(sparse_ops, "_dw_product", dw)
+        runs.append(_apply_moe_grads_port(tcfg, td, tsp, x, g))
+    assert len(seen) == 12 and all(r is not None for r in seen)
+    assert bool((seen[0] < tmoe._capacity(64, tcfg.moe)).any())
+    for path, got in runs[0].items():
+        other = runs[1][path]
+        assert (got is None and other is None) or torch.equal(got, other), path
+    _, jgx, jgd = _apply_moe_grads_jax(jcfg, jd, jsp, x, g)
+    assert _max_scaled_err(runs[0]["x"].numpy(), jgx) <= TOL
+    for name in PROJS:
+        assert _max_scaled_err(runs[0][f"data/{name}"].numpy(),
+                               jgd[name]) <= TOL, name

@@ -476,10 +476,10 @@ def check_no_dense_weight_grad(cfg, monkeypatch, seq: int = 40,
     dw_product = sparse_ops._dw_product
     shapes = ShapeRecorder()
 
-    def recorded(x, dy, w, backend):
+    def recorded(x, dy, w, backend, rows=None):
         calls.append(w.shape)
         with shapes:
-            return dw_product(x, dy, w, backend)
+            return dw_product(x, dy, w, backend, rows)
 
     monkeypatch.setattr(sparse_ops, "_dw_product", recorded)
     step = tstep.make_train_step(model, dataclasses.replace(opt,

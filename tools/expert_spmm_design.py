@@ -56,7 +56,6 @@ and the card's name and power limit; writes the full ptxas reports to
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import math
 import subprocess
@@ -70,7 +69,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+import cuda_variants  # noqa: E402
 from repro_torch.kernels.bsr_spmm import ops, ref  # noqa: E402
 from repro_torch.sparse.compress import (CompressionPlan, _pad_stack,  # noqa: E402
                                          _prune_to_bcsr, quantize_bcsr)
@@ -334,46 +333,13 @@ VARIANTS = {
 }
 
 
-def patched(name: str, src: str) -> str:
-    """The source of variant ``name``: ``src`` with its changes."""
-    for patch in VARIANTS[name]:
-        if callable(patch):
-            src = patch(src)
-            continue
-        old, new = patch
-        assert src.count(old) == 1, (name, old)
-        src = src.replace(old, new)
-    return src
-
-
 def build_variants(names) -> dict:
-    """The expert library of each variant in ``names``: the shipped one and
-    patched copies of the source, one nvcc each, all at once; name ->
-    (library, ptxas report)."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC / "bsr_spmm_experts.cu").read_text()
-    for f in [*_build.CSRC.glob("*.cuh"), _build.CSRC / "bsr_spmm.cu"]:
-        (OUT / f.name).write_text(f.read_text())
-    procs = {}
-    for name in names:
-        cu = OUT / f"bsr_spmm_experts_{name}.cu"
-        cu.write_text(patched(name, src))
-        so = cu.with_suffix(".so")
-        procs[name] = (so, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    shipped = ops._lib(True)
-    libs = {"shipped": (shipped, _build.log_path("bsr_spmm_experts").read_text())}
-    for name, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed on the {name} copy:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ("bsr_spmm_experts_fwd", "bsr_spmm_palette_experts_fwd"):
-            getattr(lib, fn).argtypes = getattr(shipped, fn).argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = (lib, out)
-    return libs
+    """The expert library of each variant in ``names`` and the shipped
+    one: name -> (library, ptxas report)."""
+    return cuda_variants.build_variants(
+        "bsr_spmm_experts", OUT, VARIANTS, names, lambda: ops._lib(True),
+        ("bsr_spmm_experts_fwd", "bsr_spmm_palette_experts_fwd"),
+        includes=("bsr_spmm",))
 
 
 def main() -> int:
