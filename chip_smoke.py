@@ -281,7 +281,7 @@ from repro_torch.sparse.compress import (CompressionPlan,  # noqa: E402
                                          init_compressed, iter_bcsr,
                                          make_plan_prox, quantize_bcsr,
                                          quantize_compressed, split_trainable)
-from repro_torch.core.tree import flatten_with_path, tree_map  # noqa: E402
+from repro_torch.core.tree import flatten_with_path, keystr, tree_map  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train.state import TrainState  # noqa: E402
 from repro_torch.train.step import make_loss_fn, make_train_step  # noqa: E402
@@ -301,6 +301,8 @@ F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 L2_BYTES = 50 * 2**20
 TIMED_CALLS = 100
+QUEUED_LAUNCHES = 600         # launches queued at most by one time_ms
+PLAIN_ADAM_OPS = 18           # kernels of the plain prox_adam on one leaf
 SLEEP_CYCLES_PER_S = 2.0e9            # above the H100's 1.98 GHz boost clock
 # Kernel vs plain: the same f32 products summed in another order (the JAX
 # kernel tests' tolerance).
@@ -592,17 +594,20 @@ RECURRENT_CLI_COMPRESSED = {HYBRID: 12, RWKV: 8}
 RECURRENT_TRAIN_TABLE = ("layers/b0_rglru/mlp/wi", torch.bfloat16)
 # The paper's CNN pipeline (launch/paper_cnn at its constants: LeNet-5;
 # reference, SpC and Pru(Retrain)'s steps and SpC(Retrain)'s take one
-# prox_adam launch per leaf, 6 leaves; MM launches none). The kernel path
-# against the plain path runs a cut spc_with_retrain (20 + 10 steps); one
-# SpC step is timed per net at batch 128 (leaves: weights and biases).
-CNN_RUN_LAUNCHES = 6 * (2 * paper_cnn.STEPS + 2 * paper_cnn.RETRAIN_STEPS)
+# prox_adam launch a step over all 6 leaves; MM launches none). The kernel
+# path against the plain path runs a cut spc_with_retrain (20 + 10 steps,
+# every one of LeNet-5's 6 leaves held a step); one SpC step is timed per
+# net at batch 128 (leaves: weights and biases; at most 35, ResNet-32's,
+# so one launch a step).
+CNN_RUN_LAUNCHES = 2 * paper_cnn.STEPS + 2 * paper_cnn.RETRAIN_STEPS
 CNN_CUT = (20, 10)
+CNN_LENET_LEAVES = 6
 CNN_BATCH, CNN_TIMED_STEPS = 128, 5
-CNN_LEAVES = {"lenet5": 6, "alexnet-cifar": 11, "vgg16-cifar": 19,
-              "resnet32-cifar": 35}
 # row 5c: prox_adam at LeNet-5's fc1 and VGG16's largest filter (HWIO)
 CNN_ADAM_LEAVES = (("lenet5 fc1/w", (800, 500)),
                    ("vgg16-cifar conv4-2/w", (3, 3, 512, 512)))
+# row 5s: one step's update over every leaf of these nets, as one launch
+CNN_STEP_NETS = ("lenet5", "resnet32-cifar")
 
 def log(*a):
     print(*a, flush=True)
@@ -644,6 +649,14 @@ def time_ms(fn, arg_sets, calls: int = TIMED_CALLS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def queued_calls(launches: int) -> int:
+    """Timed calls for ``time_ms`` of a function that makes ``launches``
+    launches a call: at most QUEUED_LAUNCHES in all. The driver queues
+    about a thousand launches before the host blocks; past that the host
+    enqueues while the device runs, and the events time the host."""
+    return max(1, min(TIMED_CALLS, QUEUED_LAUNCHES // max(launches, 1)))
 
 
 def copies(make, nbytes: int) -> list:
@@ -2246,8 +2259,11 @@ def mesh_phase(dev, cp) -> dict:
         f"{single_sparsity[0]:.4f}")
     for r, rec in enumerate(recs["d_train"]):
         c = rec["launches"]
-        if not (c["spmm_t"] and c["bsr_sddmm"] and c["prox_adam"]):
-            raise SystemExit(f"(d) rank {r} launched {c}")
+        # one prox_adam launch per optimizer step on each rank's shard
+        if not (c["spmm_t"] and c["bsr_sddmm"]) or \
+                c["prox_adam"] != MESH_SPC + MESH_DEBIAS:
+            raise SystemExit(f"(d) rank {r} launched {c}, expected "
+                             f"{MESH_SPC + MESH_DEBIAS} prox_adam")
     if rel > LOSS_RTOL or srel > UPDATE_RTOL:
         raise SystemExit("(d) mesh training left the one-process run")
     # (e) the expert-parallel MoE
@@ -2389,6 +2405,85 @@ def _bwd_kernel_rows(mat_name: str, w, dy, x,
     return rows
 
 
+def _host_ms(fn, args, calls: int = 20) -> float:
+    """Mean host-clock ms to enqueue one ``fn(*args)`` (no sync inside)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    dt = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
+def _tree_row(what: str, shapes, prox, sc, dev) -> dict:
+    """One optimizer step's update over f32 leaves of ``shapes`` (the soft
+    threshold where ``prox``): one tree call, held to one launch per K
+    leaves and every leaf bit-equal to the plain version on its inputs;
+    timed (CUDA events, cold in L2) as that call, as the same kernel
+    launched one leaf at a time, and as the plain version, beside its
+    bytes bound; the host ms to enqueue each form; and, for scale only,
+    ``torch._fused_adam_`` over the same leaves (Adam without the prox: not
+    the same function, so not the library column)."""
+    numel = sum(math.prod(sh) for sh in shapes)
+
+    def make():
+        return ([torch.randn(sh, device=dev) for sh in shapes],
+                [torch.randn(sh, device=dev) for sh in shapes],
+                [torch.randn(sh, device=dev) * 0.1 for sh in shapes],
+                [torch.rand(sh, device=dev) * 0.01 for sh in shapes])
+
+    def tree(ws, gs, ms, vs):
+        adam_ops.fused_tree_update(ws, gs, ms, vs, sc, prox=prox)
+
+    def per_leaf(ws, gs, ms, vs):
+        for w, g, m, v, p in zip(ws, gs, ms, vs, prox):
+            adam_ops.fused_update_leaf(w, g, m, v, sc, apply_prox=p)
+
+    def plain(ws, gs, ms, vs):
+        adam_ops.fused_tree_update_ref(ws, gs, ms, vs, sc, prox=prox)
+
+    steps = [torch.full((), 3.0, device=dev) for _ in shapes]
+
+    def fused_adam(ws, gs, ms, vs):
+        torch._fused_adam_(ws, gs, ms, vs, [], steps, lr=float(sc[0]),
+                           beta1=0.9, beta2=0.999, weight_decay=0.0,
+                           eps=1e-8, amsgrad=False, maximize=False)
+
+    ws, gs, ms, vs = make()
+    want = adam_ops.fused_tree_update_ref(ws, gs, ms, vs, sc, prox=prox)
+    before = adam_ops.launches["prox_adam"]
+    tree(ws, gs, ms, vs)
+    launched = adam_ops.launches["prox_adam"] - before
+    torch.cuda.synchronize()
+    pairs = [(a, b) for leaf, out in zip(zip(ws, ms, vs), want)
+             for a, b in zip(leaf, out)]
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    if launched != math.ceil(len(shapes) / adam_ops.K) or \
+            not all(torch.equal(a, b) for a, b in pairs):
+        raise SystemExit(f"prox_adam tree {what}: {launched} launches for "
+                         f"{len(shapes)} leaves, max err {err} (bit-equal "
+                         "expected)")
+    args = (ws, gs, ms, vs)
+    host = {"tree": _host_ms(tree, args), "per_leaf": _host_ms(per_leaf, args)}
+    sets = copies(make, 16 * numel)
+    leaves = len(shapes)
+    row = {"kernel": "prox_adam", "tree": what, "leaves": leaves,
+           "numel": numel, "launches_a_call": launched, "bit_equal": True,
+           "max_abs_err": err, "ms": time_ms(tree, sets),
+           "per_leaf_ms": time_ms(per_leaf, sets, queued_calls(leaves)),
+           "plain_ms": time_ms(plain, sets,
+                               queued_calls(PLAIN_ADAM_OPS * leaves)),
+           "library_ms": None,
+           "host_ms": host,
+           "notes": {"torch._fused_adam_ ms (Adam, no prox; for scale)":
+                     time_ms(fused_adam, sets)}}
+    row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
+                   _ops_bound(28 * numel, 10 * numel)))
+    log(json.dumps(row))
+    return row
+
+
 def train_kernel_phase(dev) -> dict:
     phase("train kernels")
     rng = np.random.default_rng(1)
@@ -2441,13 +2536,19 @@ def train_kernel_phase(dev) -> dict:
                    "apply_prox": apply_prox, "tau": PROX_TAU,
                    "zeroed_share": zeroed, "max_abs_err": err,
                    "atol": ADAM_ATOL, "ms": time_ms(kernel, sets),
-                   "plain_ms": time_ms(plain, sets), "library_ms": None,
+                   "plain_ms": time_ms(plain, sets,
+                                       queued_calls(PLAIN_ADAM_OPS)),
+                   "library_ms": None,
                    "library": "none: no single PyTorch call is Adam with a "
                               "soft threshold"}
             row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
                            _ops_bound(nbytes, 10 * numel)))
             log(json.dumps(row))
             rows[("prox_adam", leaf, apply_prox)] = row
+    # the same leaves as one tree: one launch a step, beside row 5
+    rows[("prox_adam_tree", "debias tree")] = _tree_row(
+        "smollm-360m debias tree", [(n,) for n in leaf_sizes.values()],
+        [True] * len(leaf_sizes), sc, dev)
     return rows
 
 
@@ -2607,10 +2708,14 @@ def train_phase(dev) -> tuple:
         f"spmm_t {per_step['spmm_t']:.1f}, bsr_sddmm "
         f"{per_step['bsr_sddmm']:.1f}")
     expect = 7 * 32 * DEBIAS_STEPS
+    # one prox_adam launch per optimizer step: resumed from the planted
+    # step 1, SPC_STEPS - 1 SpC steps, then the debias steps
+    opt_steps = SPC_STEPS - 1 + DEBIAS_STEPS
     if counts["spmm"] != expect or counts["spmm_t"] != expect \
-            or counts["bsr_sddmm"] != expect or counts["prox_adam"] <= 0:
+            or counts["bsr_sddmm"] != expect \
+            or counts["prox_adam"] != opt_steps:
         raise SystemExit(f"train launches {counts}: expected {expect} spmm, "
-                         "spmm_t and bsr_sddmm and some prox_adam")
+                         f"spmm_t and bsr_sddmm and {opt_steps} prox_adam")
     losses = [h["loss"] for h in hist_spc + hist_db]
     if not all(math.isfinite(v) for v in losses):
         raise SystemExit(f"non-finite training loss: {losses}")
@@ -3887,20 +3992,24 @@ def _per_step(counts: dict, steps: int) -> dict:
         "bsr_sddmm_experts", "spmm_palette", "spmm_palette_experts")}
 
 
-def _check_train_counts(what, counts, steps, single, experts) -> None:
+def _check_train_counts(what, counts, steps, single, experts,
+                        opt_steps) -> None:
     """Each debias step: ``single`` launches of each single-matrix training
     kernel (attention and the head), ``experts`` of each expert one (3 a
     layer), no palette launch and so no launch that is not one of these;
-    and prox_adam on the leaves."""
+    and one prox_adam launch per optimizer step of the run (``opt_steps``,
+    SpC and debias: every tree here has at most K leaves)."""
     want = {"spmm": single, "spmm_t": single, "bsr_sddmm": single,
             "spmm_experts": experts, "spmm_t_experts": experts,
             "bsr_sddmm_experts": experts, "spmm_palette": 0,
             "spmm_palette_experts": 0}
     got = _per_step(counts, steps)
     log(f"  {what}: launches per debias step {got}")
-    if got != {k: float(v) for k, v in want.items()} or not counts["prox_adam"]:
+    if got != {k: float(v) for k, v in want.items()} or \
+            counts["prox_adam"] != opt_steps:
         raise SystemExit(f"{what}: launches {counts}, expected per step {want} "
-                         "and some prox_adam")
+                         f"and {opt_steps} prox_adam (one an optimizer step)")
+
 
 
 def _timed_spc_retrain(dev, model, params, debias_steps: int) -> dict:
@@ -3966,7 +4075,8 @@ def _timed_spc_retrain(dev, model, params, debias_steps: int) -> dict:
         raise SystemExit(f"non-finite training loss: {losses}")
     return {"cp": cp, "launches": counts, "compress_s": compress_s[0],
             "peak_bytes": torch.cuda.max_memory_allocated(),
-            "step_times": _TimedWatchdog.phases}
+            "step_times": _TimedWatchdog.phases,
+            "opt_steps": SPC_STEPS + debias_steps}
 
 
 def _moe_spc_retrain(dev) -> tuple:
@@ -3997,7 +4107,7 @@ def _moe_spc_retrain(dev) -> tuple:
         raise SystemExit(f"expected every projection compressed, got "
                          f"{[p for p, _ in iter_bcsr(cp)]}")
     _check_train_counts("SpC-Retrain", run["launches"], DEBIAS_STEPS,
-                        single, 3 * cfg.n_layers)
+                        single, 3 * cfg.n_layers, run["opt_steps"])
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                            device=dev)
     ops.reset_launches()
@@ -4046,7 +4156,7 @@ def _debias_full(dev, cfg, cp, what: str) -> dict:
         f"clock, the loss read) {[round(t, 4) for t in times]}; peak memory "
         f"{peak / 2**30:.2f} GiB")
     _check_train_counts(f"{what} full-depth debias", counts, DEBIAS_STEPS,
-                        *_per_pass(cp))
+                        *_per_pass(cp), DEBIAS_STEPS)
     if not all(math.isfinite(v) for v in losses):
         raise SystemExit(f"non-finite debias loss: {losses}")
 
@@ -4241,8 +4351,10 @@ def _reduced_train_cli(dev, arch: str, where: tuple, n_where: int) -> dict:
         raise SystemExit(f"launch/train --reduced --sparse compressed {hits}, "
                          f"expected {n_where} weights under {where}")
     single, experts = _per_pass(cp)
+    # resumed from the planted step 1: CLI_STEPS - 1 SpC steps
     _check_train_counts(f"{arch} launch/train --reduced --sparse", counts,
-                        CLI_DEBIAS, single, experts)
+                        CLI_DEBIAS, single, experts,
+                        CLI_STEPS - 1 + CLI_DEBIAS)
     argv = ["--arch", arch, "--reduced", "--sparse", "--ckpt-dir",
             str(ckpt_dir), "--batch", str(BATCH), "--prompt-len", str(PROMPT),
             "--gen", str(CLI_GEN)]
@@ -4343,7 +4455,7 @@ def _recurrent_spc_retrain(dev, arch: str) -> tuple:
         raise SystemExit(f"{arch}: expected all {n_proj} projections "
                          f"compressed, got {[p for p, _ in iter_bcsr(cp)]}")
     _check_train_counts(f"{arch} SpC-Retrain", run["launches"], DEBIAS_STEPS,
-                        n_proj, 0)
+                        n_proj, 0, run["opt_steps"])
     return cp, dict(run, sparsity=sparsity)
 
 
@@ -4698,6 +4810,19 @@ def _train_rows(table, train_rows, train_counts, card) -> None:
         "shape": f"bcsr_data mlp.wi leaf, {r['numel']} f32 elements, "
                  "with the prox",
         "card": card})
+    r = train_rows[("prox_adam_tree", "debias tree")]
+    table.append({
+        "name": "prox_adam_debias_tree", "route": "cuda",
+        "source": "src/repro_torch/csrc/prox_adam.cu",
+        "replaces": "src/repro/kernels/prox_adam/prox_adam.py:69",
+        "launches": train_counts["prox_adam"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "shape": f"smollm-360m's debias tree, {r['leaves']} leaves "
+                 f"({r['numel']} f32 elements), one launch, with the prox; "
+                 f"one launch a leaf {r['per_leaf_ms']:.6f} ms",
+        "card": card})
 
 
 # ---------------------------------------------------------------------------
@@ -4706,35 +4831,46 @@ def _train_rows(table, train_rows, train_counts, card) -> None:
 
 @contextlib.contextmanager
 def _adam_calls(plain: bool):
-    """Within the block, every ``prox_adam`` call of the optimizers either
-    runs the kernel and is held bit-equal to the plain version on a copy of
-    its inputs (``plain`` False; yields the count of held calls), or runs
-    the plain version on the card (``plain`` True)."""
-    kernel = adam_ops.fused_update_leaf
-    held = [0]
+    """Within the block, every ``prox_adam`` tree call of the optimizers
+    (one an optimizer step) either runs the kernel, with every leaf held
+    bit-equal to the plain version computed on its inputs before the
+    in-place launch and the launches held to one per K leaves (``plain``
+    False), or runs the plain version on the card (``plain`` True).
+    Yields [calls held, leaves held]."""
+    kernel = adam_ops.fused_tree_update
+    held = [0, 0]
 
-    def call(w, g, m, v, scalars, *, rule="adam", apply_prox=True):
-        want = adam_ops.fused_prox_update_ref(w, g, m, v, scalars, rule=rule,
-                                              apply_prox=apply_prox)
+    def call(ws, gs, ms, vs, scalars, *, rule="adam", prox=None,
+             predicate=None):
+        want = adam_ops.fused_tree_update_ref(ws, gs, ms, vs, scalars,
+                                              rule=rule, prox=prox)
         if plain:
-            for t, x in zip((w, m, v), want):
-                t.copy_(x)
-            return w, m, v
-        got = kernel(w, g, m, v, scalars, rule=rule, apply_prox=apply_prox)
+            for leaf, out in zip(zip(ws, ms, vs), want):
+                for t, x in zip(leaf, out):
+                    t.copy_(x)
+            return ws, ms, vs
+        before = adam_ops.launches["prox_adam"]
+        kernel(ws, gs, ms, vs, scalars, rule=rule, prox=prox)
+        launched = adam_ops.launches["prox_adam"] - before
         held[0] += 1
-        for name, a, b in zip("wmv", got, want):
-            if not torch.equal(a, b):
-                raise SystemExit(
-                    f"cnn: prox_adam call {held[0]} ({name}, "
-                    f"{tuple(w.shape)}) differs from plain, max err "
-                    f"{float((a.float() - b.float()).abs().max())}")
-        return got
+        if launched != math.ceil(len(ws) / adam_ops.K):
+            raise SystemExit(f"cnn: prox_adam call {held[0]} over {len(ws)} "
+                             f"leaves made {launched} launches")
+        for leaf, out in zip(zip(ws, ms, vs), want):
+            for name, a, b in zip("wmv", leaf, out):
+                if not torch.equal(a, b):
+                    raise SystemExit(
+                        f"cnn: prox_adam call {held[0]} ({name}, "
+                        f"{tuple(a.shape)}) differs from plain, max err "
+                        f"{float((a.float() - b.float()).abs().max())}")
+            held[1] += 1
+        return ws, ms, vs
 
-    adam_ops.fused_update_leaf = call
+    adam_ops.fused_tree_update = call
     try:
         yield held
     finally:
-        adam_ops.fused_update_leaf = kernel
+        adam_ops.fused_tree_update = kernel
 
 
 def _cnn_pipeline_run() -> dict:
@@ -4790,15 +4926,15 @@ def _cnn_compare(dev) -> dict:
                                                  steps=steps,
                                                  retrain_steps=retrain,
                                                  device=dev)
-            runs[plain] = (out, [float(x) for x in losses], held[0])
+            runs[plain] = (out, [float(x) for x in losses], list(held))
     finally:
         cnn_train.make_cnn_step = make
         torch.backends.cudnn.deterministic = det
     (k_out, k_loss, held), (p_out, p_loss, _) = runs[False], runs[True]
-    n_leaves = CNN_LEAVES["lenet5"]
-    if held != n_leaves * (steps + retrain):
-        raise SystemExit(f"cnn: {held} prox_adam calls held, expected "
-                         f"{n_leaves * (steps + retrain)}")
+    if held != [steps + retrain, CNN_LENET_LEAVES * (steps + retrain)]:
+        raise SystemExit(f"cnn: {held} prox_adam calls and leaves held, "
+                         f"expected {steps + retrain} calls (one a step) "
+                         f"and {CNN_LENET_LEAVES * (steps + retrain)} leaves")
     if k_loss != p_loss:
         raise SystemExit(f"cnn: losses differ, kernel {k_loss}, plain {p_loss}")
     diff = 0.0
@@ -4811,7 +4947,7 @@ def _cnn_compare(dev) -> dict:
             diff = max(diff, float((a - b).abs().max()))
             if not torch.equal(a, b):
                 raise SystemExit(f"cnn: {key} params {path} differ")
-    res = {"held_calls": held, "losses": k_loss,
+    res = {"held_calls": held[0], "held_leaves": held[1], "losses": k_loss,
            "spc_compression": k_out["spc_compression"],
            "retrain_compression": k_out["retrain_compression"],
            "max_param_diff": diff}
@@ -4824,7 +4960,7 @@ def _cnn_steps(dev) -> dict:
     full width: host-clock step time (synchronized), the net's peak memory
     (params, Adam's moments, a batch and the step's activations: the peak
     over what was allocated before its init) and prox_adam launches per
-    step."""
+    step, held to one (every net has at most K leaves)."""
     out = {}
     for name, model in CNN_ZOO.items():
         # garbage of earlier phases (and nets) freed now, not during the
@@ -4850,13 +4986,16 @@ def _cnn_steps(dev) -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         per_step = adam_ops.launches["prox_adam"] / CNN_TIMED_STEPS
+        leaves = len(flatten_with_path(params))
         # (the reference's He init takes a filter's height as its fan-in,
         # so the deeper nets' random logits are huge: the loss is logged,
         # not held)
-        if per_step != CNN_LEAVES[name]:
+        if leaves > adam_ops.K or per_step != 1:
             raise SystemExit(f"cnn: {name} step: {per_step} prox_adam "
-                             "launches a step")
+                             f"launches a step over {leaves} leaves")
         out[name] = {"step_ms": sorted(times), "launches_per_step": per_step,
+                     "launches": adam_ops.launches["prox_adam"],
+                     "steps": CNN_TIMED_STEPS, "leaves": leaves,
                      "peak_gib": (torch.cuda.max_memory_allocated() - base)
                      / 2**30,
                      "weights": cnn_weight_count(params), "loss": float(loss)}
@@ -4895,12 +5034,30 @@ def _cnn_adam_rows(dev) -> dict:
         row = {"kernel": "prox_adam", "leaf": leaf, "shape": list(shape),
                "numel": numel, "max_abs_err": err,
                "bit_equal": all(torch.equal(a, b) for a, b in zip(got, want)),
-               "ms": time_ms(kernel, sets), "plain_ms": time_ms(plain, sets),
+               "ms": time_ms(kernel, sets),
+               "plain_ms": time_ms(plain, sets, queued_calls(PLAIN_ADAM_OPS)),
                "library_ms": None}
         row.update(zip(("bound_ms", "bound_by", "bytes", "flops"),
                        _ops_bound(28 * numel, 10 * numel)))
         log(json.dumps(row))
         rows[leaf] = row
+    return rows
+
+
+def _cnn_step_rows(dev) -> dict:
+    """Row 5s: one SpC step's update over every leaf of LeNet-5 and
+    ResNet-32 at their real shapes (the soft threshold where the default
+    predicate holds, as ``core.optimizers`` flags it), as one launch."""
+    sc = adam_ops.make_scalars(1e-3, PROX_TAU / 1e-3, 0.9, 0.999, 1e-8, 3)
+    rows = {}
+    for name in CNN_STEP_NETS:
+        params = CNN_ZOO[name].init(torch.Generator(dev).manual_seed(0), dev)
+        flat = flatten_with_path(params)
+        prox = [prox_lib.default_regularized_predicate(keystr(k), p)
+                for k, p in flat]
+        rows[name] = _tree_row(f"{name} step", [p.shape for _, p in flat],
+                               prox, sc, dev)
+        del params, flat
     return rows
 
 
@@ -4914,14 +5071,16 @@ def cnn_phase(dev) -> dict:
     res["steps"] = _cnn_steps(dev)
     phase("cnn: prox_adam at the CNN leaves (row 5c)")
     res["adam_rows"] = _cnn_adam_rows(dev)
+    phase("cnn: one step's update over every leaf, one launch (row 5s)")
+    res["step_rows"] = _cnn_step_rows(dev)
     res["phase_s"] = time.perf_counter() - t0
     log(f"cnn: phase took {res['phase_s']:.1f} s")
     return res
 
 
 def _cnn_rows(table, cnn, card) -> None:
-    """Row 5c: prox_adam at the CNN leaves; launches per launch/paper_cnn
-    run."""
+    """Rows 5c and 5s: prox_adam at the CNN leaves and over a step's
+    leaves; launches per launch/paper_cnn run."""
     for leaf, r in cnn["adam_rows"].items():
         table.append({
             "name": "prox_adam_cnn", "route": "cuda",
@@ -4932,6 +5091,26 @@ def _cnn_rows(table, cnn, card) -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": f"{leaf} {tuple(r['shape'])} f32, with the prox",
+            "card": card})
+    for name, r in cnn["step_rows"].items():
+        # LeNet-5's launches are launch/paper_cnn's run; another net's, its
+        # timed SpC steps in _cnn_steps
+        steps = cnn["steps"][name]
+        launches, run = (cnn["run"]["launches"], "launch/paper_cnn") \
+            if name == "lenet5" else \
+            (steps["launches"], f"{steps['steps']} SpC steps")
+        table.append({
+            "name": "prox_adam_cnn_step", "route": "cuda",
+            "source": "src/repro_torch/csrc/prox_adam.cu",
+            "replaces": "src/repro/kernels/prox_adam/prox_adam.py:69",
+            "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "shape": f"{name}: one step's update over its {r['leaves']} "
+                     f"leaves ({r['numel']} f32 elements), one launch; "
+                     f"one launch a leaf {r['per_leaf_ms']:.6f} ms; "
+                     f"launches of its {run}",
             "card": card})
 
 

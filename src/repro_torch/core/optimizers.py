@@ -13,14 +13,17 @@ zero.
 
 The port updates params and moments IN PLACE (JAX returns new trees and
 donates the old ones); ``update`` must run under ``torch.no_grad()``, as
-``train.step`` does. Under ``prox_adam`` and ``prox_rmsprop`` every leaf's
-step ``z = p - eta*d`` goes through ``kernels/prox_adam``'s
-``fused_update_leaf``, with the soft threshold inside when the prox is l1
-and the predicate holds; otherwise the path-aware or group-l1 prox runs on
-its result (under a rank mesh, on the whole leaf: gathered, thresholded,
-and this rank's part taken back). That wrapper launches the kernel for a
-CUDA leaf and runs its plain version for a CPU leaf. ``prox_sgd`` has no
-kernel: its step is the plain ``direction`` arithmetic here.
+``train.step`` does. Under ``prox_adam`` and ``prox_rmsprop`` the step ``z
+= p - eta*d`` of every leaf goes through one call of ``kernels/prox_adam``'s
+``fused_tree_update``, with the soft threshold inside on each leaf where
+the prox is l1 and the predicate holds: one kernel launch a step for a
+CUDA tree of up to ``fused_ops.K`` leaves, the plain version leaf by leaf
+for a CPU tree. After it, leaf by leaf, the path-aware or group-l1 prox
+runs on the result (under a rank mesh, on the whole leaf: gathered,
+thresholded, and this rank's part taken back) and the mask multiplies.
+The f32 gradients of all leaves are held until that call: a step's peak
+memory holds them together. ``prox_sgd`` has no kernel: its step is the
+plain ``direction`` arithmetic here, leaf by leaf.
 """
 from __future__ import annotations
 
@@ -97,6 +100,14 @@ def _make(name: str, learning_rate, lam, prox_name: str = "l1",
         flat_v = [v for _, v in flatten_with_path(state.v)]
         flat_k = ([k for _, k in flatten_with_path(mask)] if mask is not None
                   else [None] * len(flat_g))
+
+        def finish(p, z, mk):
+            if z is not p:
+                p.copy_(z)
+            if mk is not None:
+                p.mul_(mk.to(p.dtype))
+
+        leaves = []
         for (keys, p), g, m, v, mk in zip(flatten_with_path(params), flat_g,
                                           flat_m, flat_v, flat_k):
             name = keystr(keys)
@@ -107,23 +118,28 @@ def _make(name: str, learning_rate, lam, prox_name: str = "l1",
             if weight_decay:
                 g32 = g32 + weight_decay * p.float()
             if kernel is not None:
-                fused_ops.fused_update_leaf(
-                    p, g32.contiguous(), m, v, scalars, rule=kernel["rule"],
-                    apply_prox=regular and elementwise_l1)
+                leaves.append((name, p, g32, m, v, mk, regular))
+                continue
+            d, m2, v2 = direction_fn(g32, m, v, t)
+            z = p.float() - eta * d
+            if regular:
+                z = _whole_leaf(prox_fn, z, tau, name, path_aware)
+            if m2 is not m:
+                m.copy_(m2)
+            finish(p, z, mk)
+        if kernel is not None:
+            # every leaf's step in one call: one launch on the card for a
+            # tree of up to fused_ops.K leaves
+            fused_ops.fused_tree_update(
+                [x[1] for x in leaves], [x[2] for x in leaves],
+                [x[3] for x in leaves], [x[4] for x in leaves], scalars,
+                rule=kernel["rule"],
+                prox=[x[6] and elementwise_l1 for x in leaves])
+            for name, p, _, _, _, mk, regular in leaves:
                 z = p
                 if regular and not elementwise_l1:
                     z = _whole_leaf(prox_fn, p, tau, name, path_aware)
-            else:
-                d, m2, v2 = direction_fn(g32, m, v, t)
-                z = p.float() - eta * d
-                if regular:
-                    z = _whole_leaf(prox_fn, z, tau, name, path_aware)
-                if m2 is not m:
-                    m.copy_(m2)
-            if z is not p:
-                p.copy_(z)
-            if mk is not None:
-                p.mul_(mk.to(p.dtype))
+                finish(p, z, mk)
         return params, ProxState(step=t, m=state.m, v=state.v)
 
     return ProxOptimizer(init=init, update=update, name=name)

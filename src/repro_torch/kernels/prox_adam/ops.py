@@ -1,22 +1,28 @@
 """Wrapper of the fused Prox-ADAM / Prox-RMSProp kernel
 (``csrc/prox_adam.cu``).
 
-``fused_update_leaf(w, g, m, v, scalars)`` runs one optimizer step and,
-with ``apply_prox``, the soft threshold, updating ``w``, ``m`` and ``v``
-IN PLACE (JAX returns new arrays and donates the old ones). For tensors on
-the CPU it runs the plain version (``ref.py``) and copies the result back;
-for CUDA tensors it launches the kernel or raises. There is no fallback
-between the two.
+``fused_tree_update(ws, gs, ms, vs, scalars, prox=...)`` runs one
+optimizer step over every leaf of a tree and, on the leaves whose prox
+flag is set, the soft threshold, updating each ``w``, ``m`` and ``v`` IN
+PLACE (JAX returns new arrays and donates the old ones). For CUDA tensors
+it makes ``ceil(leaves / K)`` launches, K leaves each, in leaf order: one
+launch per optimizer step for every tree the port trains. For tensors on
+the CPU it runs the plain version (``ref.py``) leaf by leaf and copies the
+results back. There is no fallback between the two.
+``fused_update_leaf`` is the same entry on one leaf.
 
-The TPU wrapper tiled every leaf to (rows, 128); the CUDA kernel takes the
-flat length, so no padding copy is made. The 8 scalars travel to the
-kernel by value: no step copies them to the device, and nothing syncs.
+The TPU wrapper tiled every leaf to (rows, 128) and launched once a leaf;
+the CUDA kernel takes each leaf's flat length from a table of up to K
+leaves that travels by value in its parameters, with the 7 scalars: no
+padding copy, no device allocation, nothing synced. ``launch_plan`` builds
+that table on the host.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Callable, Optional
+import itertools
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -30,6 +36,16 @@ launches = {"prox_adam": 0}
 _RULES = {"adam": 0, "rmsprop": 1}
 PyTree = Any
 
+# The kernel's constants (csrc/prox_adam.cu MAX_LEAVES, CHUNK), checked
+# against the library when it loads: leaves a launch (the largest tree the
+# port trains, recurrentgemma-9b's debias tree at full depth, has 98),
+# elements a thread block.
+K = 100
+CHUNK = 512
+# a leaf's flags in the table: bf16 w, the soft threshold, the vector path
+# (every pointer 16-byte aligned, a bf16 w 8)
+BF16_W, PROX, VEC = 1, 2, 4
+
 
 def reset_launches() -> None:
     _counts.reset(launches)
@@ -38,10 +54,13 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("prox_adam")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.prox_adam_update.argtypes = [p, i, p, p, p, ctypes.c_longlong, i, i] \
-        + [f] * 7 + [p]
-    lib.prox_adam_update.restype = i
+    i, f = ctypes.c_int, ctypes.c_float
+    lib.prox_adam_tree.argtypes = [ctypes.c_void_p, i, i, i] + [f] * 7 \
+        + [ctypes.c_void_p]
+    lib.prox_adam_tree.restype = i
+    if (lib.prox_adam_chunk(), lib.prox_adam_max_leaves()) != (CHUNK, K):
+        raise RuntimeError("csrc/prox_adam.cu's CHUNK / MAX_LEAVES differ "
+                           "from the wrapper's")
     return lib
 
 
@@ -55,10 +74,45 @@ def make_scalars(lr, lam, b1, b2, eps, t) -> torch.Tensor:
                         torch.zeros((), dtype=torch.float32)])
 
 
+class Launch(NamedTuple):
+    """One kernel launch: ``leaves`` are positions in the caller's lists,
+    ``rows`` the kernel's table (w, g, m, v pointers, length, flags, first
+    thread block; one row a leaf), ``blocks`` its thread blocks."""
+    leaves: list
+    rows: list
+    blocks: int
+
+
+def launch_plan(ws, gs, ms, vs, prox: Sequence[bool], *, k: int = K,
+                chunk: int = CHUNK) -> list:
+    """The launches of one tree update: the non-empty leaves in order, at
+    most ``k`` a launch; each leaf owns ``ceil(n / chunk)`` consecutive
+    thread blocks of its launch, block b its elements [b chunk, (b + 1)
+    chunk) up to n."""
+    out, leaves, rows, blocks = [], [], [], 0
+    for i, (w, g, m, v, p) in enumerate(zip(ws, gs, ms, vs, prox,
+                                            strict=True)):
+        n = w.numel()
+        if n == 0:
+            continue
+        if len(rows) == k:
+            out.append(Launch(leaves, rows, blocks))
+            leaves, rows, blocks = [], [], 0
+        ptrs = (w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr())
+        bf16 = w.dtype == torch.bfloat16
+        aligned = ptrs[0] % (8 if bf16 else 16) == 0 and \
+            all(q % 16 == 0 for q in ptrs[1:])
+        flags = BF16_W * bf16 | PROX * bool(p) | VEC * aligned
+        leaves.append(i)
+        rows.append((*ptrs, n, flags, blocks))
+        blocks += -(-n // chunk)
+    if rows:
+        out.append(Launch(leaves, rows, blocks))
+    return out
+
+
 def _check(w, g, m, v):
     for name, t in (("g", g), ("m", m), ("v", v)):
-        if t.device != w.device:
-            raise ValueError(f"{name} lies on {t.device}, w on {w.device}")
         if t.shape != w.shape:
             raise ValueError(f"{name} {tuple(t.shape)} != w {tuple(w.shape)}")
     if w.dtype not in (torch.float32, torch.bfloat16):
@@ -68,59 +122,88 @@ def _check(w, g, m, v):
         raise TypeError("prox_adam takes f32 g, m and v")
     if not all(t.is_contiguous() for t in (w, g, m, v)):
         raise ValueError("prox_adam takes contiguous tensors (updated in place)")
+    if w.numel() >= 2**31:
+        raise ValueError(f"prox_adam takes leaves of fewer than 2^31 "
+                         f"elements, got {w.numel()}")
 
 
-def fused_update_leaf(w, g, m, v, scalars, *, rule: str = "adam",
-                      apply_prox: bool = True):
-    """Update (w, m, v) in place; returns them. ``scalars`` is
-    ``make_scalars(...)`` (8 host f32 values)."""
-    return kernel_call("prox_adam/fused_update_leaf", _fused_update_leaf, w,
-                       g, m, v, scalars, rule=rule, apply_prox=apply_prox)
-
-
-def _fused_update_leaf(w, g, m, v, scalars, *, rule: str, apply_prox: bool):
-    if rule not in _RULES:
-        raise ValueError(rule)
-    if w.device.type == "cpu":
-        w2, m2, v2 = ref.fused_prox_update_ref(w, g, m, v, scalars, rule=rule,
-                                               apply_prox=apply_prox)
-        w.copy_(w2)
-        m.copy_(m2)
-        v.copy_(v2)
-        return w, m, v
-    if w.device.type != "cuda":
-        raise ValueError(f"prox_adam takes CUDA or CPU tensors, got {w.device}")
-    g = g.float()
-    _check(w, g, m, v)
-    n = w.numel()
-    if n == 0:
-        return w, m, v
-    sc = [float(s) for s in torch.as_tensor(scalars).cpu().tolist()[:7]]
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().prox_adam_update(
-            w.data_ptr(), int(w.dtype == torch.bfloat16), g.data_ptr(),
-            m.data_ptr(), v.data_ptr(), n, _RULES[rule], int(apply_prox),
-            *sc, stream)
-    if err:
-        raise RuntimeError(f"prox_adam_update launch failed: CUDA error {err}")
-    _counts.bump(launches, "prox_adam")
-    return w, m, v
+def _flat(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for _, x in flatten_with_path(tree)]
+    return list(tree)
 
 
 def fused_tree_update(params: PyTree, grads: PyTree, m: PyTree, v: PyTree,
                       scalars, *, rule: str = "adam",
+                      prox: Optional[Sequence[bool]] = None,
                       predicate: Optional[Callable] = None):
-    """Whole-tree fused update, in place; leaves the predicate does not
-    regularize skip the prox. Returns (params, m, v)."""
-    predicate = predicate or default_regularized_predicate
-    fg = [x for _, x in flatten_with_path(grads)]
-    fm = [x for _, x in flatten_with_path(m)]
-    fv = [x for _, x in flatten_with_path(v)]
-    for (keys, p), g, mm, vv in zip(flatten_with_path(params), fg, fm, fv):
-        fused_update_leaf(p, g, mm, vv, scalars, rule=rule,
-                          apply_prox=predicate(keystr(keys), p))
+    """One fused step over every leaf, in place. ``params``, ``grads``,
+    ``m`` and ``v`` are lists of tensors, a leaf each, or nested-dict trees
+    of one structure; ``scalars`` is ``make_scalars(...)`` (8 host f32
+    values), made once a step. ``prox`` holds one flag a leaf; without it
+    a dict tree's leaves take the prox where ``predicate`` (default
+    ``default_regularized_predicate``) holds on their path. Returns
+    (params, m, v)."""
+    ws = _flat(params)
+    if prox is None:
+        if not isinstance(params, dict):
+            raise ValueError("a list of leaves needs its prox flags")
+        predicate = predicate or default_regularized_predicate
+        prox = [predicate(keystr(keys), p)
+                for keys, p in flatten_with_path(params)]
+    kernel_call("prox_adam/fused_tree_update", _tree_update, ws, _flat(grads),
+                _flat(m), _flat(v), list(prox), scalars, rule=rule)
     return params, m, v
 
 
+def _tree_update(ws, gs, ms, vs, prox, scalars, *, rule: str):
+    if rule not in _RULES:
+        raise ValueError(rule)
+    if not ws:
+        return
+    device = ws[0].device
+    for t in itertools.chain(ws, gs, ms, vs):
+        if t.device != device:
+            raise ValueError(f"a tensor lies on {t.device}, the first w on "
+                             f"{device}: a tree update takes one device")
+    if device.type == "cpu":
+        for w, g, m, v, p in zip(ws, gs, ms, vs, prox, strict=True):
+            out = ref.fused_prox_update_ref(w, g, m, v, scalars, rule=rule,
+                                            apply_prox=p)
+            for t, x in zip((w, m, v), out):
+                t.copy_(x)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"prox_adam takes CUDA or CPU tensors, got {device}")
+    # the f32 copies made here stay referenced until every launch that
+    # reads them is queued: freed earlier, the caching allocator could hand
+    # their memory to the next leaf's copy before the kernel has read it
+    gs = [g.float().contiguous() for g in gs]
+    for w, g, m, v in zip(ws, gs, ms, vs, strict=True):
+        _check(w, g, m, v)
+    sc = [float(s) for s in torch.as_tensor(scalars).cpu().tolist()[:7]]
+    plan = launch_plan(ws, gs, ms, vs, prox, k=K, chunk=CHUNK)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for launch in plan:
+            table = (ctypes.c_longlong * (7 * len(launch.rows)))(
+                *itertools.chain.from_iterable(launch.rows))
+            err = lib.prox_adam_tree(table, len(launch.rows), launch.blocks,
+                                     _RULES[rule], *sc, stream)
+            if err:
+                raise RuntimeError(
+                    f"prox_adam_tree launch failed: CUDA error {err}")
+            _counts.bump(launches, "prox_adam")
+
+
+def fused_update_leaf(w, g, m, v, scalars, *, rule: str = "adam",
+                      apply_prox: bool = True):
+    """``fused_tree_update`` on one leaf; returns (w, m, v)."""
+    fused_tree_update([w], [g], [m], [v], scalars, rule=rule,
+                      prox=[apply_prox])
+    return w, m, v
+
+
 fused_prox_update_ref = ref.fused_prox_update_ref
+fused_tree_update_ref = ref.fused_tree_update_ref

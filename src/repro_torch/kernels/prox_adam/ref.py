@@ -1,8 +1,10 @@
 """Plain PyTorch version of the fused Prox-ADAM / Prox-RMSProp kernel.
 
-``ops.fused_update_leaf`` runs it for tensors on the CPU; the CPU tests
-hold it against the JAX package, and ``chip_smoke.py`` holds the CUDA
-kernel against it on the card.
+``fused_prox_update_ref`` updates one leaf, ``fused_tree_update_ref`` a
+list of leaves, one after another. ``ops.fused_tree_update`` runs the
+latter for tensors on the CPU; the CPU tests hold both against the JAX
+package, and ``chip_smoke.py`` holds every leaf of a kernel launch against
+them on the card.
 """
 from __future__ import annotations
 
@@ -41,3 +43,14 @@ def fused_prox_update_ref(w, g, m, v, scalars, *, rule: str = "adam",
         tau = float(sc[0] * sc[1])
         z = torch.minimum(torch.clamp_min(z - tau, 0.0), z + tau)
     return z.to(w.dtype), m2, v2
+
+
+def fused_tree_update_ref(ws, gs, ms, vs, scalars, *, rule: str = "adam",
+                          prox=None):
+    """``fused_prox_update_ref`` on each leaf in turn, the soft threshold
+    where its flag in ``prox`` is set (default: every leaf). Returns a list
+    of new (w, m, v), one a leaf; the inputs are left as they are."""
+    prox = [True] * len(ws) if prox is None else prox
+    return [fused_prox_update_ref(w, g, m, v, scalars, rule=rule,
+                                  apply_prox=bool(p))
+            for w, g, m, v, p in zip(ws, gs, ms, vs, prox, strict=True)]

@@ -47,6 +47,8 @@ def kernel_call(name: str, fn: Callable, *args, **kwargs):
 
 def _on_cuda(args, kwargs) -> bool:
     for a in (*args, *kwargs.values()):
+        if isinstance(a, (list, tuple)) and a:
+            a = a[0]                     # a list of leaves: the first
         if isinstance(a, torch.Tensor):
             return a.is_cuda
     return False
@@ -121,8 +123,9 @@ class Profiler:
 
     def call(self, name: str, fn: Callable, *args, **kwargs):
         """Run ``fn(*args, **kwargs)``, timed by CUDA events on the current
-        stream when its first tensor argument lies on a card (read later,
-        by ``summary``), else on the host clock. ``n_traced`` stays 0:
+        stream when its first tensor argument (a list of leaves counts by
+        its first) lies on a card (read later, by ``summary``), else on
+        the host clock. ``n_traced`` stays 0:
         PyTorch runs eagerly, there is no trace to count."""
         if not _on_cuda(args, kwargs):
             return self.wall(name, fn, *args, **kwargs)

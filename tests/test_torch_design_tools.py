@@ -1,7 +1,8 @@
 """The design tools' variants (``tools/expert_spmm_design.py``,
-``tools/expert_bwd_design.py``) still apply to the shipped CUDA sources:
-every patch of every variant finds its text the number of times it
-expects, and changes the source. Nothing is built or run."""
+``tools/expert_bwd_design.py``, ``tools/prox_adam_rows.py``) still apply
+to the shipped CUDA sources: every patch of every variant finds its text
+the number of times it expects, and changes the source. Nothing is built
+or run."""
 import importlib
 import sys
 from pathlib import Path
@@ -15,7 +16,8 @@ cuda_variants = importlib.import_module("cuda_variants")
 from repro_torch.kernels import _build  # noqa: E402
 
 _TOOLS = {"expert_spmm_design": "bsr_spmm_experts",
-          "expert_bwd_design": "bsr_experts_bwd"}
+          "expert_bwd_design": "bsr_experts_bwd",
+          "prox_adam_rows": "prox_adam"}
 
 
 def _variants():

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.core.optimizers import prox_adam
+from repro_torch.core.tree import flatten_with_path
 from repro_torch.kernels.bsr_spmm import ops, ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
@@ -720,6 +721,107 @@ def test_cuda_prox_adam_cnn_leaves_match_plain(shape, masked):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
     if masked:
         assert (out["cuda"][0][torch.from_numpy(mask) == 0] == 0).all()
+
+
+def _mixed_leaves(rng, dev, sizes=None):
+    """w, g, m, v lists and prox flags of a tree that mixes f32 and bf16 w,
+    prox and no-prox leaves, a 1-element leaf, a leaf off a 16-byte
+    boundary, leaves shorter and longer than a thread block's chunk, and
+    an empty leaf."""
+    if sizes is None:
+        sizes = [(5, 5, 3, 8), (8,), (1,), (33, 17), (40,), (999,),
+                 (adam_ops.CHUNK + 37,), (0,), (3, 3, 64, 64)]
+    ws, gs, ms, vs, prox = [], [], [], [], []
+    for i, shape in enumerate(sizes):
+        mk = lambda s=1.0: torch.tensor(  # noqa: E731
+            rng.normal(size=shape) * s, dtype=torch.float32, device=dev)
+        w = mk()
+        if i % 9 == 5:                       # a view 4 bytes into its base
+            base = torch.zeros(w.numel() + 1, device=dev)
+            base[1:] = w.reshape(-1)
+            w = base[1:].view(shape)
+        ws.append(w.to(torch.bfloat16) if i % 9 in (3, 4) else w)
+        gs.append(mk())
+        ms.append(mk(0.1))
+        vs.append(mk(0.1).abs())
+        prox.append(i % 9 not in (1, 4))
+    return ws, gs, ms, vs, prox
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["adam", "rmsprop"])
+@pytest.mark.parametrize("many", [False, True])
+def test_cuda_prox_tree_matches_plain(rule, many):
+    """One launch over a mixed tree, and two over a tree of K + 1 leaves:
+    every w, m and v equal to the plain version, bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(26)
+    sizes = None
+    if many:
+        sizes = [(int(n),) for n in rng.integers(1, 3000, adam_ops.K + 1)]
+        sizes[7] = (3, 3, 64, 64)
+    ws, gs, ms, vs, prox = _mixed_leaves(rng, dev, sizes)
+    sc = adam_ops.make_scalars(1e-2, 3.0, 0.9, 0.999, 1e-8, 7)
+    want = adam_ops.fused_tree_update_ref(ws, gs, ms, vs, sc, rule=rule,
+                                          prox=prox)
+    before = adam_ops.launches["prox_adam"]
+    adam_ops.fused_tree_update(ws, gs, ms, vs, sc, rule=rule, prox=prox)
+    assert adam_ops.launches["prox_adam"] == before + (2 if many else 1)
+    torch.cuda.synchronize()
+    for i, (w, m, v, (w2, m2, v2)) in enumerate(zip(ws, ms, vs, want)):
+        for name, a, b in (("w", w, w2), ("m", m, m2), ("v", v, v2)):
+            assert torch.equal(a, b), (i, name, tuple(a.shape))
+
+
+@pytest.mark.gpu
+def test_cuda_prox_tree_temporaries_live_until_launch():
+    """bf16 grads: every f32 g the kernel reads is a temporary that
+    ``update`` (and, called directly, the wrapper) makes with ``.float()``,
+    40 of one size, which the caching allocator would hand on from leaf to
+    leaf if one were freed before the launch. Each step of ``update`` is
+    one launch, and its params and moments equal the plain version on the
+    card, computed from the same inputs before the step."""
+    dev = _cuda()
+    rng = np.random.default_rng(27)
+    shapes = [(64, 64)] * 40
+    w0 = [rng.normal(size=s).astype(np.float32) * 0.05 for s in shapes]
+    grads = [[rng.normal(size=s).astype(np.float32) for s in shapes]
+             for _ in range(2)]
+    opt = prox_adam(1e-3, lam=1.0)
+    p = {f"l{i:02d}": {"w": torch.from_numpy(w).to(dev)}
+         for i, w in enumerate(w0)}
+    state = opt.init(p)
+
+    def flat(tree):
+        return [x for _, x in flatten_with_path(tree)]
+    for t, gl in enumerate(grads, 1):
+        g = {f"l{i:02d}": {"w": torch.from_numpy(x).to(dev, torch.bfloat16)}
+             for i, x in enumerate(gl)}
+        sc = adam_ops.make_scalars(1e-3, 1.0, 0.9, 0.999, 1e-8, t)
+        want = adam_ops.fused_tree_update_ref(
+            flat(p), [x.float() for x in flat(g)], flat(state.m),
+            flat(state.v), sc, prox=[True] * len(shapes))
+        before = adam_ops.launches["prox_adam"]
+        with torch.no_grad():
+            p, state = opt.update(g, state, p)
+        assert adam_ops.launches["prox_adam"] == before + 1
+        torch.cuda.synchronize()
+        for got, ref_leaf in zip(zip(flat(p), flat(state.m), flat(state.v)),
+                                 want):
+            for a, b in zip(got, ref_leaf):
+                assert torch.equal(a, b)
+    # the wrapper's own copies: bf16 g handed straight to the tree entry
+    ws = [torch.from_numpy(w).to(dev) for w in w0]
+    gs = [torch.from_numpy(x).to(dev, torch.bfloat16) for x in grads[0]]
+    ms = [torch.zeros_like(w) for w in ws]
+    vs = [torch.zeros_like(w) for w in ws]
+    sc = adam_ops.make_scalars(1e-3, 1.0, 0.9, 0.999, 1e-8, 1)
+    want = adam_ops.fused_tree_update_ref(ws, gs, ms, vs, sc,
+                                          prox=[True] * len(ws))
+    adam_ops.fused_tree_update(ws, gs, ms, vs, sc, prox=[True] * len(ws))
+    torch.cuda.synchronize()
+    for w, (w2, _, _) in zip(ws, want):
+        assert torch.equal(w, w2)
 
 
 # ---------------------------------------------------------------------------
